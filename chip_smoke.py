@@ -5,8 +5,10 @@
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build both kernels from the sources in this checkout (nvcc for
-     csrc/fused_predict.cu, Triton's JIT for the rows soft-argmax);
+  2. build every kernel from the sources in this checkout (one nvcc each,
+     all started together, for csrc/fused_predict.cu, csrc/conv3x3.cu and
+     csrc/decoder_chain.cu, with their ptxas registers, shared memory and
+     spills; Triton's JIT for the rows soft-argmax);
   3. hold each kernel against its plain PyTorch version at the eval
      path's shapes, a ragged shape and a peaked map, and time kernel,
      plain version and bound with CUDA events;
@@ -19,12 +21,20 @@ Phases, each fatal on failure:
      version on one request's own decode-tail operands;
   6. where one more request's time goes: its two stages on the host clock,
      and a torch.profiler trace (kernel time, device busy share, top
-     kernels).
+     kernels);
+  7. the probe paths at their full shapes, through
+     mst_tpu_torch.probes.{conv,chain}_probe.run(): the two 3x3 conv
+     kernels (x (160, 176, 240, 128) bf16) and the two decoder-chain
+     kernels (x (160, 176, 240, 64), P = 12) against their plain versions,
+     timed beside their yardsticks; each probe's launch counts must rise;
+     then the kernels on ragged shapes and the chain's uniform-logits
+     closed form, and a torch.profiler breakdown of each yardstick.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
 
+import ctypes
 import json
 import os
 import re
@@ -35,10 +45,14 @@ import time
 
 # H100 SXM peaks (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
+F32_FLOP_PER_S = 67e12    # f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores
 
 ROWS_TOL = 1e-3   # px, rows soft-argmax vs its plain version (f32)
 FUSED_TOL = 1e-2  # px, fused predictor + soft-argmax vs its plain version
+# px: with wpred = 0 every map is uniform and the answer is a closed form;
+# only f32 sums of the coordinates stand between
+UNIFORM_TOL = 1e-3
 
 
 def check(cond, msg):
@@ -46,30 +60,43 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def time_ms(torch, fn, iters):
-    """Mean device time of fn over iters launches, after a warm-up."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_name(mangled):
+    """'_ZN<n><namespace><n><name>[I<Li<v>E...>E]...' -> 'name<v,...>'."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    i = m.end() + int(m.group(1))
+    n = re.match(r"\d+", mangled[i:])
+    if not n:
+        return mangled
+    start = i + n.end()
+    name = mangled[start:start + int(n.group())]
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[start + int(n.group()):])
+    if args:
+        name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+    return name
+
+
+def print_ptxas(logs):
+    """Each kernel's registers, shared memory and spills from -Xptxas -v."""
+    for line in "".join(logs.values()).splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            print(f"ptxas: {kernel_name(entry.group(1))}")
+        elif "registers" in line or "spill" in line:
+            print(f"ptxas:   {line.replace('ptxas info    :', '').strip()}")
 
 
 def check_rows_kernel(torch):
     from mst_tpu_torch.ops.kernels.softargmax_rows import (plain,
                                                            softargmax2d_rows)
+    from mst_tpu_torch.probes import time_ms
 
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((8, 352, 480), generator=g, device="cuda") * 4
@@ -89,8 +116,8 @@ def check_rows_kernel(torch):
                - torch.tensor([42.0, 17.0], device="cuda")).abs().max())
     check(e <= 1e-2, f"rows kernel misses the peak by {e}")
     R, H, W = x.shape
-    ms = time_ms(torch, lambda: softargmax2d_rows(x), 200)
-    plain_ms = time_ms(torch, lambda: plain(x), 200)
+    ms = time_ms(lambda: softargmax2d_rows(x), 200)
+    plain_ms = time_ms(lambda: plain(x), 200)
     b_ms, b_by = bound(R * H * W * 4 + R * 2 * 4, R * H * W * 8)
     return {"name": "softargmax_rows", "route": "triton",
             "source": "mst_tpu_torch/ops/kernels/softargmax_rows.py",
@@ -102,6 +129,7 @@ def check_rows_kernel(torch):
 def check_fused_kernel(torch):
     from mst_tpu_torch.ops.kernels.fused_predict import (
         fused_predictor_softargmax, fused_predictor_softargmax_plain)
+    from mst_tpu_torch.probes import time_ms
 
     g = torch.Generator(device="cuda").manual_seed(1)
 
@@ -133,9 +161,9 @@ def check_fused_kernel(torch):
     e = float((got - torch.tensor([10.0, 7.0], device="cuda")).abs().max())
     check(e <= 1e-2, f"fused kernel misses the peak by {e}")
     x, w, b = sl
-    ms = time_ms(torch, lambda: fused_predictor_softargmax(x, w, b), 20)
+    ms = time_ms(lambda: fused_predictor_softargmax(x, w, b), 20)
     plain_ms = time_ms(
-        torch, lambda: fused_predictor_softargmax_plain(x, w, b), 5)
+        lambda: fused_predictor_softargmax_plain(x, w, b), 5)
     b_ms, b_by = bound(x.numel() * 4 + (w.numel() + b.numel()) * 4
                        + R * P * 2 * 4,
                        R * H * W * P * (2 * C + 8))
@@ -209,6 +237,148 @@ def check_path_tail(torch, pred, semantic, observed, seed):
     return max(err, diff)
 
 
+PROBE_KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "conv3x3_taps": ("mst_tpu_torch/csrc/conv3x3.cu",
+                     "benchmarks/pallas_conv_probe.py:59"),
+    "conv3x3_im2col": ("mst_tpu_torch/csrc/conv3x3.cu",
+                       "benchmarks/pallas_conv_probe.py:111"),
+    "chain_plane": ("mst_tpu_torch/csrc/decoder_chain.cu",
+                    "benchmarks/pallas_chain_probe.py:233"),
+    "chain_stream": ("mst_tpu_torch/csrc/decoder_chain.cu",
+                     "benchmarks/pallas_chain_probe.py:199"),
+}
+
+
+def probe_paths(torch):
+    """Phase 7: both probe paths at full shape, each driven with its
+    kernels' counts set to 0 just before and read just after; -> one
+    record per kernel, with its bound at the probe's shape."""
+    from mst_tpu_torch.probes import chain_probe, conv_probe
+
+    records = []
+    for probe in (conv_probe, chain_probe):
+        fns = dict(probe.KERNELS)
+        for fn in fns.values():
+            fn.launches = 0
+        recs = probe.run()
+        launches = {name: fn.launches for name, fn in fns.items()}
+        print(f"{probe.__name__} path launches: {launches}")
+        for r in recs:
+            r["launches"] = launches[r["name"]]
+            check(r["launches"] > 0, f"{r['name']} never ran on its path")
+        records += recs
+        torch.cuda.empty_cache()
+
+    B, H, W, C, Co = conv_probe.FULL
+    conv_bound = bound(2 * (B * H * W * C + 9 * C * Co + B * H * W * Co),
+                       2 * B * H * W * 9 * C * Co, BF16_FLOP_PER_S)
+    KB, Hp, Wp, C, CA, P = chain_probe.FULL
+    chain_bound = bound(
+        2 * (KB * Hp * Wp * C + 9 * C * CA + 9 * CA * CA + CA * 4 * P)
+        + 4 * (2 * CA + 4 * P) + 4 * KB * 2 * P,
+        2 * KB * Hp * Wp * (9 * C * CA + 9 * CA * CA + CA * 4 * P),
+        BF16_FLOP_PER_S)
+    for r in records:
+        source, replaces = PROBE_KERNELS[r["name"]]
+        r.update(route="cuda", source=source, replaces=replaces)
+        r["bound_ms"], r["bound_by"] = (
+            conv_bound if r["name"].startswith("conv") else chain_bound)
+    return records
+
+
+def probe_edge_cases(torch, records):
+    """After the counts were read: the probe kernels on ragged shapes
+    (H and W divisible by no tile, 4P = 20) and, at the chain probe's full
+    shape, the uniform-logits closed form X = (2 Wp - 1) / 2,
+    Y = (2 Hp - 1) / 2."""
+    from mst_tpu_torch.ops.kernels.conv3x3 import conv3x3_plain
+    from mst_tpu_torch.ops.kernels.decoder_chain import chain_plain
+    from mst_tpu_torch.probes import chain_probe, conv_probe
+
+    fns = dict(conv_probe.KERNELS + chain_probe.KERNELS)
+    by_name = {r["name"]: r for r in records}
+    x, w = conv_probe.make_inputs((3, 37, 53, 128, 128), torch.bfloat16,
+                                  "cuda", seed=1)
+    want = conv3x3_plain(x, w)
+    for name, _ in conv_probe.KERNELS:
+        e = float((fns[name](x, w).float() - want.float()).abs().max())
+        print(f"{name} ragged {tuple(x.shape)}: max |kernel - plain| = "
+              f"{e:.3e} (tol {conv_probe.TOL})")
+        check(e <= conv_probe.TOL, f"{name} disagrees on the ragged shape")
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], e)
+    P = 5
+    args = chain_probe.make_inputs((3, 37, 53, 64, 128, P), torch.bfloat16,
+                                   "cuda", seed=1)
+    want = chain_plain(*args, P)
+    for name, _ in chain_probe.KERNELS:
+        e = float((fns[name](*args, P) - want).abs().max())
+        print(f"{name} ragged {tuple(args[0].shape)}, P {P}: max |kernel - "
+              f"plain| = {e:.3e} px (tol {chain_probe.TOL})")
+        check(e <= chain_probe.TOL, f"{name} disagrees on the ragged shape")
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], e)
+    x, wa, ba, wb, bb, wpred, bpred = chain_probe.make_inputs(
+        chain_probe.FULL, torch.bfloat16, "cuda", seed=2)
+    KB, Hp, Wp, _, _, P = chain_probe.FULL
+    closed = torch.tensor([(2 * Wp - 1) / 2, (2 * Hp - 1) / 2],
+                          device="cuda")[None, :, None]
+    for name, _ in chain_probe.KERNELS:
+        got = fns[name](x, wa, ba, wb, bb, torch.zeros_like(wpred),
+                        torch.zeros_like(bpred), P)
+        e = float((got - closed).abs().max())
+        print(f"{name} uniform logits {tuple(x.shape)}: max |kernel - "
+              f"closed form| = {e:.3e} px (tol {UNIFORM_TOL})")
+        check(e <= UNIFORM_TOL, f"{name} misses the uniform closed form")
+
+
+def yardstick_breakdown(torch):
+    """Where the yardsticks' time goes: one cuDNN conv and one library
+    chain at the probes' shapes, each traced by torch.profiler after a
+    warm-up call (kernel time by name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mst_tpu_torch.probes import chain_probe, conv_probe
+
+    x, w = conv_probe.make_inputs(conv_probe.FULL, torch.bfloat16, "cuda")
+    w_oihw = conv_probe.library_weight(w)
+    args = chain_probe.library_inputs(*chain_probe.make_inputs(
+        chain_probe.FULL, torch.bfloat16, "cuda")) + (chain_probe.FULL[-1],)
+    for label, fn in (
+            ("library conv", lambda: conv_probe.library_conv3x3(x, w_oihw)),
+            ("library chain", lambda: chain_probe.library_chain(*args))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in kernels) / 1e3
+        print(f"{label}: {total:.3f} ms of kernels in one traced call")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<3d} "
+                  f"{e.key[:90]}")
+
+
+def print_smem():
+    """Dynamic shared memory a block of each conv and chain kernel asks
+    for, at the probes' channel counts (ptxas -v shows only static)."""
+    from mst_tpu_torch.ops.kernels import _build
+
+    for lib, fn, kernels, C in (
+            ("conv3x3", "conv3x3_smem_bytes",
+             ("conv3x3_taps", "conv3x3_im2col"), 128),
+            ("decoder_chain", "decoder_chain_smem_bytes",
+             ("chain_plane_stage_a", "chain_plane_tail", "chain_stream"),
+             64)):
+        f = getattr(_build.load(lib), fn)
+        f.argtypes = [ctypes.c_int, ctypes.c_int]
+        f.restype = ctypes.c_int
+        for i, name in enumerate(kernels):
+            print(f"dynamic shared memory: {name} (C = {C}) {f(i, C)} bytes "
+                  "a block")
+
+
 def where_time_goes(torch, pred, semantic, observed):
     """One more request, split into its two stages on the host clock (each
     ending in a synchronize), then traced by torch.profiler: total kernel
@@ -280,22 +450,14 @@ def main():
 
     # ---- 2. build
     t0 = time.perf_counter()
-    logs = _build.build(["fused_predict"])
-    for line in "".join(logs.values()).splitlines():
-        entry = re.search(r"Compiling entry function '(\w+)'", line)
-        if entry:  # the mangled name carries the template's capacity
-            cap = re.search(r"ILi(\d+)E", entry.group(1))
-            name = re.sub(r"^_Z\w*?N\w*?\d+(fused_predict_\w+?)(I|E|P).*",
-                          r"\1", entry.group(1))
-            print(f"ptxas: {name}" + (f"<{cap.group(1)}>" if cap else ""))
-        elif "registers" in line or "spill" in line:
-            print(f"ptxas:   {line.replace('ptxas info    :', '').strip()}")
+    print_ptxas(_build.build(["fused_predict", "conv3x3", "decoder_chain"]))
+    print_smem()
     t1 = time.perf_counter()
     softargmax2d_rows(torch.zeros((1, 8, 8), device="cuda"))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    print(f"build: nvcc fused_predict.cu {t1 - t0:.1f} s, "
-          f"triton rows kernel {t2 - t1:.1f} s")
+    print(f"build: nvcc fused_predict.cu, conv3x3.cu, decoder_chain.cu "
+          f"{t1 - t0:.1f} s, triton rows kernel {t2 - t1:.1f} s")
 
     # ---- 3. kernels against their plain versions
     records = [check_rows_kernel(torch), check_fused_kernel(torch)]
@@ -382,6 +544,21 @@ def main():
 
     # ---- 6. where a request's time goes
     where_time_goes(torch, base, semantic, observed)
+
+    # ---- 7. the probe paths: the conv and decoder-chain kernels
+    del base
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    probe_records = probe_paths(torch)
+    probe_edge_cases(torch, probe_records)
+    for r in probe_records:
+        lib = (f", library {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else "")
+        print(f"{r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+              f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    yardstick_breakdown(torch)
+    print(f"probe phase: {time.perf_counter() - t0:.1f} s")
+    records += probe_records
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

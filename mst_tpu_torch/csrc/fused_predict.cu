@@ -25,25 +25,15 @@
 // a simple correct kernel first.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
+
+#include "online_softmax.cuh"
 
 namespace {
 
+using online_softmax::Stats;
+
 constexpr int kThreads = 256;
 constexpr int kMaxP = 32;  // output channels; pred_len is 12 or 30
-
-struct Stats {
-  float m, s, sx, sy;
-};
-
-__device__ __forceinline__ Stats merge(Stats a, Stats b) {
-  const float M = fmaxf(a.m, b.m);
-  if (M == -CUDART_INF_F) return a;  // both empty
-  const float fa = __expf(a.m - M);
-  const float fb = __expf(b.m - M);
-  return {M, a.s * fa + b.s * fb, a.sx * fa + b.sx * fb,
-          a.sy * fa + b.sy * fb};
-}
 
 // PC: the P channels rounded up to a compiled capacity; the extra channels
 // get zero weights and are never written.
@@ -74,7 +64,7 @@ fused_predict_partial(const float* __restrict__ x, const float* __restrict__ w,
 
   Stats st[PC];
 #pragma unroll
-  for (int p = 0; p < PC; ++p) st[p] = {-CUDART_INF_F, 0.f, 0.f, 0.f};
+  for (int p = 0; p < PC; ++p) st[p] = online_softmax::empty();
 
   const float* xrow = x + static_cast<long long>(row) * HW * C;
   for (int pix = start + threadIdx.x; pix < end; pix += blockDim.x) {
@@ -105,18 +95,7 @@ fused_predict_partial(const float* __restrict__ x, const float* __restrict__ w,
     const float fx = static_cast<float>(pix % W);
     const float fy = static_cast<float>(pix / W);
 #pragma unroll
-    for (int p = 0; p < PC; ++p) {
-      const float l = acc[p];
-      if (l > st[p].m) {  // new maximum: rescale what came before
-        const float f = __expf(st[p].m - l);
-        st[p] = {l, st[p].s * f + 1.f, st[p].sx * f + fx, st[p].sy * f + fy};
-      } else {
-        const float e = __expf(l - st[p].m);
-        st[p].s += e;
-        st[p].sx = fmaf(e, fx, st[p].sx);
-        st[p].sy = fmaf(e, fy, st[p].sy);
-      }
-    }
+    for (int p = 0; p < PC; ++p) online_softmax::push(st[p], acc[p], fx, fy);
   }
 
   // merge across the warp, then across the block's warps
@@ -130,7 +109,7 @@ fused_predict_partial(const float* __restrict__ x, const float* __restrict__ w,
                  __shfl_down_sync(0xffffffffu, a.s, off),
                  __shfl_down_sync(0xffffffffu, a.sx, off),
                  __shfl_down_sync(0xffffffffu, a.sy, off)};
-      a = merge(a, o);
+      a = online_softmax::merge(a, o);
     }
     if (lane == 0) red[warp * PC + p] = a;
   }
@@ -138,7 +117,9 @@ fused_predict_partial(const float* __restrict__ x, const float* __restrict__ w,
   const int n_warps = blockDim.x >> 5;
   for (int p = threadIdx.x; p < P; p += blockDim.x) {
     Stats a = red[p];
-    for (int k = 1; k < n_warps; ++k) a = merge(a, red[k * PC + p]);
+    for (int k = 1; k < n_warps; ++k) {
+      a = online_softmax::merge(a, red[k * PC + p]);
+    }
     float* out = part + ((static_cast<long long>(row) * n_chunks + chunk) * P
                          + p) * 4;
     out[0] = a.m;
@@ -154,11 +135,11 @@ __global__ void fused_predict_merge(const float* __restrict__ part,
   const int row = blockIdx.x;
   const int p = threadIdx.x;
   if (p >= P) return;
-  Stats a = {-CUDART_INF_F, 0.f, 0.f, 0.f};
+  Stats a = online_softmax::empty();
   for (int c = 0; c < n_chunks; ++c) {
     const float* q = part + ((static_cast<long long>(row) * n_chunks + c) * P
                              + p) * 4;
-    a = merge(a, Stats{q[0], q[1], q[2], q[3]});
+    a = online_softmax::merge(a, Stats{q[0], q[1], q[2], q[3]});
   }
   const float inv = 1.f / (a.s + eps);
   out[(row * P + p) * 2] = a.sx * inv;

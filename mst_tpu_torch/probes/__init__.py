@@ -1,0 +1,50 @@
+"""Probes on the card: do the hand-written conv kernels and the decoder
+chain beat cuDNN at the finest decoder level's shapes?
+
+    python -m mst_tpu_torch.probes.conv_probe    # one CUDA card
+    python -m mst_tpu_torch.probes.chain_probe
+    python -m mst_tpu_torch.probes.chain_probe --cpu   # correctness only
+
+The counterparts of benchmarks/pallas_conv_probe.py and
+benchmarks/pallas_chain_probe.py. Each `run(device=None)` makes its inputs
+from a seed on the device, holds every kernel against its plain version,
+times kernels, plain version and a library yardstick with CUDA events, and
+returns one record per kernel. Without a card they raise unless asked for
+the CPU, where they check the plain versions at small shapes.
+"""
+
+import argparse
+
+import torch
+
+
+def time_ms(fn, iters):
+    """Mean device time of fn over iters calls, after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_abs_diff(a, b):
+    return float((a.to(torch.float32) - b.to(torch.float32)).abs().max())
+
+
+def main_of(run, description):
+    """A probe's command line: `--cpu` asks for the CPU shapes."""
+    def main(argv=None):
+        parser = argparse.ArgumentParser(description=description)
+        parser.add_argument("--cpu", action="store_true",
+                            help="correctness only, plain versions on the "
+                            "CPU at small shapes")
+        args = parser.parse_args(argv)
+        run("cpu" if args.cpu else None)
+        return 0
+    return main

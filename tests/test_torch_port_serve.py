@@ -219,5 +219,6 @@ def test_port_imports_no_jax_and_no_mst_tpu():
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "mst_tpu", "optax"), \
+            assert root not in ("jax", "jaxlib", "mst_tpu", "optax",
+                                "benchmarks"), \
                 f"{os.path.relpath(path, REPO)} imports {name}"
