@@ -6,9 +6,10 @@
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build every kernel from the sources in this checkout (one nvcc each,
-     all started together, for csrc/fused_predict.cu, csrc/conv3x3.cu and
-     csrc/decoder_chain.cu, with their ptxas registers, shared memory and
-     spills; Triton's JIT for the rows soft-argmax);
+     all started together, for csrc/fused_predict.cu, csrc/conv3x3.cu (on
+     csrc/conv_wgmma.cuh) and csrc/decoder_chain.cu, with their ptxas
+     registers, spills and dynamic shared memory; Triton's JIT for the rows
+     soft-argmax);
   3. hold each kernel against its plain PyTorch version at the eval
      path's shapes, a ragged shape and a peaked map, and time kernel,
      plain version and bound with CUDA events;
@@ -26,9 +27,12 @@ Phases, each fatal on failure:
      mst_tpu_torch.probes.{conv,chain}_probe.run(): the two 3x3 conv
      kernels (x (160, 176, 240, 128) bf16) and the two decoder-chain
      kernels (x (160, 176, 240, 64), P = 12) against their plain versions,
-     timed beside their yardsticks; each probe's launch counts must rise;
-     then the kernels on ragged shapes and the chain's uniform-logits
-     closed form, and a torch.profiler breakdown of each yardstick.
+     timed beside their yardsticks (a conv kernel that moves more outputs
+     off the correctly rounded value than cuDNN fails); each probe's launch
+     counts must rise; then the conv kernels on ragged shapes at C = 32,
+     64, 96 and 128, an image smaller than a tile and 400 small images, the
+     chains on a ragged shape and their uniform-logits closed form, and a
+     torch.profiler breakdown of each yardstick.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -286,26 +290,37 @@ def probe_paths(torch):
     return records
 
 
+# (B, H, W, C) of the conv kernels' edge cases: H and W divisible by no
+# tile at every C the wrappers take (C = 32 and 96 fill a 64-channel block
+# partly), an image smaller than one tile, and 400 images of two tiles,
+# so that each persistent block walks several images
+CONV_EDGE_CASES = ((3, 37, 53, 128), (3, 37, 53, 32), (2, 37, 53, 64),
+                   (2, 37, 53, 96), (1, 5, 7, 64), (400, 12, 20, 128))
+
+
 def probe_edge_cases(torch, records):
-    """After the counts were read: the probe kernels on ragged shapes
-    (H and W divisible by no tile, 4P = 20) and, at the chain probe's full
-    shape, the uniform-logits closed form X = (2 Wp - 1) / 2,
-    Y = (2 Hp - 1) / 2."""
+    """After the counts were read: the probe kernels on edge cases (the
+    convs' CONV_EDGE_CASES; the chains on H and W divisible by no tile,
+    4P = 20) and, at the chain probe's full shape, the uniform-logits
+    closed form X = (2 Wp - 1) / 2, Y = (2 Hp - 1) / 2."""
     from mst_tpu_torch.ops.kernels.conv3x3 import conv3x3_plain
     from mst_tpu_torch.ops.kernels.decoder_chain import chain_plain
     from mst_tpu_torch.probes import chain_probe, conv_probe
 
     fns = dict(conv_probe.KERNELS + chain_probe.KERNELS)
     by_name = {r["name"]: r for r in records}
-    x, w = conv_probe.make_inputs((3, 37, 53, 128, 128), torch.bfloat16,
-                                  "cuda", seed=1)
-    want = conv3x3_plain(x, w)
-    for name, _ in conv_probe.KERNELS:
-        e = float((fns[name](x, w).float() - want.float()).abs().max())
-        print(f"{name} ragged {tuple(x.shape)}: max |kernel - plain| = "
-              f"{e:.3e} (tol {conv_probe.TOL})")
-        check(e <= conv_probe.TOL, f"{name} disagrees on the ragged shape")
-        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], e)
+    for shape in CONV_EDGE_CASES:
+        x, w = conv_probe.make_inputs(shape + (128,), torch.bfloat16, "cuda",
+                                      seed=1)
+        want = conv3x3_plain(x, w)
+        for name, _ in conv_probe.KERNELS:
+            e = float((fns[name](x, w).float() - want.float()).abs().max())
+            print(f"{name} {tuple(x.shape)}: max |kernel - plain| = "
+                  f"{e:.3e} (tol {conv_probe.TOL})")
+            check(e <= conv_probe.TOL, f"{name} disagrees on {shape}")
+            by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
+                                               e)
+        del x, w, want
     P = 5
     args = chain_probe.make_inputs((3, 37, 53, 64, 128, P), torch.bfloat16,
                                    "cuda", seed=1)
@@ -365,18 +380,18 @@ def print_smem():
     for, at the probes' channel counts (ptxas -v shows only static)."""
     from mst_tpu_torch.ops.kernels import _build
 
-    for lib, fn, kernels, C in (
+    for lib, fn, kernels, channels in (
             ("conv3x3", "conv3x3_smem_bytes",
-             ("conv3x3_taps", "conv3x3_im2col"), 128),
+             ("conv3x3_taps", "conv3x3_im2col"), (32, 64, 96, 128)),
             ("decoder_chain", "decoder_chain_smem_bytes",
              ("chain_plane_stage_a", "chain_plane_tail", "chain_stream"),
-             64)):
+             (64,))):
         f = getattr(_build.load(lib), fn)
         f.argtypes = [ctypes.c_int, ctypes.c_int]
         f.restype = ctypes.c_int
         for i, name in enumerate(kernels):
-            print(f"dynamic shared memory: {name} (C = {C}) {f(i, C)} bytes "
-                  "a block")
+            sizes = ", ".join(f"{f(i, C)} (C = {C})" for C in channels)
+            print(f"dynamic shared memory: {name} {sizes} bytes a block")
 
 
 def where_time_goes(torch, pred, semantic, observed):

@@ -1,13 +1,15 @@
 """SAME 3x3 stride-1 convs, bf16 NHWC x HWIO -> bf16: two CUDA C++ kernels
-for Hopper (csrc/conv3x3.cu, on the shared block csrc/conv_tile.cuh) and
-their plain version.
+for Hopper (csrc/conv3x3.cu, on the wgmma/TMA building blocks of
+csrc/conv_wgmma.cuh) and their plain version.
 
 `conv3x3_taps` replaces the TPU kernel benchmarks/pallas_conv_probe.py:59
-`pallas_conv3x3` (nine K=C products per tile, one per tap) and
-`conv3x3_im2col` replaces :111 `pallas_conv3x3_v2` (one K=9C contraction
-per tile). Both stage each 8 x 16 pixel tile with a zero-filled 1-pixel
-halo in shared memory once and stream the weights through it in K chunks;
-neither pads x in device memory, so any H and W work.
+`pallas_conv3x3` (nine K=C products per tile, one per tap, A read from the
+tile staged once with its halo) and `conv3x3_im2col` replaces :111
+`pallas_conv3x3_v2` (one K=9C contraction per tile, each im2col K block
+brought by TMA). Both work on 16 x 16 pixel tiles in a persistent grid and
+stream the weight by TMA in its K-major re-layout (`kmajor_weight`); TMA
+zero-fills the SAME halo, so x is not padded in device memory and any H
+and W work.
 
 Bound on an H100 at the probe's shape ((160, 176, 240, 128) x (3, 3, 128,
 128)): operations, 1.993e12 FLOP = 2.02 ms at 989 TFLOP/s dense bf16 (the
@@ -22,9 +24,11 @@ import torch.nn.functional as F
 from mst_tpu_torch.ops.kernels import _build
 
 CHANNELS_OUT = 128        # Co the kernels compute
-CHANNEL_MULTIPLE = 32     # C % 32 == 0 (one weight chunk is one tap)
+CHANNEL_MULTIPLE = 32     # C % 32 == 0
 MAX_CHANNELS = 128        # C
+K_BLOCK = 64              # K rows of one weight block the kernels stream
 PLAIN_CHUNK = 16          # images per step of the plain version
+TILE = 16                 # the kernels' tiles are TILE x TILE pixels
 
 
 def conv3x3_sum(x, w):
@@ -56,6 +60,24 @@ def conv3x3_plain(x, w):
         out[i:i + PLAIN_CHUNK] = conv3x3_sum(x[i:i + PLAIN_CHUNK],
                                              w).to(x.dtype)
     return out
+
+
+def kmajor_weight(w):
+    """HWIO (3, 3, C, Co) -> the kernels' K-major (Co, 9 Cp) weight: row
+    co, column tap * Cp + ci with tap = 3 dy + dx, Cp = C rounded up to
+    K_BLOCK, zero where ci >= C (so each K block lies in one tap)."""
+    C, Co = w.shape[2], w.shape[3]
+    cp = -(-C // K_BLOCK) * K_BLOCK
+    wk = w.new_zeros((Co, 9, cp))
+    wk[:, :, :C] = w.reshape(9, C, Co).permute(2, 0, 1)
+    return wk.reshape(Co, 9 * cp)
+
+
+def l2_weight_bytes(B, H, W, C):
+    """Weight bytes both kernels read from L2 in one call: every tile of
+    TILE x TILE pixels streams the whole K-major weight once."""
+    tiles = B * -(-H // TILE) * -(-W // TILE)
+    return tiles * 9 * -(-C // K_BLOCK) * K_BLOCK * CHANNELS_OUT * 2
 
 
 def check_bf16(fn_name, **tensors):
@@ -90,6 +112,7 @@ def _launch(symbol, fn_name, x, w):
                          f" got {tuple(w.shape)}")
     check_channels(fn_name, C)
     check_bf16(fn_name, x=x, w=w)
+    wk = kmajor_weight(w)
     out = torch.empty((B, H, W, CHANNELS_OUT), dtype=torch.bfloat16,
                       device=x.device)
     fn = getattr(_build.load("conv3x3"), symbol)
@@ -99,11 +122,12 @@ def _launch(symbol, fn_name, x, w):
         fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, H, W, C,
+        err = fn(x.data_ptr(), wk.data_ptr(), out.data_ptr(), B, H, W, C,
                  stream)
     if err != 0:
-        raise RuntimeError(f"{fn_name} kernel launch failed: cudaError_t "
-                           f"{err}")
+        raise RuntimeError(f"{fn_name} kernel launch failed: error {err} "
+                           "(a cudaError_t; 999: no cuTensorMapEncodeTiled; "
+                           "1000 + CUresult: a refused tensor map)")
     return out
 
 
@@ -112,7 +136,7 @@ def conv3x3_taps(x, w):
 
     A CPU tensor takes the plain version. A CUDA tensor launches the taps
     kernel, which needs contiguous bf16 x and w with C % 32 == 0, C <= 128;
-    anything else raises.
+    anything else raises. Any B, H and W.
     """
     if x.device.type == "cpu":
         return conv3x3_plain(x, w)

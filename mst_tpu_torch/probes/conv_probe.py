@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from mst_tpu_torch import resolve_device
 from mst_tpu_torch.ops.kernels.conv3x3 import (conv3x3_im2col, conv3x3_plain,
-                                               conv3x3_taps)
+                                               conv3x3_taps, l2_weight_bytes)
 from mst_tpu_torch.probes import main_of, max_abs_diff, time_ms
 
 FULL = (160, 176, 240, 128, 128)  # KB, H, W, C, Co (pallas_conv_probe:153)
@@ -60,10 +60,21 @@ def library_conv3x3(x, w_oihw):
         0, 2, 3, 1)
 
 
+def check_share(name, share, library_share):
+    """On the card a kernel may move no larger share of outputs off the
+    correctly rounded value than the library conv does on the same
+    inputs: its accumulation is held to the library's."""
+    if share > library_share:
+        raise RuntimeError(f"conv probe: {name} moves {share:.3e} of "
+                           "outputs off the correctly rounded value, more "
+                           f"than the library conv's {library_share:.3e}")
+
+
 def run(device=None):
     """Check and (on the card) time both kernels at the probe's shape;
-    -> [{"name", "max_abs_err", "ms", "plain_ms", "library_ms"}] (the
-    times only on the card)."""
+    -> [{"name", "max_abs_err", "share", "ms", "plain_ms", "library_ms"}]
+    (the times only on the card). On the card a kernel raises if it moves
+    more outputs off the correctly rounded value than the library conv."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     shape = FULL if on_card else CPU
@@ -81,9 +92,9 @@ def run(device=None):
         return (max_abs_diff(got, want),
                 float((got != want).to(torch.float32).mean()))
 
-    err, share = off(library_conv3x3(x, w_oihw))
+    err, library_share = off(library_conv3x3(x, w_oihw))
     print(f"[conv probe] library conv max abs err vs plain: {err:.4g}, "
-          f"{share:.3e} of outputs differ")
+          f"{library_share:.3e} of outputs differ")
     if not on_card and err > CPU_TOL:
         raise RuntimeError(f"conv probe: plain conv disagrees with the "
                            f"library conv by {err}")
@@ -95,7 +106,9 @@ def run(device=None):
         if not err <= tol:
             raise RuntimeError(f"conv probe: {name} disagrees with its "
                                f"plain version by {err}")
-        records.append({"name": name, "max_abs_err": err})
+        if on_card:
+            check_share(name, share, library_share)
+        records.append({"name": name, "max_abs_err": err, "share": share})
     del want
     if not on_card:
         print("(CPU: correctness only)")
@@ -105,14 +118,18 @@ def run(device=None):
     tflop = 2 * B * H * W * 9 * C * Co / 1e12
     plain_ms = time_ms(lambda: conv3x3_plain(x, w), 3)
     library_ms = time_ms(lambda: library_conv3x3(x, w_oihw), 10)
-    for name, ms in (("plain", plain_ms), ("library conv (cuDNN)", library_ms)):
-        print(f"{name}: {ms:.3f} ms ({tflop / ms * 1e3:.1f} TF/s)")
+    print(f"plain: {plain_ms:.3f} ms ({tflop / plain_ms * 1e3:.1f} TF/s)")
+    print(f"library conv (cuDNN): {library_ms:.3f} ms "
+          f"({tflop / library_ms * 1e3:.1f} TF/s; its L2 weight bytes are "
+          "not known)")
+    weight_gb = l2_weight_bytes(B, H, W, C) / 1e9
     for r, (name, fn) in zip(records, KERNELS):
         r["ms"] = time_ms(lambda fn=fn: fn(x, w), 10)
         r["plain_ms"] = plain_ms
         r["library_ms"] = library_ms
-        print(f"{name}: {r['ms']:.3f} ms ({tflop / r['ms'] * 1e3:.1f} TF/s)",
-              flush=True)
+        print(f"{name}: {r['ms']:.3f} ms ({tflop / r['ms'] * 1e3:.1f} TF/s, "
+              f"{r['ms'] / library_ms:.2f}x the library conv; {weight_gb:.2f}"
+              " GB of weight from L2, reckoned)", flush=True)
     return records
 
 

@@ -43,16 +43,42 @@ def chain_inputs(rng, KB, Hp, Wp, C, CA, P):
             mk((4 * P,), 0.1))
 
 
-@pytest.mark.parametrize("port,pallas", [
-    (conv3x3.conv3x3_taps, lambda x, w: pallas_conv3x3(x, w, True)),
-    (conv3x3.conv3x3_im2col, lambda x, w: pallas_conv3x3_v2(x, w, 8, True)),
-    (conv3x3.conv3x3_im2col, lambda x, w: pallas_conv3x3_v2(x, w, 16, True)),
-], ids=["taps-v1", "im2col-v2.bh8", "im2col-v2.bh16"])
-def test_conv3x3_matches_pallas(rng, port, pallas):
-    x, w = conv_inputs(rng, 2, 16, 32, 8, 8)
+def _v1(x, w):
+    return pallas_conv3x3(x, w, True)
+
+
+def _v2(bh):
+    return lambda x, w: pallas_conv3x3_v2(x, w, bh, True)
+
+
+def conv_atol(C):
+    """The f32 reference sums 9C products in another order than the
+    float64 plain version: its absolute error grows as sqrt(9C), from 1e-6
+    at the TPU probe's C = 8."""
+    return 1e-6 * (C / 8) ** 0.5
+
+
+def conv_out_channels(C):
+    """The TPU probe's CPU shape has C = Co = 8; at the kernels' own
+    channel counts Co is 128, the only Co they compute."""
+    return 8 if C == 8 else conv3x3.CHANNELS_OUT
+
+
+@pytest.mark.parametrize("port,pallas,C", [
+    pytest.param(conv3x3.conv3x3_taps, _v1, 8, id="taps-v1"),
+    pytest.param(conv3x3.conv3x3_im2col, _v2(8), 8, id="im2col-v2.bh8"),
+    pytest.param(conv3x3.conv3x3_im2col, _v2(16), 8, id="im2col-v2.bh16"),
+    pytest.param(conv3x3.conv3x3_taps, _v1, 32, id="taps-v1-C32"),
+    pytest.param(conv3x3.conv3x3_taps, _v1, 96, id="taps-v1-C96"),
+    pytest.param(conv3x3.conv3x3_im2col, _v2(8), 32, id="im2col-v2.bh8-C32"),
+    pytest.param(conv3x3.conv3x3_im2col, _v2(16), 96,
+                 id="im2col-v2.bh16-C96"),
+])
+def test_conv3x3_matches_pallas(rng, port, pallas, C):
+    x, w = conv_inputs(rng, 2, 16, 32, C, conv_out_channels(C))
     want = np.asarray(pallas(jnp.asarray(x), jnp.asarray(w)))
     np.testing.assert_allclose(port(t(x), t(w)).numpy(), want,
-                               rtol=CONV_RTOL, atol=1e-6)
+                               rtol=CONV_RTOL, atol=conv_atol(C))
 
 
 @pytest.mark.parametrize("port,pallas", [
@@ -69,14 +95,62 @@ def test_chain_matches_pallas(rng, port, pallas):
     np.testing.assert_allclose(got.numpy(), want, atol=CHAIN_TOL)
 
 
-@pytest.mark.parametrize("port", [conv3x3.conv3x3_taps,
-                                  conv3x3.conv3x3_im2col])
-def test_conv3x3_ragged_matches_xla(rng, port):
+@pytest.mark.parametrize("port,C", [
+    pytest.param(conv3x3.conv3x3_taps, 8, id="conv3x3_taps"),
+    pytest.param(conv3x3.conv3x3_im2col, 8, id="conv3x3_im2col"),
+    pytest.param(conv3x3.conv3x3_taps, 32, id="taps-C32"),
+    pytest.param(conv3x3.conv3x3_taps, 96, id="taps-C96"),
+    pytest.param(conv3x3.conv3x3_im2col, 32, id="im2col-C32"),
+    pytest.param(conv3x3.conv3x3_im2col, 96, id="im2col-C96"),
+])
+def test_conv3x3_ragged_matches_xla(rng, port, C):
     """H and W divisible by no tile: the port takes any shape."""
-    x, w = conv_inputs(rng, 1, 37, 53, 8, 16)
+    x, w = conv_inputs(rng, 1, 37, 53, C, 16 if C == 8 else 128)
     want = np.asarray(xla_conv3x3(jnp.asarray(x), jnp.asarray(w)))
     np.testing.assert_allclose(port(t(x), t(w)).numpy(), want,
-                               rtol=CONV_RTOL, atol=1e-6)
+                               rtol=CONV_RTOL, atol=conv_atol(C))
+
+
+@pytest.mark.parametrize("C", [32, 64, 96, 128])
+def test_kmajor_weight_product_matches_conv(rng, C):
+    """The kernels' K-major weight: one plain product of the im2col matrix
+    (each tap's C channels padded with zeros to a whole 64-row K block)
+    with it is the conv."""
+    B, H, W = 2, 9, 11
+    x, w = (t(a).double() for a in conv_inputs(rng, B, H, W, C, 128))
+    wk = conv3x3.kmajor_weight(w)
+    cp = wk.shape[1] // 9
+    assert wk.shape == (128, 9 * cp) and cp % conv3x3.K_BLOCK == 0
+    assert cp - C < conv3x3.K_BLOCK
+    xp = torch.nn.functional.pad(x, (0, cp - C, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, dy:dy + H, dx:dx + W] for dy in range(3)
+                      for dx in range(3)], dim=-1)
+    np.testing.assert_allclose((cols @ wk.T).numpy(),
+                               conv3x3.conv3x3_sum(x, w).numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape,tiles", [
+    (conv_probe.FULL[:4], 160 * 11 * 15),  # the probe
+    ((1, 5, 7, 64), 1),                    # smaller than a tile
+    ((3, 40, 33, 96), 27),                 # ragged, two channel blocks
+])
+def test_l2_weight_bytes(shape, tiles):
+    """Each 16 x 16 tile reads the (128, 9 Cp) weight from L2 once: at the
+    probe's shape 7.79 GB a call, half of what the 8 x 16 tiles of the
+    mma.sync kernels read (15.6 GB)."""
+    B, H, W, C = shape
+    cp = -(-C // 64) * 64
+    assert conv3x3.l2_weight_bytes(B, H, W, C) == tiles * 9 * cp * 128 * 2
+    if shape == conv_probe.FULL[:4]:
+        assert conv3x3.l2_weight_bytes(B, H, W, C) * 2 == \
+            160 * 22 * 15 * 9 * 128 * 128 * 2 <= 2 * 7.8e9
+
+
+def test_conv_probe_holds_share_to_the_library():
+    conv_probe.check_share("k", 1e-4, 1e-4)
+    with pytest.raises(RuntimeError, match="more than the library"):
+        conv_probe.check_share("k", 2e-4, 1e-4)
 
 
 @pytest.mark.parametrize("port", [decoder_chain.chain_plane,
