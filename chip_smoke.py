@@ -6,10 +6,10 @@
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build every kernel from the sources in this checkout (one nvcc each,
-     all started together, for csrc/fused_predict.cu, csrc/conv3x3.cu (on
-     csrc/conv_wgmma.cuh) and csrc/decoder_chain.cu, with their ptxas
-     registers, spills and dynamic shared memory; Triton's JIT for the rows
-     soft-argmax);
+     all started together, for csrc/fused_predict.cu, and csrc/conv3x3.cu
+     and csrc/decoder_chain.cu, both on csrc/conv_wgmma.cuh, with their
+     ptxas registers, spills, warnings and dynamic shared memory; Triton's
+     JIT for the rows soft-argmax);
   3. hold each kernel against its plain PyTorch version at the eval
      path's shapes, a ragged shape and a peaked map, and time kernel,
      plain version and bound with CUDA events;
@@ -29,10 +29,12 @@ Phases, each fatal on failure:
      kernels (x (160, 176, 240, 64), P = 12) against their plain versions,
      timed beside their yardsticks (a conv kernel that moves more outputs
      off the correctly rounded value than cuDNN fails); each probe's launch
-     counts must rise; then the conv kernels on ragged shapes at C = 32,
-     64, 96 and 128, an image smaller than a tile and 400 small images, the
-     chains on a ragged shape and their uniform-logits closed form, and a
-     torch.profiler breakdown of each yardstick.
+     counts must rise; then the conv and chain kernels on ragged shapes at
+     C = 32, 64, 96 and 128, an image smaller than a tile and many small
+     images (several groups of chain_plane; the chains at P = 5, so 4P =
+     20 of the predictor's 64 columns), the chains' uniform-logits closed
+     form at full shape, and a torch.profiler breakdown of each
+     yardstick and each chain kernel.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -88,12 +90,13 @@ def kernel_name(mangled):
 
 
 def print_ptxas(logs):
-    """Each kernel's registers, shared memory and spills from -Xptxas -v."""
+    """Each kernel's registers, shared memory and spills from -Xptxas -v,
+    and any warning (a setmaxnreg that ptxas ignored, say)."""
     for line in "".join(logs.values()).splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             print(f"ptxas: {kernel_name(entry.group(1))}")
-        elif "registers" in line or "spill" in line:
+        elif "registers" in line or "spill" in line or "warning" in line:
             print(f"ptxas:   {line.replace('ptxas info    :', '').strip()}")
 
 
@@ -296,15 +299,24 @@ def probe_paths(torch):
 # so that each persistent block walks several images
 CONV_EDGE_CASES = ((3, 37, 53, 128), (3, 37, 53, 32), (2, 37, 53, 64),
                    (2, 37, 53, 96), (1, 5, 7, 64), (400, 12, 20, 128))
+# (KB, Hp, Wp, C, P) of the chain kernels' edge cases: the convs' shapes at
+# P = 5 (4P = 20 of the predictor's 64 padded columns), and 160 ragged
+# images of 12 tiles, which chain_plane runs in several groups
+# (plane_group) and each persistent block of both walks across images
+CHAIN_EDGE_CASES = tuple(s + (5,) for s in CONV_EDGE_CASES[:5]) + (
+    (160, 40, 56, 64, 12),)
 
 
 def probe_edge_cases(torch, records):
-    """After the counts were read: the probe kernels on edge cases (the
-    convs' CONV_EDGE_CASES; the chains on H and W divisible by no tile,
-    4P = 20) and, at the chain probe's full shape, the uniform-logits
-    closed form X = (2 Wp - 1) / 2, Y = (2 Hp - 1) / 2."""
+    """After the counts were read: the probe kernels on edge cases
+    (CONV_EDGE_CASES, CHAIN_EDGE_CASES) and, at the chain probe's full
+    shape, the uniform-logits closed form X = (2 Wp - 1) / 2, Y = (2 Hp -
+    1) / 2."""
+    from mst_tpu_torch.ops.kernels import _build
     from mst_tpu_torch.ops.kernels.conv3x3 import conv3x3_plain
-    from mst_tpu_torch.ops.kernels.decoder_chain import chain_plain
+    from mst_tpu_torch.ops.kernels.decoder_chain import (chain_plain,
+                                                         chain_tiles,
+                                                         plane_group)
     from mst_tpu_torch.probes import chain_probe, conv_probe
 
     fns = dict(conv_probe.KERNELS + chain_probe.KERNELS)
@@ -321,16 +333,29 @@ def probe_edge_cases(torch, records):
             by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
                                                e)
         del x, w, want
-    P = 5
-    args = chain_probe.make_inputs((3, 37, 53, 64, 128, P), torch.bfloat16,
-                                   "cuda", seed=1)
-    want = chain_plain(*args, P)
-    for name, _ in chain_probe.KERNELS:
-        e = float((fns[name](*args, P) - want).abs().max())
-        print(f"{name} ragged {tuple(args[0].shape)}, P {P}: max |kernel - "
-              f"plain| = {e:.3e} px (tol {chain_probe.TOL})")
-        check(e <= chain_probe.TOL, f"{name} disagrees on the ragged shape")
-        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], e)
+    lib_tiles = _build.load("decoder_chain").decoder_chain_tiles
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for KB, Hp, Wp, C, P in CHAIN_EDGE_CASES + (chain_probe.FULL[:4]
+                                                + (None,),):
+        check(chain_tiles(Hp, Wp) == lib_tiles(Hp, Wp),
+              f"chain_tiles({Hp}, {Wp}) differs from the library's")
+        if P is None:  # the full shape: the tile count only
+            continue
+        args = chain_probe.make_inputs((KB, Hp, Wp, C, 128, P),
+                                       torch.bfloat16, "cuda", seed=1)
+        want = chain_plain(*args, P)
+        groups = -(-KB // plane_group(KB, Hp, Wp, sms))
+        for name, _ in chain_probe.KERNELS:
+            e = float((fns[name](*args, P) - want).abs().max())
+            print(f"{name} {tuple(args[0].shape)}, P {P}, "
+                  f"{chain_tiles(Hp, Wp)} tiles an image, {groups} plane "
+                  f"group(s): max |kernel - plain| = {e:.3e} px (tol "
+                  f"{chain_probe.TOL})")
+            check(e <= chain_probe.TOL, f"{name} disagrees on "
+                  f"{(KB, Hp, Wp, C, P)}")
+            by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
+                                               e)
+        del args, want
     x, wa, ba, wb, bb, wpred, bpred = chain_probe.make_inputs(
         chain_probe.FULL, torch.bfloat16, "cuda", seed=2)
     KB, Hp, Wp, _, _, P = chain_probe.FULL
@@ -345,21 +370,24 @@ def probe_edge_cases(torch, records):
         check(e <= UNIFORM_TOL, f"{name} misses the uniform closed form")
 
 
-def yardstick_breakdown(torch):
-    """Where the yardsticks' time goes: one cuDNN conv and one library
-    chain at the probes' shapes, each traced by torch.profiler after a
-    warm-up call (kernel time by name)."""
+def probe_breakdown(torch):
+    """Where the probes' time goes: one cuDNN conv, one library chain and
+    each chain kernel at the probes' shapes, each traced by torch.profiler
+    after a warm-up call (kernel time by name)."""
     from torch.profiler import ProfilerActivity, profile
 
     from mst_tpu_torch.probes import chain_probe, conv_probe
 
     x, w = conv_probe.make_inputs(conv_probe.FULL, torch.bfloat16, "cuda")
     w_oihw = conv_probe.library_weight(w)
-    args = chain_probe.library_inputs(*chain_probe.make_inputs(
-        chain_probe.FULL, torch.bfloat16, "cuda")) + (chain_probe.FULL[-1],)
-    for label, fn in (
-            ("library conv", lambda: conv_probe.library_conv3x3(x, w_oihw)),
-            ("library chain", lambda: chain_probe.library_chain(*args))):
+    chain_args = chain_probe.make_inputs(chain_probe.FULL, torch.bfloat16,
+                                         "cuda") + (chain_probe.FULL[-1],)
+    args = chain_probe.library_inputs(*chain_args[:-1]) + chain_args[-1:]
+    runs = [("library conv", lambda: conv_probe.library_conv3x3(x, w_oihw)),
+            ("library chain", lambda: chain_probe.library_chain(*args))]
+    runs += [(name, lambda fn=fn: fn(*chain_args))
+             for name, fn in chain_probe.KERNELS]
+    for label, fn in runs:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -385,7 +413,7 @@ def print_smem():
              ("conv3x3_taps", "conv3x3_im2col"), (32, 64, 96, 128)),
             ("decoder_chain", "decoder_chain_smem_bytes",
              ("chain_plane_stage_a", "chain_plane_tail", "chain_stream"),
-             (64,))):
+             (32, 64, 96, 128))):
         f = getattr(_build.load(lib), fn)
         f.argtypes = [ctypes.c_int, ctypes.c_int]
         f.restype = ctypes.c_int
@@ -571,7 +599,7 @@ def main():
                if r["library_ms"] is not None else "")
         print(f"{r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
               f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    yardstick_breakdown(torch)
+    probe_breakdown(torch)
     print(f"probe phase: {time.perf_counter() - t0:.1f} s")
     records += probe_records
 

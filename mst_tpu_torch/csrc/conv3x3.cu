@@ -22,10 +22,10 @@
 // FLOP is 2.015 ms at 989 TFLOP/s dense bf16; the 3.46 GB of x and out take
 // 1.03 ms at 3.35 TB/s.
 //
-// Design (building blocks in conv_wgmma.cuh), against what held the
-// mma.sync kernels back:
+// Design (building blocks in conv_wgmma.cuh), against what held the first
+// warp-level (m16n8k16) kernels back:
 // - Tensor cores: wgmma.mma_async m64n128k16, B (and im2col's A) read from
-//   128-byte swizzled shared memory through descriptors; no mma.sync.
+//   128-byte swizzled shared memory through descriptors.
 // - Weights: the wrapper re-lays HWIO (3, 3, C, 128) as K-major (128, 9 Cp),
 //   Cp = C rounded up to 64, zero rows padding each tap (C = 32 or 96); a
 //   wgmma descriptor reads that layout without the transpose bit. A
@@ -35,7 +35,7 @@
 //   two K blocks.
 // - Tile: 16 x 16 = 256 output pixels x 128 channels per block, two
 //   consumer warpgroups of two m64 tiles each. Every weight block fetched
-//   from L2 feeds 256 pixels, twice the 128 of the mma.sync kernels: at
+//   from L2 feeds 256 pixels, twice the 128 of the warp-level kernels: at
 //   the probe's shape 160 * 11 * 15 = 26,400 tiles x 294,912 B = 7.79 GB of
 //   weight a call (15.6 GB before). No cluster (1 x 1 x 1): 2-block
 //   clusters that multicast each weight block halved that again but did
@@ -44,8 +44,9 @@
 //   gather.
 // - Overlap: a persistent grid of one block per SM walks the tiles
 //   (tile = blockIdx.x + i * gridDim.x). The producer runs ahead by the
-//   ring: taps
-//   double-buffers the halo tile (18 x 18 pixels x Cp channels, 83 KB at
+//   ring: taps (the main loop taps_produce / taps_consume of
+//   conv_wgmma.cuh, shared with decoder_chain.cu) double-buffers the halo
+//   tile (18 x 18 pixels x Cp channels, 83 KB at
 //   C = 128) and releases it before its epilogue, so the next tile's
 //   input and first weights load while this one multiplies and stores.
 //   Any number of images.
@@ -67,45 +68,18 @@ namespace {
 
 using namespace conv_wgmma;
 
-constexpr int kHalo = kTile + 2;  // halo tile side
-constexpr int kHaloBoxBytes = kHalo * kHalo * kRowBytes;          // 41,472
-constexpr int kHaloBlkBytes = round_up(kHaloBoxBytes, 1024);      // 41,984
-constexpr int kTapsStages = 3;
 constexpr int kABlockBytes = kTilePix * kRowBytes;                // 32 KB
 constexpr int kIm2colStageBytes = kABlockBytes + kWBlockBytes;    // 48 KB
 constexpr int kIm2colStages = 4;
-constexpr int kConsumerWarps = kConsumers * 4;
-
-struct TapsBars {
-  Ring<kTapsStages> w;
-  uint64_t halo_full[2];
-  uint64_t halo_empty[2];
-};
 
 // Dynamic shared memory, with slack to align the tiles to 1024 bytes.
 __host__ __device__ constexpr int taps_smem_bytes(int C) {
-  return 1024 + 2 * channel_blocks(C) * kHaloBlkBytes +
-         kTapsStages * kWBlockBytes + static_cast<int>(sizeof(TapsBars));
+  return 1024 + taps_bytes<2>(C);
 }
 
 __host__ __device__ constexpr int im2col_smem_bytes() {
   return 1024 + kIm2colStages * kIm2colStageBytes +
          static_cast<int>(sizeof(Ring<kIm2colStages>));
-}
-
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-// acc[t] += the product of one 64-row K block for m64 tile t, summed in a
-// fresh fragment first (see the note above).
-__device__ __forceinline__ void add_block(float (&acc)[64],
-                                          float (&part)[64]) {
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_operands(part);
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] += part[i];
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -114,99 +88,22 @@ conv3x3_taps(const __grid_constant__ CUtensorMap xmap,
              int H, int W, int C, int tiles_h, int tiles_w, int n_tiles) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  const int cbs = channel_blocks(C);
-  const int halo_bytes = cbs * kHaloBlkBytes;
-  unsigned char* wring = smem + 2 * halo_bytes;
-  auto* bars =
-      reinterpret_cast<TapsBars*>(wring + kTapsStages * kWBlockBytes);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
-    bars->w.init(kConsumerWarps);
-    for (int b = 0; b < 2; ++b) {
-      mbar_init(&bars->halo_full[b], 1);
-      mbar_init(&bars->halo_empty[b], kConsumerWarps);
-    }
+    taps_bars<2>(smem, C)->init();
     mbar_fence_init();
   }
   __syncthreads();
-  const int n_kb = 9 * cbs;  // K blocks: tap-major, then 64-channel blocks
-
+  const int warp = threadIdx.x >> 5;
   if (warp >= kConsumerWarps) {  // the producer warpgroup
     producer_regs();
-    if (warp == kConsumerWarps && lane == 0) {  // one thread issues
-      tma_prefetch_map(&xmap);
-      tma_prefetch_map(&wmap);
-      uint32_t kit = 0;
-      for (int tile = blockIdx.x, it = 0; tile < n_tiles;
-           tile += gridDim.x, ++it) {
-        const TileCoord tc = tile_coord(tile, tiles_h, tiles_w);
-        const int hb = it & 1;
-        mbar_wait(&bars->halo_empty[hb], ((it >> 1) & 1) ^ 1);
-        mbar_expect_tx(&bars->halo_full[hb], cbs * kHaloBoxBytes);
-        for (int cb = 0; cb < cbs; ++cb) {
-          tma_load_4d(smem + hb * halo_bytes + cb * kHaloBlkBytes, &xmap,
-                      &bars->halo_full[hb], cb * kKB, tc.x0 - 1, tc.y0 - 1,
-                      tc.img);
-        }
-        for (int kb = 0; kb < n_kb; ++kb, ++kit) {
-          bars->w.acquire(kit, kWBlockBytes);
-          tma_load_2d(wring + (kit % kTapsStages) * kWBlockBytes, &wmap,
-                      &bars->w.full[kit % kTapsStages], kb * kKB, 0);
-        }
-      }
+    if (warp == kConsumerWarps && (threadIdx.x & 31) == 0) {
+      taps_produce<2>(&xmap, &wmap, smem, C, 0, tiles_h, tiles_w, n_tiles);
     }
     return;
   }
-
   consumer_regs();
-  const int g = warp >> 2;  // consumer warpgroup: pixel rows 8g .. 8g + 7
-  const int wq = warp & 3;
-  uint32_t kit = 0;
-  for (int tile = blockIdx.x, it = 0; tile < n_tiles;
-       tile += gridDim.x, ++it) {
-    const TileCoord tc = tile_coord(tile, tiles_h, tiles_w);
-    const int hb = it & 1;
-    const uint32_t halo = smem_u32(smem + hb * halo_bytes);
-    float acc[2][64];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[t][i] = 0.f;
-    }
-    mbar_wait(&bars->halo_full[hb], (it >> 1) & 1);
-    for (int kb = 0; kb < n_kb; ++kb, ++kit) {
-      const int tap = kb / cbs;
-      const int dy = tap / 3;
-      const int dx = tap - 3 * dy;
-      const uint32_t blk = halo + (kb - tap * cbs) * kHaloBlkBytes;
-      bars->w.wait_full(kit);
-      const uint64_t db =
-          desc_sw128(wring + (kit % kTapsStages) * kWBlockBytes);
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        // this lane's ldmatrix row: output pixel (8g + 4t + wq, lane % 16)
-        // shifted by the tap, in the swizzled halo tile
-        const int q = (g * 8 + t * 4 + wq + dy) * kHalo + (lane & 15) + dx;
-        const uint32_t row = blk + q * kRowBytes;
-        uint32_t a[4][4];
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          ldmatrix_x4(a[s], row + (((2 * s + (lane >> 4)) ^ (q & 7)) << 4));
-        }
-        float part[64];
-        fence_operands(part);
-        wgmma_fence();
-#pragma unroll
-        for (int s = 0; s < 4; ++s) wgmma_rs(part, a[s], desc_step(db, s), s);
-        add_block(acc[t], part);
-      }
-      if (lane == 0) bars->w.release(kit);
-    }
-    if (lane == 0) mbar_arrive(&bars->halo_empty[hb]);
-#pragma unroll
-    for (int t = 0; t < 2; ++t) store_m64(acc[t], out, H, W, tc, g, t);
-  }
+  taps_consume<2>(smem, C, tiles_h, tiles_w, n_tiles,
+                  StoreTile<false>{out, H, W, nullptr});
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -287,7 +184,9 @@ conv3x3_im2col(const __grid_constant__ CUtensorMap xmap,
       if (lane == 0) ring->release(kit);
     }
 #pragma unroll
-    for (int t = 0; t < 2; ++t) store_m64(acc[t], out, H, W, tc, g, t);
+    for (int t = 0; t < 2; ++t) {
+      store_m64<false>(acc[t], out, H, W, tc, g, t, nullptr);
+    }
   }
 }
 
@@ -307,15 +206,9 @@ int launch(Kernel kernel, int smem, int box, const void* x, const void* wk,
   err = map_kmajor_weight(&wmap, wk, 9 * channel_blocks(C) * kKB);
   if (err != 0) return err;
   cudaError_t cerr = allow_smem(kernel, smem);
+  int grid = 0;
+  if (cerr == cudaSuccess) cerr = persistent_grid(n_tiles, &grid);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  // the persistent grid: one block per SM, or one per tile if fewer
-  int dev = 0, sms = 0;
-  cerr = cudaGetDevice(&dev);
-  if (cerr == cudaSuccess) {
-    cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       xmap, wmap, static_cast<bf16*>(out), H, W, C, tiles_h, tiles_w,
       static_cast<int>(n_tiles));

@@ -1,16 +1,22 @@
 """The finest decoder level as one computation: conv3x3 + bias + ReLU
 (C -> 128), conv3x3 + bias + ReLU (128 -> 128), the 1x1 predictor
 (128 -> 4P) and the packed online soft-argmax -> (KB, 2, P). Two CUDA C++
-kernels for Hopper (csrc/decoder_chain.cu, on csrc/conv_tile.cuh) and their
-plain version.
+kernels for Hopper (csrc/decoder_chain.cu, on the wgmma/TMA building blocks
+and the taps main loop of csrc/conv_wgmma.cuh) and their plain version.
 
 `chain_plane` replaces the TPU kernel benchmarks/pallas_chain_probe.py:233
-`pallas_chain`: stage A writes its plane to a scratch buffer in device
-memory, a group of images at a time sized to stay in L2, and a second
-kernel reads it back with halos. `chain_stream` replaces :199
-`pallas_chain_v2`: each block recomputes its stage-A halo in shared memory,
-so no intermediate leaves the SM. Both write per-(image, tile) partial
-statistics that a merge launch unifies (unify_packed_stats).
+`pallas_chain`: a stage-A kernel writes its plane to a scratch buffer in
+device memory, a group of images at a time sized to stay in L2, and a tail
+kernel reads it back by TMA with halos for stage B, the predictor and the
+statistics. `chain_stream` replaces :199 `pallas_chain_v2`: one persistent
+kernel computes each 16 x 16 tile's stage-A halo into shared memory and
+runs stage B, the predictor and the statistics from there, so no
+intermediate leaves the SM. Both run wgmma on 16 x 16 tiles in a
+persistent grid, with the weights re-laid K-major (`kmajor_weight`,
+`kmajor_predictor`) and streamed by TMA; stage B's output becomes the
+predictor's register operand without touching shared memory. Both write
+per-(image, tile) partial statistics that a merge launch unifies
+(unify_packed_stats).
 
 Bound on an H100 at the probe's shape (KB 160, 176 x 240, C 64, P 12):
 operations, 3.073e12 FLOP = 3.11 ms at 989 TFLOP/s dense bf16 (the 0.87 GB
@@ -22,13 +28,14 @@ import ctypes
 import torch
 
 from mst_tpu_torch.ops.kernels import _build
-from mst_tpu_torch.ops.kernels.conv3x3 import (CHANNELS_OUT, check_bf16,
-                                               check_channels, conv3x3_sum)
+from mst_tpu_torch.ops.kernels.conv3x3 import (CHANNELS_OUT, K_BLOCK, TILE,
+                                               check_bf16, check_channels,
+                                               conv3x3_sum, kmajor_weight)
 from mst_tpu_torch.ops.softargmax import unify_packed_stats
 
 MAX_PACKED = 64            # 4P, the predictor's columns
 PLAIN_CHUNK = 8            # images per step of the plain version
-L2_PLANE_BYTES = 40 << 20  # chain_plane's scratch planes: inside the 50 MB L2
+L2_PLANE_BYTES = 42 << 20  # chain_plane's scratch planes: inside the 50 MB L2
 EPS = 1e-6                 # the soft-argmax's 1 / (s + EPS), as the TPU chain
 
 
@@ -60,6 +67,51 @@ def chain_plain(x, wa, ba, wb, bb, wpred, bpred, n_pred: int):
             torch.einsum("bhwc,h->bc", e, ih), n_pred, EPS)
         out.append(torch.stack([X, Y], 1))
     return torch.cat(out)
+
+
+def kmajor_predictor(wpred):
+    """(128, 4P) -> the kernels' K-major predictor (MAX_PACKED, 128): row n
+    is packed channel n's weights, zero rows past 4P (the kernels' one
+    wgmma shape, N = 64, for every 4P)."""
+    wk = wpred.new_zeros((MAX_PACKED, wpred.shape[0]))
+    wk[:wpred.shape[1]] = wpred.T
+    return wk
+
+
+def chain_tiles(Hp, Wp):
+    """The kernels' TILE x TILE output tiles of one image, each writing one
+    set of partial statistics (the library's decoder_chain_tiles)."""
+    return -(-Hp // TILE) * -(-Wp // TILE)
+
+
+def plane_group(KB, Hp, Wp, sms):
+    """Images chain_plane runs at a time on a card of `sms` SMs: at most as
+    many planes as L2_PLANE_BYTES holds, and of those the group size that
+    leaves the fewest SMs idle. Each group is one persistent launch per
+    kernel that takes ceil(tiles / sms) rounds of tiles, so the rounds
+    summed over the groups are minimised (the larger group on a tie: fewer
+    launches)."""
+    tiles = chain_tiles(Hp, Wp)
+    most = max(1, min(KB, L2_PLANE_BYTES // (Hp * Wp * CHANNELS_OUT * 2)))
+
+    def rounds(g):
+        full, rest = divmod(KB, g)
+        return full * -(-g * tiles // sms) + -(-rest * tiles // sms)
+
+    return min(range(most, 0, -1), key=rounds)
+
+
+def l2_weight_bytes(kernel, KB, Hp, Wp, C):
+    """Conv weight bytes a chain kernel reads from L2 in one call: every
+    tile streams stage B's (128, 1152) K-major weight once and stage A's
+    (128, 9 Cp) once in chain_plane, twice in chain_stream (its two stage-A
+    passes). The predictor, 16 KB once per persistent block, is left
+    out."""
+    cp = -(-C // K_BLOCK) * K_BLOCK
+    wa = 9 * cp * CHANNELS_OUT * 2
+    wb = 9 * CHANNELS_OUT * CHANNELS_OUT * 2
+    passes = {"chain_plane": 1, "chain_stream": 2}[kernel]
+    return KB * chain_tiles(Hp, Wp) * (passes * wa + wb)
 
 
 def _library():
@@ -105,17 +157,22 @@ def _checked(fn_name, x, wa, ba, wb, bb, wpred, bpred, n_pred):
                 f"{fn_name}: {name} must be a contiguous f32 tensor of shape "
                 f"({n},) on {x.device}; got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
-    tiles = _library().decoder_chain_tiles(Hp, Wp)
-    part = torch.empty((KB, tiles, n4, 4), dtype=torch.float32,
+    part = torch.empty((KB, chain_tiles(Hp, Wp), n4, 4), dtype=torch.float32,
                        device=x.device)
     out = torch.empty((KB, 2, n_pred), dtype=torch.float32, device=x.device)
     return (KB, Hp, Wp, C), part, out
 
 
+def _relaid(wa, wb, wpred):
+    """The kernels' K-major weights: wa, wb and the padded predictor."""
+    return kmajor_weight(wa), kmajor_weight(wb), kmajor_predictor(wpred)
+
+
 def _raise_on(fn_name, err):
     if err != 0:
-        raise RuntimeError(f"{fn_name} kernel launch failed: cudaError_t "
-                           f"{err}")
+        raise RuntimeError(f"{fn_name} kernel launch failed: error {err} "
+                           "(a cudaError_t; 999: no cuTensorMapEncodeTiled; "
+                           "1000 + CUresult: a refused tensor map)")
 
 
 def chain_plane(x, wa, ba, wb, bb, wpred, bpred, n_pred: int):
@@ -124,21 +181,22 @@ def chain_plane(x, wa, ba, wb, bb, wpred, bpred, n_pred: int):
 
     A CPU tensor takes the plain version. A CUDA tensor launches the plane
     kernels: bf16 x and weights, f32 biases, all contiguous, C % 32 == 0,
-    C <= 128, 4P <= 64; anything else raises.
+    C <= 128, 4P <= 64; anything else raises. Any KB, Hp and Wp.
     """
     if x.device.type == "cpu":
         return chain_plain(x, wa, ba, wb, bb, wpred, bpred, n_pred)
     (KB, Hp, Wp, C), part, out = _checked("chain_plane", x, wa, ba, wb, bb,
                                           wpred, bpred, n_pred)
-    plane_bytes = Hp * Wp * CHANNELS_OUT * 2
-    group = max(1, min(KB, L2_PLANE_BYTES // plane_bytes))
+    group = plane_group(KB, Hp, Wp, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
     plane = torch.empty((group, Hp, Wp, CHANNELS_OUT), dtype=torch.bfloat16,
                         device=x.device)
+    wak, wbk, wpk = _relaid(wa, wb, wpred)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().chain_plane_launch(
-            x.data_ptr(), wa.data_ptr(), ba.data_ptr(), wb.data_ptr(),
-            bb.data_ptr(), wpred.data_ptr(), bpred.data_ptr(),
+            x.data_ptr(), wak.data_ptr(), ba.data_ptr(), wbk.data_ptr(),
+            bb.data_ptr(), wpk.data_ptr(), bpred.data_ptr(),
             plane.data_ptr(), part.data_ptr(), out.data_ptr(), KB, Hp, Wp, C,
             n_pred, group, EPS, stream)
     _raise_on("chain_plane", err)
@@ -152,11 +210,12 @@ def chain_stream(x, wa, ba, wb, bb, wpred, bpred, n_pred: int):
         return chain_plain(x, wa, ba, wb, bb, wpred, bpred, n_pred)
     (KB, Hp, Wp, C), part, out = _checked("chain_stream", x, wa, ba, wb, bb,
                                           wpred, bpred, n_pred)
+    wak, wbk, wpk = _relaid(wa, wb, wpred)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().chain_stream_launch(
-            x.data_ptr(), wa.data_ptr(), ba.data_ptr(), wb.data_ptr(),
-            bb.data_ptr(), wpred.data_ptr(), bpred.data_ptr(),
+            x.data_ptr(), wak.data_ptr(), ba.data_ptr(), wbk.data_ptr(),
+            bb.data_ptr(), wpk.data_ptr(), bpred.data_ptr(),
             part.data_ptr(), out.data_ptr(), KB, Hp, Wp, C, n_pred, EPS,
             stream)
     _raise_on("chain_stream", err)

@@ -20,7 +20,8 @@ import torch.nn.functional as F
 
 from mst_tpu_torch import resolve_device
 from mst_tpu_torch.ops.kernels.decoder_chain import (chain_plain, chain_plane,
-                                                     chain_stream)
+                                                     chain_stream,
+                                                     l2_weight_bytes)
 from mst_tpu_torch.ops.softargmax import softargmax2d_packed
 from mst_tpu_torch.probes import main_of, max_abs_diff, time_ms
 
@@ -113,7 +114,10 @@ def run(device=None):
     for r, (name, fn) in zip(records, KERNELS):
         r["ms"] = time_ms(lambda fn=fn: fn(*args, P), 5)
         r["plain_ms"] = plain_ms
-        print(f"{name}: {r['ms']:.3f} ms ({tflop / r['ms'] * 1e3:.1f} TF/s)",
+        weight_gb = l2_weight_bytes(name, KB, Hp, Wp, C) / 1e9
+        print(f"{name}: {r['ms']:.3f} ms ({tflop / r['ms'] * 1e3:.1f} TF/s, "
+              f"{r['ms'] / library_ms:.2f}x the library chain; "
+              f"{weight_gb:.2f} GB of conv weight from L2, reckoned)",
               flush=True)
     return records
 

@@ -81,14 +81,27 @@ def test_conv3x3_matches_pallas(rng, port, pallas, C):
                                rtol=CONV_RTOL, atol=conv_atol(C))
 
 
-@pytest.mark.parametrize("port,pallas", [
-    (decoder_chain.chain_plane,
-     lambda *a: pallas_chain(*a, 3, True)),
-    (decoder_chain.chain_stream,
-     lambda *a: pallas_chain_v2(*a, 3, 16, True)),
-], ids=["plane-v1", "stream-v2.bh16"])
-def test_chain_matches_pallas(rng, port, pallas):
-    args = chain_inputs(rng, 2, 32, 24, 8, 16, 3)
+def _chain_v1(*a):
+    return pallas_chain(*a, 3, True)
+
+
+def _chain_v2(*a):
+    return pallas_chain_v2(*a, 3, 16, True)
+
+
+@pytest.mark.parametrize("port,pallas,C", [
+    pytest.param(decoder_chain.chain_plane, _chain_v1, 8, id="plane-v1"),
+    pytest.param(decoder_chain.chain_stream, _chain_v2, 8,
+                 id="stream-v2.bh16"),
+    pytest.param(decoder_chain.chain_plane, _chain_v1, 32, id="plane-v1-C32"),
+    pytest.param(decoder_chain.chain_plane, _chain_v1, 96, id="plane-v1-C96"),
+    pytest.param(decoder_chain.chain_stream, _chain_v2, 32,
+                 id="stream-v2.bh16-C32"),
+    pytest.param(decoder_chain.chain_stream, _chain_v2, 128,
+                 id="stream-v2.bh16-C128"),
+])
+def test_chain_matches_pallas(rng, port, pallas, C):
+    args = chain_inputs(rng, 2, 32, 24, C, 16, 3)
     want = np.asarray(pallas(*map(jnp.asarray, args)))
     got = port(*map(t, args), 3)
     assert got.shape == (2, 2, 3)
@@ -153,16 +166,95 @@ def test_conv_probe_holds_share_to_the_library():
         conv_probe.check_share("k", 2e-4, 1e-4)
 
 
-@pytest.mark.parametrize("port", [decoder_chain.chain_plane,
-                                  decoder_chain.chain_stream])
-def test_chain_ragged_matches_xla(rng, port):
+@pytest.mark.parametrize("port,C", [
+    pytest.param(decoder_chain.chain_plane, 8, id="chain_plane"),
+    pytest.param(decoder_chain.chain_stream, 8, id="chain_stream"),
+    pytest.param(decoder_chain.chain_plane, 32, id="plane-C32"),
+    pytest.param(decoder_chain.chain_plane, 96, id="plane-C96"),
+    pytest.param(decoder_chain.chain_stream, 64, id="stream-C64"),
+    pytest.param(decoder_chain.chain_stream, 128, id="stream-C128"),
+])
+def test_chain_ragged_matches_xla(rng, port, C):
+    """H and W divisible by no 16 x 16 tile, P = 5 (4P = 20 of the kernels'
+    64 predictor columns), at the TPU probe's C = 8 and at the channel
+    counts the kernels take (C = 32 and 96 fill a 64-channel block
+    partly)."""
     P = 5
-    args = chain_inputs(rng, 2, 37, 53, 8, 16, P)
+    args = chain_inputs(rng, 2, 37, 53, C, 16, P)
     want = np.asarray(xla_chain(*map(jnp.asarray, args), P,
                                 f32_logits=True))  # (KB, P, 2)
     got = port(*map(t, args), P)
     np.testing.assert_allclose(got.transpose(1, 2).numpy(), want,
                                atol=CHAIN_TOL)
+
+
+@pytest.mark.parametrize("n_pred", [3, 5, 12, 16])
+def test_kmajor_predictor_product(rng, n_pred):
+    """The kernels' predictor: K-major, zero rows up to 64 packed channels;
+    its product with stage B's output is the predictor's, and the padded
+    columns are zero."""
+    b = t(rng.normal(size=(50, 128))).double()
+    wpred = t(rng.normal(scale=0.2, size=(128, 4 * n_pred))).double()
+    wk = decoder_chain.kmajor_predictor(wpred)
+    assert wk.shape == (decoder_chain.MAX_PACKED, 128)
+    got = b @ wk.T
+    np.testing.assert_allclose(got[:, :4 * n_pred].numpy(),
+                               (b @ wpred).numpy(), rtol=1e-12, atol=1e-12)
+    assert not got[:, 4 * n_pred:].any()
+
+
+@pytest.mark.parametrize("hw,tiles", [
+    (chain_probe.FULL[1:3], 165),  # the probe: 11 x 15
+    ((5, 7), 1),                   # smaller than a tile
+    ((37, 53), 12),                # ragged: 3 x 4
+    ((40, 56), 12),
+    ((32, 48), 6),                 # whole tiles
+])
+def test_chain_tiles(hw, tiles):
+    """The chains' 16 x 16 output tiles an image, each writing one set of
+    partial statistics (chip_smoke.py holds it to the library's
+    decoder_chain_tiles on the card)."""
+    assert decoder_chain.chain_tiles(*hw) == tiles
+
+
+@pytest.mark.parametrize("shape,sms,group", [
+    ((160,) + chain_probe.FULL[1:3], 132, 4),  # 660 tiles: 5 whole rounds
+    ((160, 40, 56), 132, 76),   # 76 planes fit; 15 rounds, as 66 would
+    ((3, 37, 53), 132, 3),      # all images in one group
+    ((1, 5, 7), 132, 1),
+    ((160,) + chain_probe.FULL[1:3], 100, 3),  # 495 tiles fill 5 rounds
+])
+def test_plane_group(shape, sms, group):
+    """chain_plane's images a launch: as many planes as L2_PLANE_BYTES
+    holds at most, the fewest rounds of persistent tiles summed over the
+    groups, the larger group on a tie."""
+    KB, Hp, Wp = shape
+    assert decoder_chain.plane_group(KB, Hp, Wp, sms) == group
+    plane = Hp * Wp * 128 * 2
+    assert group * plane <= max(plane, decoder_chain.L2_PLANE_BYTES)
+
+
+@pytest.mark.parametrize("kernel,shape,gb", [
+    ("chain_plane", chain_probe.FULL[:4], 11.68),
+    ("chain_stream", chain_probe.FULL[:4], 15.57),
+    ("chain_plane", (2, 37, 53, 96), None),
+    ("chain_stream", (1, 5, 7, 32), None),
+])
+def test_chain_l2_weight_bytes(kernel, shape, gb):
+    """Every 16 x 16 tile reads stage B's (128, 1152) weight from L2 once
+    and stage A's (128, 9 Cp) once (chain_plane) or twice (chain_stream's
+    two stage-A passes): at the probe's shape 3.89 + 7.79 GB and 2 x 3.89 +
+    7.79 GB a call, against the 23.4 GB of 8 x 16 tiles."""
+    KB, Hp, Wp, C = shape
+    cp = -(-C // 64) * 64
+    passes = 2 if kernel == "chain_stream" else 1
+    tiles = KB * decoder_chain.chain_tiles(Hp, Wp)
+    want = tiles * (passes * 9 * cp * 128 + 9 * 128 * 128) * 2
+    assert decoder_chain.l2_weight_bytes(kernel, KB, Hp, Wp, C) == want
+    if gb is not None:
+        assert round(want / 1e9, 2) == gb
+        # 8 x 16 tiles streaming both weights once a tile: 23.4 GB
+        assert want < 160 * 22 * 15 * 9 * (64 + 128) * 128 * 2
 
 
 @pytest.mark.parametrize("port", [decoder_chain.chain_plane,
