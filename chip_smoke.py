@@ -6,13 +6,20 @@
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build every kernel from the sources in this checkout (one nvcc each,
-     all started together, for csrc/fused_predict.cu, and csrc/conv3x3.cu
-     and csrc/decoder_chain.cu, both on csrc/conv_wgmma.cuh, with their
-     ptxas registers, spills, warnings and dynamic shared memory; Triton's
-     JIT for the rows soft-argmax);
-  3. hold each kernel against its plain PyTorch version at the eval
-     path's shapes, a ragged shape and a peaked map, and time kernel,
-     plain version and bound with CUDA events;
+     all started together, for csrc/fused_predict.cu and
+     csrc/softargmax_rows.cu, and csrc/conv3x3.cu and csrc/decoder_chain.cu,
+     both on csrc/conv_wgmma.cuh, with their ptxas registers, spills,
+     warnings and dynamic shared memory), and hold the serving kernels'
+     work splits in Python (what the CPU tests check) against the
+     libraries' own;
+  3. hold the serving path's two kernels against their plain PyTorch
+     versions at the eval path's shapes (the fused kernel at P = 12 and
+     P = 30) and on edge cases (rows: one row, H*W % 4 != 0, 200 rows,
+     rows shorter than the cluster, a peaked map; fused: a ragged shape,
+     an image smaller than a stage, C = 6, a view off 16-byte alignment, a
+     peaked map), failing on a non-finite row; time kernel (CUDA events,
+     and device time from torch.profiler, which must show one kernel a
+     call), plain version and bound;
   4. a small-width reference: the same weights and waypoint draws through
      the port on the card (kernels) and on the CPU (plain versions);
   5. the main path: Predictor at the full width of sdd_shortterm_eval.yaml
@@ -73,7 +80,8 @@ def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
 
 
 def kernel_name(mangled):
-    """'_ZN<n><namespace><n><name>[I<Li<v>E...>E]...' -> 'name<v,...>'."""
+    """'_ZN<n><namespace><n><name>[I<L{i,b}<v>E...>E]...' ->
+    'name<v,...>' (a bool argument as 0 or 1)."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -83,9 +91,10 @@ def kernel_name(mangled):
         return mangled
     start = i + n.end()
     name = mangled[start:start + int(n.group())]
-    args = re.match(r"I((?:Li\d+E)+)E", mangled[start + int(n.group()):])
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[start + int(n.group()):])
     if args:
-        name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+        name += "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) \
+            + ">"
     return name
 
 
@@ -100,86 +109,178 @@ def print_ptxas(logs):
             print(f"ptxas:   {line.replace('ptxas info    :', '').strip()}")
 
 
+def check_splits():
+    """Each serving kernel's work split in Python (what the CPU tests
+    check) against its library's own, and the library's constants."""
+    from mst_tpu_torch.ops.kernels import fused_predict as fp
+    from mst_tpu_torch.ops.kernels import softargmax_rows as sr
+
+    lib = fp._library()
+    for R, HW, blocks in ((160, 352 * 480, 132), (5, 1536, 7), (1, 200, 132),
+                          (3, 5, 15), (200, 7, 3), (1, 16 * 8, 128)):
+        check(fp.library_split(R, HW, blocks) == fp.fused_work(R, HW, blocks),
+              f"fused_work({R}, {HW}, {blocks}) differs from the library's")
+    for C in (1, 6, 32, 128):
+        check(lib.fused_predict_stage_pixels(C) == fp.stage_pixels(C),
+              f"stage_pixels({C}) differs from the library's")
+    for P in range(1, fp.MAX_CHANNELS + 1):
+        check(lib.fused_predict_group_width(P) == fp.group_width(P)
+              and lib.fused_predict_pixels_per_thread(P)
+              == fp.pixels_per_thread(P),
+              f"group_width or pixels_per_thread({P}) differs from the "
+              "library's")
+    check(sr._library().softargmax_rows_cluster() == sr.CLUSTER,
+          "the rows kernel's cluster size differs from CLUSTER")
+    for HW in (1, 3, 5, 64, 37 * 53, 40 * 56, 352 * 480):
+        for lead in range(4):
+            want = [sr.row_split(HW, lead, sr.CLUSTER, k)
+                    for k in range(sr.CLUSTER)]
+            check(sr.library_split(HW, lead, sr.CLUSTER) == want,
+                  f"row_split({HW}, {lead}) differs from the library's")
+    print("work splits: fused_work, stage_pixels, group_width, "
+          "pixels_per_thread and row_split match the libraries")
+
+
+def check_cases(torch, label, fn, plain, cases, tol):
+    """fn against plain on each (name, args): finite, within tol; -> the
+    max error. A non-finite output names its row."""
+    err = 0.0
+    for name, args in cases:
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        bad = (~torch.isfinite(got)).reshape(got.shape[0], -1).any(1)
+        check(not bool(bad.any()), f"{label} {name}: non-finite output in "
+              f"row(s) {bad.nonzero().flatten().tolist()[:8]}")
+        e = float((got - want).abs().max())
+        print(f"{label} {name} {tuple(args[0].shape)}: max |kernel - "
+              f"plain| = {e:.3e} px (tol {tol})")
+        check(e <= tol, f"{label} disagrees on {name}")
+        err = max(err, e)
+    return err
+
+
+def check_one_kernel(label, rec, iters):
+    """The profiler saw one kernel, launched at most once a call (it may
+    miss a launch)."""
+    check(rec["kernels_per_call"] == 1
+          and max(rec["kernels"].values()) <= iters,
+          f"{label} is not one kernel a call: {rec['kernels']} in {iters} "
+          "calls")
+
+
+def print_times(label, rec, b_ms):
+    print(f"{label}: event {rec['ms']:.4f} ms, device {rec['device_ms']:.4f}"
+          f" ms a call ({rec['kernels_per_call']:g} kernel(s): "
+          f"{rec['kernels']}), bound {b_ms:.4f} ms, share of the bound "
+          f"{100 * b_ms / rec['device_ms']:.1f}% (device), "
+          f"{100 * b_ms / rec['ms']:.1f}% (event)")
+
+
 def check_rows_kernel(torch):
     from mst_tpu_torch.ops.kernels.softargmax_rows import (plain,
                                                            softargmax2d_rows)
     from mst_tpu_torch.probes import time_ms
+    from mst_tpu_torch.probes.serving_kernels import ROWS_SHAPE, time_call
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((8, 352, 480), generator=g, device="cuda") * 4
-    ragged = torch.randn((3, 40, 56), generator=g, device="cuda") * 3
+    x = torch.randn(ROWS_SHAPE, generator=g, device="cuda") * 4
     peaked = torch.full((1, 32, 64), -30.0, device="cuda")
     peaked[0, 17, 42] = 30.0
-    err = 0.0
-    for name, t in (("slice", x), ("ragged", ragged), ("peaked", peaked)):
-        got, want = softargmax2d_rows(t), plain(t)
-        torch.cuda.synchronize()
-        e = float((got - want).abs().max())
-        print(f"rows soft-argmax {name} {tuple(t.shape)}: max |kernel - "
-              f"plain| = {e:.3e} px (tol {ROWS_TOL})")
-        check(e <= ROWS_TOL, f"rows kernel disagrees on {name}")
-        err = max(err, e)
+    cases = [("slice", x),
+             ("one row", torch.randn((1, 352, 480), generator=g,
+                                     device="cuda") * 4),
+             ("H*W % 4 != 0", torch.randn((3, 37, 53), generator=g,
+                                          device="cuda") * 3),
+             ("200 rows", torch.randn((200, 40, 56), generator=g,
+                                      device="cuda") * 3),
+             ("rows shorter than the cluster", torch.randn(
+                 (5, 3, 5), generator=g, device="cuda") * 3),
+             ("peaked", peaked)]
+    err = check_cases(torch, "rows soft-argmax", softargmax2d_rows, plain,
+                      [(n, (t,)) for n, t in cases], ROWS_TOL)
     e = float((softargmax2d_rows(peaked)[0]
                - torch.tensor([42.0, 17.0], device="cuda")).abs().max())
     check(e <= 1e-2, f"rows kernel misses the peak by {e}")
     R, H, W = x.shape
-    ms = time_ms(lambda: softargmax2d_rows(x), 200)
+    rec = time_call(lambda: softargmax2d_rows(x), 200)
+    check_one_kernel("the rows soft-argmax", rec, 200)
     plain_ms = time_ms(lambda: plain(x), 200)
     b_ms, b_by = bound(R * H * W * 4 + R * 2 * 4, R * H * W * 8)
-    return {"name": "softargmax_rows", "route": "triton",
-            "source": "mst_tpu_torch/ops/kernels/softargmax_rows.py",
+    print_times(f"softargmax_rows {tuple(x.shape)}", rec, b_ms)
+    return {"name": "softargmax_rows", "route": "cuda",
+            "source": "mst_tpu_torch/csrc/softargmax_rows.cu",
             "replaces": "mst_tpu/ops/pallas/softargmax.py:63",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def fused_bound(R, H, W, C, P):
+    return bound(R * H * W * C * 4 + (C * P + P) * 4 + R * P * 2 * 4,
+                 R * H * W * P * (2 * C + 8))
 
 
 def check_fused_kernel(torch):
     from mst_tpu_torch.ops.kernels.fused_predict import (
         fused_predictor_softargmax, fused_predictor_softargmax_plain)
     from mst_tpu_torch.probes import time_ms
+    from mst_tpu_torch.probes.serving_kernels import (FUSED_SHAPE,
+                                                      fused_inputs, time_call)
 
-    g = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.Generator(device="cuda").manual_seed(2)
 
-    def case(R, H, W, C, P):
-        x = torch.randn((R, H, W, C), generator=g, device="cuda").relu_()
+    def case(R, H, W, C, P, offset=0):
+        """Inputs; with offset, x is a view that starts `offset` floats
+        into its buffer (a data pointer off 16-byte alignment)."""
+        buf = torch.randn(R * H * W * C + offset, generator=g, device="cuda")
+        x = buf[offset:].view(R, H, W, C).relu_()
         w = torch.randn((C, P), generator=g, device="cuda") * 0.3
         b = torch.randn((P,), generator=g, device="cuda")
         return x, w, b
 
-    R, H, W, C, P = 160, 352, 480, 32, 12  # the eval decode tail, K*B = 160
-    sl = case(R, H, W, C, P)
     peak = torch.zeros((2, 16, 24, 8), device="cuda")
     peak[:, 7, 10, :3] = 60.0
     peak_w = torch.eye(8, 3, device="cuda")
-    cases = (("slice", sl), ("ragged", case(3, 40, 56, 32, 12)),
+    unaligned = case(2, 40, 56, 32, 12, offset=1)
+    check(unaligned[0].data_ptr() % 16 != 0, "the unaligned view is aligned")
+    cases = [("ragged", case(3, 40, 56, 32, 12)),
+             ("one image smaller than a stage", case(1, 10, 20, 32, 12)),
              ("odd channels", case(2, 24, 40, 6, 5)),
-             ("peaked", (peak, peak_w, torch.zeros(3, device="cuda"))))
-    err = 0.0
-    for name, (x, w, b) in cases:
-        got = fused_predictor_softargmax(x, w, b)
-        want = fused_predictor_softargmax_plain(x, w, b)
-        torch.cuda.synchronize()
-        e = float((got - want).abs().max())
-        print(f"fused predictor {name} {tuple(x.shape)} x {tuple(w.shape)}: "
-              f"max |kernel - plain| = {e:.3e} px (tol {FUSED_TOL})")
-        check(e <= FUSED_TOL, f"fused kernel disagrees on {name}")
-        err = max(err, e)
+             ("unaligned view", unaligned),
+             ("peaked", (peak, peak_w, torch.zeros(3, device="cuda")))]
+    err = check_cases(torch, "fused predictor", fused_predictor_softargmax,
+                      fused_predictor_softargmax_plain, cases, FUSED_TOL)
     got = fused_predictor_softargmax(*cases[-1][1])
     e = float((got - torch.tensor([10.0, 7.0], device="cuda")).abs().max())
     check(e <= 1e-2, f"fused kernel misses the peak by {e}")
-    x, w, b = sl
-    ms = time_ms(lambda: fused_predictor_softargmax(x, w, b), 20)
-    plain_ms = time_ms(
-        lambda: fused_predictor_softargmax_plain(x, w, b), 5)
-    b_ms, b_by = bound(x.numel() * 4 + (w.numel() + b.numel()) * 4
-                       + R * P * 2 * 4,
-                       R * H * W * P * (2 * C + 8))
-    del sl, cases, x, w, b
+    del cases, unaligned
+    times = {}
+    for P in (30, 12):  # the record is P = 12, the eval decode tail's
+        x, w, b = fused_inputs(P)
+        err = max(err, check_cases(
+            torch, "fused predictor", fused_predictor_softargmax,
+            fused_predictor_softargmax_plain, [(f"full shape, P {P}",
+                                                (x, w, b))], FUSED_TOL))
+        rec = time_call(lambda: fused_predictor_softargmax(x, w, b), 20)
+        check_one_kernel("the fused predictor", rec, 20)
+        rec["plain_ms"] = time_ms(
+            lambda: fused_predictor_softargmax_plain(x, w, b), 5)
+        rec["bound"] = fused_bound(*FUSED_SHAPE, P)
+        print_times(f"fused_predict {FUSED_SHAPE} x ({FUSED_SHAPE[-1]}, {P})",
+                    rec, rec["bound"][0])
+        print(f"fused_predict P {P}: plain {rec['plain_ms']:.4f} ms")
+        times[P] = rec
+        del x, w, b
+        torch.cuda.empty_cache()
+    rec = times[12]
     return {"name": "fused_predict", "route": "cuda",
             "source": "mst_tpu_torch/csrc/fused_predict.cu",
             "replaces": "mst_tpu/ops/pallas/fused_predict.py:109",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "max_abs_err": err, "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound"][0], "bound_by": rec["bound"][1],
+            "library_ms": None, "P30": {
+                k: times[30][k] for k in ("ms", "device_ms", "plain_ms")}}
 
 
 def small_reference(torch):
@@ -404,10 +505,17 @@ def probe_breakdown(torch):
 
 
 def print_smem():
-    """Dynamic shared memory a block of each conv and chain kernel asks
-    for, at the probes' channel counts (ptxas -v shows only static)."""
+    """Dynamic shared memory a block of the fused kernel and of each conv
+    and chain kernel asks for, at the path's and the probes' channel counts
+    (ptxas -v shows only static)."""
     from mst_tpu_torch.ops.kernels import _build
+    from mst_tpu_torch.ops.kernels import fused_predict as fp
 
+    f = fp._library().fused_predict_smem_bytes
+    sizes = ", ".join(f"{f(C, P)} (C = {C}, P = {P})"
+                      for C, P in ((32, 12), (32, 30), (128, 32)))
+    print(f"dynamic shared memory: fused_predict_kernel {sizes} bytes a "
+          "block")
     for lib, fn, kernels, channels in (
             ("conv3x3", "conv3x3_smem_bytes",
              ("conv3x3_taps", "conv3x3_im2col"), (32, 64, 96, 128)),
@@ -493,20 +601,19 @@ def main():
 
     # ---- 2. build
     t0 = time.perf_counter()
-    print_ptxas(_build.build(["fused_predict", "conv3x3", "decoder_chain"]))
+    sources = ["fused_predict", "softargmax_rows", "conv3x3", "decoder_chain"]
+    print_ptxas(_build.build(sources))
+    print(f"build: nvcc {', '.join(s + '.cu' for s in sources)} in "
+          f"parallel, {time.perf_counter() - t0:.1f} s")
     print_smem()
-    t1 = time.perf_counter()
-    softargmax2d_rows(torch.zeros((1, 8, 8), device="cuda"))
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    print(f"build: nvcc fused_predict.cu, conv3x3.cu, decoder_chain.cu "
-          f"{t1 - t0:.1f} s, triton rows kernel {t2 - t1:.1f} s")
+    check_splits()
 
     # ---- 3. kernels against their plain versions
     records = [check_rows_kernel(torch), check_fused_kernel(torch)]
     for r in records:
-        print(f"{r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
-              f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        print(f"{r['name']}: {r['ms']:.4f} ms (device {r['device_ms']:.4f} "
+              f"ms), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
         print(json.dumps(r))
     torch.cuda.empty_cache()
 

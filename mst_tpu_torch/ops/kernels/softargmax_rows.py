@@ -1,4 +1,5 @@
-"""Rows soft-argmax: a Triton kernel for Hopper, and its plain version.
+"""Rows soft-argmax: a CUDA C++ kernel for Hopper
+(csrc/softargmax_rows.cu), and its plain version.
 
 Replaces the TPU kernel mst_tpu/ops/pallas/softargmax.py
 (`_softargmax_rows` -> `pl.pallas_call` of `_kernel`): the soft-argmax of
@@ -8,108 +9,122 @@ y = flat div W).
 
 Bound on an H100: bytes. Each logit is read once (4 B) and each row writes
 two floats; at TTST's shape (R = 8 rows of 352 x 480) that is 5.4 MB, about
-1.6 us at 3.35 TB/s, well under a kernel launch, so in practice the
-launches bound it. The TPU walked the columns of a row tile in order on one
-core; 8 rows as 8 programs would leave ~124 of the 132 SMs idle, so the
-design splits every row into column chunks. Pass 1 (one program per
-(row, chunk)) writes the chunk's partial (m, s, sx, sy); pass 2 (one
-program per row) merges them with the max-rescaling of
-unify_packed_stats. Ragged tails are masked, so any H*W works (the TPU
-kernel needed H*W % 1024 == 0).
+1.6 us at 3.35 TB/s, less than a launch. The kernel is one launch with no
+scratch: a cluster of CLUSTER CTAs a row, merged through distributed
+shared memory; the design notes are in the source. Any H*W works (the TPU
+kernel needed H*W % 1024 == 0). `row_split` mirrors the kernel's split and
+`rows_split_reference` runs it with the kernel's merge arithmetic on the
+CPU.
 """
+
+import ctypes
 
 import torch
 
+from mst_tpu_torch.ops.kernels import _build
+from mst_tpu_torch.ops.kernels import online_stats as ost
 from mst_tpu_torch.ops.softargmax import softargmax2d as plain
 
-BLOCK = 1024           # columns per load
-BLOCKS_PER_CHUNK = 8   # a pass-1 program reduces 8192 columns
-MERGE_BLOCK = 64       # partials per load in pass 2
+CLUSTER = 16   # CTAs a row (softargmax_rows.cu kCluster)
+THREADS = 256  # a CTA
+LOADS = 8      # float4 loads a thread issues before it reduces them
+WARP = 32
 
-_KERNELS = {}
+
+def row_split(HW, lead, cluster, rank):
+    """Rank `rank`'s share of a row of HW logits whose first element sits
+    `lead` floats past a 16-byte boundary -> (head, h0, h1, v0, v1): the
+    scalar elements [h0, h1) (the unaligned head on rank 0, the ragged tail
+    on the last rank) and the float4s [v0, v1) of the body, which starts at
+    element head. cluster >= 2."""
+    head = min((4 - lead) & 3, HW)
+    nv = (HW - head) // 4
+    v0, v1 = nv * rank // cluster, nv * (rank + 1) // cluster
+    h0 = head + 4 * nv if rank == cluster - 1 else 0
+    h1 = head if rank == 0 else HW if rank == cluster - 1 else 0
+    return head, h0, h1, v0, v1
 
 
-def _kernels():
-    """JIT-compiled (partial, merge) Triton kernels, made on first use:
-    triton is imported here, never at module import."""
-    if _KERNELS:
-        return _KERNELS["partial"], _KERNELS["merge"]
-    import triton
-    import triton.language as tl
+def _coords(f, W):
+    return (f % W).float(), (f // W).float()
 
-    @triton.jit
-    def partial_kernel(x_ptr, part_ptr, HW, W, n_chunks,
-                       BLOCK: tl.constexpr, BLOCKS_PER_CHUNK: tl.constexpr):
-        row = tl.program_id(0)
-        chunk = tl.program_id(1)
-        base = x_ptr + row.to(tl.int64) * HW
-        start = chunk * (BLOCK * BLOCKS_PER_CHUNK)
-        cols = tl.arange(0, BLOCK)
-        m = tl.full((1,), value=float("-inf"), dtype=tl.float32)
-        s = tl.zeros((1,), dtype=tl.float32)
-        sx = tl.zeros((1,), dtype=tl.float32)
-        sy = tl.zeros((1,), dtype=tl.float32)
-        for b in tl.static_range(BLOCKS_PER_CHUNK):
-            flat = start + b * BLOCK + cols
-            valid = flat < HW
-            t = tl.load(base + flat, mask=valid, other=-float("inf"))
-            # the chunk's first block always holds a valid column, so m is
-            # finite after it and a fully masked block adds exp(-inf) = 0
-            new_m = tl.maximum(m, tl.max(t, axis=0))
-            alpha = tl.exp(m - new_m)
-            e = tl.exp(t - new_m)
-            xs = (flat % W).to(tl.float32)
-            ys = (flat // W).to(tl.float32)
-            s = s * alpha + tl.sum(e, axis=0)
-            sx = sx * alpha + tl.sum(e * xs, axis=0)
-            sy = sy * alpha + tl.sum(e * ys, axis=0)
-            m = new_m
-        # the (1,)-shaped accumulators reduce to scalars for the stores
-        out = part_ptr + (row * n_chunks + chunk) * 4
-        tl.store(out + 0, tl.max(m, axis=0))
-        tl.store(out + 1, tl.sum(s, axis=0))
-        tl.store(out + 2, tl.sum(sx, axis=0))
-        tl.store(out + 3, tl.sum(sy, axis=0))
 
-    @triton.jit
-    def merge_kernel(part_ptr, out_ptr, n_chunks, eps,
-                     MERGE_BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        base = part_ptr + row * n_chunks * 4
-        idx = tl.arange(0, MERGE_BLOCK)
-        M = tl.full((1,), value=float("-inf"), dtype=tl.float32)
-        for c0 in range(0, n_chunks, MERGE_BLOCK):
-            valid = c0 + idx < n_chunks
-            mc = tl.load(base + (c0 + idx) * 4, mask=valid,
-                         other=float("-inf"))
-            M = tl.maximum(M, tl.max(mc, axis=0))
-        S = tl.zeros((1,), dtype=tl.float32)
-        X = tl.zeros((1,), dtype=tl.float32)
-        Y = tl.zeros((1,), dtype=tl.float32)
-        for c0 in range(0, n_chunks, MERGE_BLOCK):
-            valid = c0 + idx < n_chunks
-            off = base + (c0 + idx) * 4
-            mc = tl.load(off, mask=valid, other=float("-inf"))
-            scale = tl.exp(mc - M)  # masked partials: exp(-inf) = 0
-            S += tl.sum(tl.load(off + 1, mask=valid, other=0.0) * scale,
-                        axis=0)
-            X += tl.sum(tl.load(off + 2, mask=valid, other=0.0) * scale,
-                        axis=0)
-            Y += tl.sum(tl.load(off + 3, mask=valid, other=0.0) * scale,
-                        axis=0)
-        inv = 1.0 / (S + eps)
-        tl.store(out_ptr + row * 2, tl.sum(X * inv, axis=0))
-        tl.store(out_ptr + row * 2 + 1, tl.sum(Y * inv, axis=0))
+def rows_split_reference(x, lead0: int = 0, cluster: int = CLUSTER,
+                         eps: float = 1e-6):
+    """The kernel's reduction on the CPU: (..., H, W) logits whose first
+    element sits lead0 floats past a 16-byte boundary, cut into the same
+    ranks, threads and load rounds, pushed and merged in the kernel's order
+    with its log2-unit arithmetic (online_stats) -> (..., 2)."""
+    H, W = x.shape[-2], x.shape[-1]
+    HW = H * W
+    rows = x.reshape(-1, HW).float() * ost.LOG2E
+    lanes = torch.arange(THREADS)
+    out = []
+    for r in range(rows.shape[0]):
+        row = rows[r]
+        ranks = []
+        for rank in range(cluster):
+            head, h0, h1, v0, v1 = row_split(HW, (lead0 + r * HW) % 4,
+                                             cluster, rank)
+            st = ost.empty((THREADS,))
+            for base in range(v0, v1, THREADS * LOADS):
+                for i in range(LOADS):
+                    idx = base + i * THREADS + lanes
+                    valid = idx < v1
+                    f = head + 4 * idx.clamp(max=max(v1 - 1, 0))
+                    f4 = f[:, None] + torch.arange(4)
+                    fx, fy = _coords(f4, W)
+                    st = ost.push_group(st, row[f4.clamp(max=HW - 1)], fx,
+                                        fy, valid)
+            n = h1 - h0
+            if n:
+                f = h0 + lanes.clamp(max=n - 1)
+                fx, fy = _coords(f, W)
+                st = ost.push_group(st, row[f][:, None], fx[:, None],
+                                    fy[:, None], lanes < n)
+            warps = ost.warp_merge2(
+                tuple(t.reshape(THREADS // WARP, WARP) for t in st), 1)
+            padded = tuple(torch.cat([t, e]) for t, e in zip(
+                warps, ost.empty((WARP - THREADS // WARP,))))
+            ranks.append(ost.warp_merge2(padded, 0))
+        lanes_c = tuple(torch.stack([s[k] for s in ranks]) for k in range(4))
+        padded = tuple(torch.cat([t, e]) for t, e in zip(
+            lanes_c, ost.empty((WARP - cluster,))))
+        out.append(ost.finish(ost.warp_merge2(padded, 0), eps))
+    return torch.stack(out).reshape(*x.shape[:-2], 2)
 
-    _KERNELS["partial"] = partial_kernel
-    _KERNELS["merge"] = merge_kernel
-    return partial_kernel, merge_kernel
+
+def _library():
+    lib = _build.load("softargmax_rows")
+    fn = lib.softargmax_rows_launch
+    if fn.argtypes is None:
+        i32 = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 2 + [i32] * 3 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = i32
+        lib.softargmax_rows_slice.argtypes = [i32] * 4 + [ctypes.c_void_p]
+        lib.softargmax_rows_slice.restype = None
+        lib.softargmax_rows_cluster.argtypes = []
+        lib.softargmax_rows_cluster.restype = i32
+    return lib
+
+
+def library_split(HW, lead, cluster):
+    """The library's own split (softargmax_rows_slice) of one row, for
+    holding row_split against it on the card."""
+    lib = _library()
+    split = []
+    for rank in range(cluster):
+        buf = (ctypes.c_int * 5)()
+        lib.softargmax_rows_slice(HW, lead, cluster, rank, buf)
+        split.append(tuple(buf))
+    return split
 
 
 def softargmax2d_rows(logits_hw_last, eps: float = 1e-6):
     """(..., H, W) f32 logits -> (..., 2) expected (x, y).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the Triton
+    A CPU tensor takes the plain version; a CUDA tensor launches the CUDA
     kernel, which needs f32 and a contiguous layout, and raises otherwise.
     """
     x = logits_hw_last
@@ -122,20 +137,15 @@ def softargmax2d_rows(logits_hw_last, eps: float = 1e-6):
                          f"(..., H, W); got {x.dtype}, shape "
                          f"{tuple(x.shape)}, strides {x.stride()}")
     H, W = x.shape[-2], x.shape[-1]
-    HW = H * W
-    R = x.numel() // HW
-    chunk = BLOCK * BLOCKS_PER_CHUNK
-    n_chunks = (HW + chunk - 1) // chunk
-    part = torch.empty((R, n_chunks, 4), dtype=torch.float32,
-                       device=x.device)
+    R = x.numel() // (H * W)
     out = torch.empty((R, 2), dtype=torch.float32, device=x.device)
-    partial_kernel, merge_kernel = _kernels()
     with torch.cuda.device(x.device):
-        partial_kernel[(R, n_chunks)](x, part, HW, W, n_chunks, BLOCK=BLOCK,
-                                      BLOCKS_PER_CHUNK=BLOCKS_PER_CHUNK,
-                                      num_warps=4)
-        merge_kernel[(R,)](part, out, n_chunks, eps,
-                           MERGE_BLOCK=MERGE_BLOCK, num_warps=2)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().softargmax_rows_launch(
+            x.data_ptr(), out.data_ptr(), R, H * W, W, float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"softargmax_rows kernel launch failed: "
+                           f"cudaError_t {err}")
     softargmax2d_rows.launches += 1
     return out.reshape(*x.shape[:-2], 2)
 

@@ -13,7 +13,7 @@ import torch
 
 
 def softargmax2d_auto(logits_hw_last, eps: float = 1e-6):
-    """softargmax2d through ops/kernels/softargmax_rows.py: the Triton
+    """softargmax2d through ops/kernels/softargmax_rows.py: the CUDA
     kernel for a CUDA tensor, the plain version for a CPU tensor."""
     from mst_tpu_torch.ops.kernels.softargmax_rows import softargmax2d_rows
 

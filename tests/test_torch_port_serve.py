@@ -212,7 +212,8 @@ def _imports(path):
 
 
 def test_port_imports_no_jax_and_no_mst_tpu():
-    """An ast scan (a preloaded jax would fool a sys.modules check)."""
+    """An ast scan (a preloaded jax would fool a sys.modules check). Every
+    kernel of the port is CUDA C++ built by nvcc, so triton is banned too."""
     files = sorted((REPO / "mst_tpu_torch").rglob("*.py")) + \
         [REPO / "chip_smoke.py"]
     assert len(files) > 15
@@ -220,5 +221,5 @@ def test_port_imports_no_jax_and_no_mst_tpu():
         for name in _imports(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "mst_tpu", "optax",
-                                "benchmarks"), \
+                                "benchmarks", "triton"), \
                 f"{os.path.relpath(path, REPO)} imports {name}"
