@@ -30,6 +30,19 @@ Phases, each fatal on failure:
   6. where one more request's time goes: its two stages on the host clock,
      and a torch.profiler trace (kernel time, device busy share, top
      kernels);
+  6b. the few-shot fine-tune path: the train step on the card against the
+     CPU at small width (three mosa_2 steps, losses at 1e-4 relative), then
+     5 steps of mosa_2 on positions 0-4 at the full width of
+     sdd_shortterm_train.yaml (B = 8 with two padded rows, 352 x 480,
+     random weights from seed 0, Adam at lr 1e-3): per-step losses and
+     host-clock ms, finite losses, frozen leaves bit-identical, lora_B
+     moved from step 1 and lora_A from step 2, the rows kernel launched
+     twice a step (its metrics) and every other kernel never (all six
+     counts set to 0 before the steps and read after them); the peak
+     device memory, the rows kernel against its plain version on the
+     path's own maps, a torch.profiler trace of one more step; then the
+     trainable-only delta (exactly the 18 LoRA leaves) saved, registered
+     with phase 5's Predictor as a style and served once;
   7. the probe paths at their full shapes, through
      mst_tpu_torch.probes.{conv,chain}_probe.run(): the two 3x3 conv
      kernels (x (160, 176, 240, 128) bf16) and the two decoder-chain
@@ -42,7 +55,8 @@ Phases, each fatal on failure:
      20 of the predictor's 64 columns), the chains' uniform-logits closed
      form at full shape, and a torch.profiler breakdown of each
      yardstick and each chain kernel.
-The line before the last is the per-kernel JSON record; the last line is
+The line before the last is the per-kernel JSON record (launches on each
+kernel's own path, and train_launches on the fine-tune path); the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
@@ -530,13 +544,42 @@ def print_smem():
             print(f"dynamic shared memory: {name} {sizes} bytes a block")
 
 
-def where_time_goes(torch, pred, semantic, observed):
-    """One more request, split into its two stages on the host clock (each
-    ending in a synchronize), then traced by torch.profiler: total kernel
-    time over the traced request's wall time, and the kernels that take
-    the most device time."""
+def print_trace(torch, label, fn, conv_ops=0):
+    """fn() traced by torch.profiler (fn ends in a synchronize or a host
+    copy): total kernel time over its wall time, the kernels that take the
+    most device time and, with conv_ops, the convolution operators (forward
+    and backward, by input shapes) whose kernels take the most."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=conv_ops > 0) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels:
+        print("profiler: no device time recorded (device busy share not "
+              "measured)")
+        return
+    print(f"profiler: {busy_ms:.1f} ms of kernels in a {wall_ms:.1f} ms "
+          f"traced {label} (device busy {100 * busy_ms / wall_ms:.0f}%)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}")
+    convs = [e for e in prof.key_averages(group_by_input_shape=True)
+             if e.key in ("aten::cudnn_convolution",
+                          "aten::convolution_backward")]
+    for e in sorted(convs, key=lambda e: -e.device_time_total)[:conv_ops]:
+        shapes = [s for s in e.input_shapes if s][:3]
+        print(f"  op {e.device_time_total / 1e3:8.2f} ms  x{e.count:<3d} "
+              f"{e.key} {shapes}")
+
+
+def where_time_goes(torch, pred, semantic, observed):
+    """One more request, split into its two stages on the host clock (each
+    ending in a synchronize), then traced by torch.profiler."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     feats, wps = pred.forward(semantic, observed, seed=7)
@@ -548,23 +591,188 @@ def where_time_goes(torch, pred, semantic, observed):
     print(f"stages: forward + sampling {1e3 * (t1 - t0):.1f} ms, "
           f"K decodes {1e3 * (t2 - t1):.1f} ms")
     del feats, wps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    print_trace(torch, "request",
+                lambda: pred.predict(semantic, observed, seed=8))
+
+
+POSITIONS = ["0", "1", "2", "3", "4"]
+LOSS_KEYS = ("loss", "goal_loss", "traj_loss")
+TRAIN_TOL = 1e-4  # relative, the losses on the card against the CPU
+TRAIN_STEPS = 5
+
+
+def small_train_reference(torch):
+    """The fine-tune step on the card against the CPU at the CPU tests'
+    width (mosa_2 on positions 0-4): the same seeded weights and inputs
+    through three steps; -> the largest relative loss difference."""
+    import numpy as np
+
+    from mst_tpu_torch.config import get_params, step_config, ynet_config
+    from mst_tpu_torch.models.ynet import init_ynet
+    from mst_tpu_torch.train.steps import make_train_step
+    from mst_tpu_torch.train.trainer import setup_training
+
+    params = get_params("sdd_shortterm_train.yaml", dict(
+        encoder_channels=[8, 8, 16, 16, 16],
+        decoder_channels=[16, 16, 16, 8, 8], n_semantic_classes=3,
+        waypoints=[5, 11], train_net="mosa_2", position=POSITIONS, lr=1e-3))
+    mcfg = ynet_config(params)
+    rng = np.random.default_rng(0)
+    batch = {"semantic": rng.normal(size=(1, 64, 96, 3)),
+             "traj": rng.uniform(5, 60, size=(4, 20, 2)),
+             "mask": np.array([1.0, 1.0, 1.0, 0.0])}
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        weights = init_ynet(torch.Generator().manual_seed(0), mcfg, dev)
+        setup = setup_training(weights, params, steps_per_epoch=1)
+        step = make_train_step(mcfg, step_config(params))
+        b = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in batch.items()}
+        losses[dev] = []
+        for _ in range(3):
+            m = step(weights, setup["optimizer"], setup["scheduler"], b)
+            losses[dev].append([float(m[k]) for k in LOSS_KEYS])
+    for i, (a, c) in enumerate(zip(losses["cuda"], losses["cpu"])):
+        print(f"small-width step {i}: card {a}, cpu {c}")
+    return max(abs(a - c) / abs(c) for ra, rc in zip(losses["cuda"],
+                                                     losses["cpu"])
+               for a, c in zip(ra, rc))
+
+
+def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
+    """The few-shot fine-tune path at SDD short-term width: mosa_2 on
+    positions 0-4, B = 8 at 352 x 480, Adam at lr 1e-3, TRAIN_STEPS steps
+    from random weights (seed 0, the same base as `pred`) on bench.py's
+    input draws with two padded rows; the rows kernel's launches counted
+    over the steps. Then the rows kernel against its plain version on the
+    path's own maps, a trace of one more step, and the delta it saved
+    served by `pred` as a style. -> {kernel name: launches over the
+    steps} for every kernel wrapper, each counted from 0."""
+    import numpy as np
+
+    from mst_tpu_torch import io
+    from mst_tpu_torch.config import get_params, step_config, ynet_config
+    from mst_tpu_torch.models.ynet import init_ynet
+    from mst_tpu_torch.ops.kernels.fused_predict import \
+        fused_predictor_softargmax
+    from mst_tpu_torch.ops.kernels.softargmax_rows import (
+        plain, softargmax2d_rows)
+    from mst_tpu_torch.probes import chain_probe, conv_probe, time_ms
+    from mst_tpu_torch.train.steps import make_train_step
+    from mst_tpu_torch.train.trainer import save_params, setup_training
+
+    params = get_params("sdd_shortterm_train.yaml", dict(
+        train_net="mosa_2", position=POSITIONS, lr=1e-3))
+    mcfg = ynet_config(params)
+    H, W, B = 352, 480, 8
+    rng = np.random.default_rng(0)  # as bench.py:47-55
+    sem = rng.normal(size=(1, H, W, params["n_semantic_classes"]))
+    total = params["obs_len"] + params["pred_len"]
+    lo, hi = 0.2 * min(H, W), 0.6 * min(H, W)
+    traj = rng.uniform(lo, hi, size=(B, total, 2))
+    mask = np.ones(B)
+    mask[-2:] = 0.0  # two padded rows
+    batch = {k: torch.tensor(v, dtype=torch.float32, device="cuda")
+             for k, v in (("semantic", sem), ("traj", traj),
+                          ("mask", mask))}
+    weights = init_ynet(torch.Generator().manual_seed(0), mcfg, "cuda")
+    setup = setup_training(weights, params, steps_per_epoch=1)
+    step = make_train_step(mcfg, step_config(params))
+    flat = io.flatten(weights)
+    trained = [k for k, v in flat.items() if v.requires_grad]
+    check(trained and all(k.endswith(("lora_A", "lora_B"))
+                          for k in trained), "mosa_2 trains other leaves")
+    before = {k: v.detach().clone() for k, v in flat.items()}
+    print(f"fine-tune: {setup['n_trainable']} trainable parameters in "
+          f"{len(trained)} leaves, batch ({B}, {H}, {W}), "
+          f"mask {mask.tolist()}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = {"softargmax_rows": softargmax2d_rows,
+                "fused_predict": fused_predictor_softargmax,
+                **dict(conv_probe.KERNELS), **dict(chain_probe.KERNELS)}
+    for fn in wrappers.values():
+        fn.launches = 0
+    prev = {k: before[k] for k in trained}
+    for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
-        pred.predict(semantic, observed, seed=8)
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if not kernels:
-        print("profiler: no device time recorded (device busy share not "
-              "measured)")
-        return
-    print(f"profiler: {busy_ms:.1f} ms of kernels in a {wall_ms:.1f} ms "
-          f"traced request (device busy {100 * busy_ms / wall_ms:.0f}%)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<4d} "
-              f"{e.key[:90]}")
+        m = step(weights, setup["optimizer"], setup["scheduler"], batch)
+        torch.cuda.synchronize()
+        dt = 1e3 * (time.perf_counter() - t0)
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"fine-tune step {i}: {dt:.1f} ms, " + ", ".join(
+            f"{k} {v:.6f}" for k, v in vals.items()))
+        check(all(np.isfinite(v) for v in vals.values()),
+              f"fine-tune step {i}: non-finite metrics {vals}")
+        for k in trained:
+            moved = not torch.equal(flat[k], prev[k])
+            if k.endswith("lora_B") or i > 0:
+                check(moved, f"fine-tune step {i}: {k} did not move")
+            else:  # lora_B starts at 0, so lora_A's first gradient is 0
+                check(not moved, f"fine-tune step 0: {k} moved")
+            prev[k] = flat[k].detach().clone()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"fine-tune path launches: {launches}")
+    check(launches["softargmax_rows"] == 2 * TRAIN_STEPS,
+          "the rows kernel did not run twice a fine-tune step")
+    for name, n in launches.items():
+        check(name == "softargmax_rows" or n == 0,
+              f"{name} ran on the fine-tune path")
+    print(f"fine-tune peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for k, v in before.items():
+        if k not in trained:
+            check(torch.equal(flat[k], v), f"frozen leaf {k} changed")
+    del before, prev
+
+    # the rows kernel against its plain version on the path's own maps
+    with torch.no_grad():
+        _, _, goal_map, traj_map = step.forward(weights, batch)
+    for name, x in (("traj", traj_map.permute(0, 3, 1, 2).contiguous()),
+                    ("goal", goal_map[..., -1:].permute(0, 3, 1, 2)
+                     .contiguous())):
+        e = float((softargmax2d_rows(x) - plain(x)).abs().max())
+        R = x.shape[0] * x.shape[1]
+        b_ms, _ = bound(R * H * W * 4 + R * 2 * 4, R * H * W * 8)
+        print(f"softargmax_rows on the fine-tune {name} maps {tuple(x.shape)}"
+              f": max |kernel - plain| = {e:.3e} px (tol {ROWS_TOL}); "
+              f"{time_ms(lambda: softargmax2d_rows(x), 50):.4f} ms, plain "
+              f"{time_ms(lambda: plain(x), 20):.4f} ms, bound {b_ms:.4f} ms")
+        check(e <= ROWS_TOL, f"rows kernel disagrees on the {name} maps")
+        rows_rec["max_abs_err"] = max(rows_rec["max_abs_err"], e)
+    del goal_map, traj_map, x
+
+    def one_step():
+        step(weights, setup["optimizer"], setup["scheduler"], batch)
+        torch.cuda.synchronize()
+
+    print_trace(torch, "fine-tune step", one_step, conv_ops=8)
+
+    # the loop closes: the delta serves as a style
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mosa_2_finetuned.npz")
+        save_params(path, weights, params)
+        with np.load(path) as z:
+            keys = set(z.files)
+        want = {k for k in flat if "lora_" in k}
+        check(keys == want and len(want) == 18,
+              f"the delta holds {sorted(keys ^ want)[:4]} beyond or short "
+              "of the lora_A/lora_B leaves of positions 0-4")
+        pred.add_style("fine_tuned", path)
+    out = pred.predict(semantic, observed, seed=0, style="fine_tuned")
+    tr = out["trajectories"]
+    rf = params["resize_factor"]
+    check(np.isfinite(tr).all() and (tr >= 0).all()
+          and (tr[..., 0] <= (W - 1) / rf).all()
+          and (tr[..., 1] <= (H - 1) / rf).all(),
+          "the fine-tuned style's trajectories are not finite and inside "
+          "the image")
+    moved = float(np.abs(tr - base_out["trajectories"]).max())
+    print(f"fine-tuned style vs base, same seed: max |difference| = "
+          f"{moved:.4f} raw px")
+    check(moved > 0, "the fine-tuned delta changed nothing")
+    return launches
 
 
 def main():
@@ -695,6 +903,19 @@ def main():
     # ---- 6. where a request's time goes
     where_time_goes(torch, base, semantic, observed)
 
+    # ---- 6b. the fine-tune path: card against CPU at small width, then
+    # TRAIN_STEPS full-width mosa_2 steps whose delta `base` serves
+    t0 = time.perf_counter()
+    err = small_train_reference(torch)
+    print(f"small-width fine-tune: max relative |card - cpu| loss = "
+          f"{err:.3e} (tol {TRAIN_TOL})")
+    check(err <= TRAIN_TOL, "the fine-tune step on the card disagrees with "
+          "the CPU")
+    rows_rec = next(r for r in records if r["name"] == "softargmax_rows")
+    train_launches = fine_tune_path(torch, base, semantic, observed, outs[0],
+                                    rows_rec)
+    print(f"fine-tune phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- 7. the probe paths: the conv and decoder-chain kernels
     del base
     torch.cuda.empty_cache()
@@ -710,8 +931,11 @@ def main():
     print(f"probe phase: {time.perf_counter() - t0:.1f} s")
     records += probe_records
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for r in records:
+        r["train_launches"] = train_launches[r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches",
+            "train_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

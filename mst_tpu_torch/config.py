@@ -1,6 +1,11 @@
 """Config: a YAML file of `mst_tpu_torch/configs` (or a path) merged with
 overrides into one flat params dict, with the JAX package's key vocabulary
-(counterpart of mst_tpu/config.py:125-204)."""
+(counterpart of mst_tpu/config.py:125-204 and
+mst_tpu/train/trainer.py:312-351).
+
+Flags the port does not act on yet raise NotImplementedError at a
+non-default value instead of being dropped (see _check_ported).
+"""
 
 import os
 
@@ -14,6 +19,7 @@ CONFIG_DIR = os.path.join(os.path.dirname(__file__), "configs")
 _DEFAULTS = dict(
     use_CWS=False, use_TTST=False, rel_threshold=0.002, CWS_params=None,
     network="original", position=[], train_net="train", eval_k_chunk=0,
+    swap_semantic=False,
 )
 
 
@@ -31,9 +37,35 @@ def get_params(config_filename=None, overrides=None) -> dict:
     return params
 
 
+def _check_ported(params: dict):
+    """Raise on a flag that mst_tpu acts on and the port does not yet: bf16
+    compute (trainer.py:348-349), ETH world-coordinate metrics
+    (trainer.py:346-347), the feature-only segmentation backbone
+    (mst_tpu/config.py:187-190) and the fusion network's n_fusion."""
+    dtype = params.get("compute_dtype")
+    if dtype is not None and str(dtype).lower() not in ("float32", "f32"):
+        raise NotImplementedError(
+            f"compute_dtype={dtype!r}: only float32 is ported yet")
+    if (str(params.get("dataset_name", "")).lower() == "eth"
+            and params.get("eth_world_coords")):
+        raise NotImplementedError(
+            "eth_world_coords: ETH world-coordinate metrics are not ported "
+            "yet")
+    if params.get("use_features_only") and params.get(
+            "segmentation_model_fp"):
+        raise NotImplementedError(
+            "use_features_only with a segmentation backbone "
+            "(segmentation_model_fp): the backbone is not ported yet")
+    if params.get("n_fusion") is not None:
+        raise NotImplementedError(
+            f"n_fusion={params['n_fusion']!r}: the fusion network is not "
+            "ported yet")
+
+
 def ynet_config(params: dict) -> YNetConfig:
     """The model config of a flat params dict (identity segmentation: the
     semantic input is the segmented map)."""
+    _check_ported(params)
     return YNetConfig(
         obs_len=params["obs_len"],
         pred_len=params["pred_len"],
@@ -47,9 +79,13 @@ def ynet_config(params: dict) -> YNetConfig:
     )
 
 
-def step_config(params: dict, **overrides) -> StepConfig:
-    """The eval/predict step config of a flat params dict (as
-    mst_tpu.train.trainer.Experiment._step_config builds it)."""
+def step_config(params: dict, for_validation: bool = False,
+                **overrides) -> StepConfig:
+    """The step config of a flat params dict (as
+    mst_tpu.train.trainer.Experiment._step_config builds it).
+    for_validation turns TTST off and passes use_CWS through, as the
+    reference's per-epoch validation does (trainer.py:314-317)."""
+    _check_ported(params)
     cws = params.get("CWS_params")
     scfg = StepConfig(
         obs_len=params["obs_len"], pred_len=params["pred_len"],
@@ -58,12 +94,15 @@ def step_config(params: dict, **overrides) -> StepConfig:
         resize_factor=float(params["resize_factor"]),
         temperature=float(params["temperature"]),
         n_goal=int(params["n_goal"]), n_traj=int(params["n_traj"]),
-        use_ttst=bool(params["use_TTST"]),
+        use_ttst=bool(params["use_TTST"]) and not for_validation,
         rel_threshold=float(params["rel_threshold"]),
         use_cws=bool(params["use_CWS"]),
         cws_params=(CWSParams(sigma_factor=float(cws["sigma_factor"]),
                               ratio=float(cws["ratio"]),
                               rot=bool(cws["rot"])) if cws else None),
         eval_k_chunk=int(params["eval_k_chunk"]),
+        kernlen=int(params["kernlen"]), nsig=float(params["nsig"]),
+        loss_scale=float(params["loss_scale"]),
+        swap_semantic=bool(params["swap_semantic"]),
     )
     return scfg._replace(**overrides)

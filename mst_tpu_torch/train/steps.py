@@ -1,10 +1,13 @@
-"""Eval and predict steps (counterpart of mst_tpu/train/steps.py:51-104,
-322-772; reference utils/evaluate.py:37-315).
+"""Train, eval and predict steps (counterpart of mst_tpu/train/steps.py:51-104,
+179-315, 322-772; reference utils/train_epoch.py:44-126 and
+utils/evaluate.py:37-315).
 
-PyTorch runs eagerly, so a step is a plain function: forward with goal
-and waypoint sampling (optionally TTST or CWS), then the K waypoint-
+PyTorch runs eagerly, so a step is a plain function. Eval: forward with
+goal and waypoint sampling (optionally TTST or CWS), then the K waypoint-
 conditioned trajectory decodes in chunks of eval_k_chunk, then the
-min-over-K metrics. The decode is always the unpacked math; the JAX
+min-over-K metrics. Train: one few-shot fine-tune step, forward, masked
+BCE, backward into the trainable leaves and an optimizer step (see
+make_train_step). The decode is always the unpacked math; the JAX
 package's space-to-depth packing is a TPU layout and has no counterpart.
 Random draws come from one torch.Generator on the step's device.
 """
@@ -15,7 +18,8 @@ import torch
 
 from mst_tpu_torch.evaluator.metrics import ade_fde_per_sample
 from mst_tpu_torch.models import ynet as ynet_lib
-from mst_tpu_torch.ops.heatmap import rasterize_dist_nhwc
+from mst_tpu_torch.ops.heatmap import (rasterize_dist_nhwc,
+                                       rasterize_gaussian_nhwc)
 from mst_tpu_torch.ops.kernels.fused_predict import \
     fused_predictor_softargmax
 from mst_tpu_torch.ops.kmeans import batched_kmeans
@@ -23,6 +27,7 @@ from mst_tpu_torch.ops.pooling import avg_pool_pyramid
 from mst_tpu_torch.ops.sampling import sample_heatmap
 from mst_tpu_torch.ops.softargmax import (softargmax2d_auto,
                                           softargmax_on_prob_map)
+from mst_tpu_torch.train.losses import bce_with_logits
 
 
 class CWSParams(NamedTuple):
@@ -34,7 +39,7 @@ class CWSParams(NamedTuple):
 
 
 class StepConfig(NamedTuple):
-    """Static settings of the eval and predict steps."""
+    """Static settings of the train, eval and predict steps."""
     obs_len: int
     pred_len: int
     waypoints: tuple
@@ -48,6 +53,18 @@ class StepConfig(NamedTuple):
     use_cws: bool = False
     cws_params: Any = None
     eval_k_chunk: int = 0  # 0 -> all K at once
+    kernlen: int = 31  # the gt Gaussian's window (train step)
+    nsig: float = 4.0  # and its sigma
+    loss_scale: float = 1000.0
+    swap_semantic: bool = False  # swap semantic channels 1 and 2
+
+
+def swap_pavement_terrain(semantic_img):
+    """Swap semantic channels 1 and 2 of an NHWC map (a copy of
+    mst_tpu/data/images.py:90-94; reference image_utils.py:165-173)."""
+    perm = list(range(semantic_img.shape[-1]))
+    perm[1], perm[2] = perm[2], perm[1]
+    return semantic_img[..., perm]
 
 
 def _prepare_inputs(scfg, semantic, traj):
@@ -56,11 +73,93 @@ def _prepare_inputs(scfg, semantic, traj):
     B = traj.shape[0]
     H, W = semantic.shape[-3], semantic.shape[-2]
     semantic = semantic.to(torch.float32)
+    if scfg.swap_semantic:
+        semantic = swap_pavement_terrain(semantic)
     if semantic.shape[0] != B:
         semantic = semantic.expand(B, *semantic.shape[1:])
     observed_map = rasterize_dist_nhwc(traj[:, :scfg.obs_len], H, W,
                                        scfg.template_size)
     return semantic, observed_map
+
+
+def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
+    """The few-shot fine-tune step (mst_tpu make_train_step, unpacked).
+
+    train_step(params, optimizer, scheduler, batch) -> metrics. params is
+    the nested tree; its trainable leaves have requires_grad and are the
+    optimizer's parameters (freeze.set_trainable), and the step updates
+    them in place: zero the gradients, backward, optimizer.step(),
+    scheduler.step(). This replaces the JAX signature's functional
+    (trainable, frozen, state, opt_state) threading. batch: 'semantic'
+    (1 or B, H, W, C), 'traj' (B, obs_len + pred_len, 2) model-space
+    pixels, 'mask' (B,). metrics: 'loss', 'goal_loss', 'traj_loss' (each x
+    loss_scale), and the masked top-1 'ade_sum', 'fde_sum' and 'n', as 0-d
+    tensors detached from the graph.
+
+    The trajectory decoder runs in the split form on the ground-truth
+    waypoint pyramid; its logits are the 1x1 predictor as an einsum plus
+    the bias (BCE needs them, so the fused kernel has no place here). The
+    metrics' soft-argmax runs on contiguous (B, P, H, W) copies of the
+    detached maps through softargmax2d_auto: two rows-kernel launches a
+    step on the card, the plain version on the CPU.
+    """
+    waypoints = list(scfg.waypoints)
+    n_levels = len(mcfg.encoder_channels) + 1
+
+    def forward(params, batch):
+        """-> (goal_loss, traj_loss, goal logits, traj logits); the maps
+        are (B, H, W, pred_len)."""
+        traj, mask = batch["traj"], batch["mask"]
+        H, W = batch["semantic"].shape[-3], batch["semantic"].shape[-2]
+        semantic, observed_map = _prepare_inputs(scfg, batch["semantic"],
+                                                 traj)
+        gt_future = traj[:, scfg.obs_len:]
+        gt_future_map = rasterize_gaussian_nhwc(gt_future, H, W,
+                                                scfg.kernlen, scfg.nsig)
+        gt_waypoint_map = rasterize_dist_nhwc(gt_future[:, waypoints], H, W,
+                                              scfg.template_size)
+        wp_pyramid = avg_pool_pyramid(gt_waypoint_map, n_levels)
+        features = ynet_lib.pred_features(params, mcfg, semantic,
+                                          observed_map)
+        goal_map = ynet_lib.pred_goal(params, features)
+        x, w, b = ynet_lib.make_shared_pred_traj(
+            params, features, len(waypoints))(wp_pyramid)
+        traj_map = torch.einsum("bhwc,cp->bhwp", x, w) + b
+        goal_loss = bce_with_logits(goal_map, gt_future_map,
+                                    mask) * scfg.loss_scale
+        traj_loss = bce_with_logits(traj_map, gt_future_map,
+                                    mask) * scfg.loss_scale
+        return goal_loss, traj_loss, goal_map, traj_map
+
+    @torch.no_grad()
+    def top1_metrics(goal_map, traj_map, traj, mask):
+        """Top-1 soft-argmax ADE/FDE (train_epoch.py:117-126)."""
+        gt_future = traj[:, scfg.obs_len:]
+        traj_pts = softargmax2d_auto(
+            traj_map.detach().permute(0, 3, 1, 2).contiguous())  # (B, P, 2)
+        goal_pts = softargmax2d_auto(
+            goal_map.detach()[..., -1:].permute(0, 3, 1, 2).contiguous())
+        rf = scfg.resize_factor
+        ade = torch.sqrt((((gt_future - traj_pts) / rf) ** 2).sum(-1)).mean(-1)
+        fde = torch.sqrt((((gt_future[:, -1:] - goal_pts[:, -1:]) / rf) ** 2)
+                         .sum(-1)).mean(-1)
+        return {"ade_sum": (ade * mask).sum(), "fde_sum": (fde * mask).sum(),
+                "n": mask.sum()}
+
+    def train_step(params, optimizer, scheduler, batch):
+        optimizer.zero_grad(set_to_none=True)
+        goal_loss, traj_loss, goal_map, traj_map = forward(params, batch)
+        loss = goal_loss + traj_loss
+        loss.backward()
+        optimizer.step()
+        scheduler.step()
+        metrics = top1_metrics(goal_map, traj_map, batch["traj"],
+                               batch["mask"])
+        return {"loss": loss.detach(), "goal_loss": goal_loss.detach(),
+                "traj_loss": traj_loss.detach(), **metrics}
+
+    train_step.forward = forward
+    return train_step
 
 
 def _ttst_goals(generator, pred_waypoint_map, wp_sigmoid_hw, scfg):

@@ -195,6 +195,74 @@ def test_predictor_checkpoint_is_strict(tmp_path):
         Predictor(params, str(tmp_path / "extra.npz"), device="cpu")
 
 
+def test_predictor_swap_semantic_matches_jax(rng, tmp_path):
+    """swap_semantic: fed JAX's own waypoint draws, the Predictor decodes
+    mst_tpu's swapped make_predict_step trajectories, and lands well away
+    from its unswapped decode of the same draws."""
+    params = small_params(n_goal=3, swap_semantic=True)
+    flat = io.params_to_numpy(init_ynet(torch.Generator().manual_seed(2),
+                                        ynet_config(params)))
+    np.savez(tmp_path / "ckpt.npz", **flat)
+    jmcfg = jynet.YNetConfig(
+        obs_len=8, pred_len=12, n_semantic_classes=3,
+        encoder_channels=(8, 8, 16, 16, 16),
+        decoder_channels=(16, 16, 16, 8, 8), waypoints=(11,))
+    jscfg = jsteps.StepConfig(
+        obs_len=8, pred_len=12, waypoints=(11,),
+        template_size=step_config(params).template_size, kernlen=31,
+        nsig=4.0, loss_scale=1000.0, resize_factor=0.25, temperature=1.0,
+        n_goal=3, n_traj=1, packed_decode=False, swap_semantic=True)
+    b = batch(rng, 8, 0)
+    jout = jsteps.make_predict_step(jmcfg, jscfg)(
+        io.unflatten(flat), {}, b["semantic"], b["traj"],
+        jax.random.PRNGKey(1))
+    decoded = {}
+    for swap in (True, False):
+        pred = Predictor(small_params(n_goal=3, swap_semantic=swap),
+                         str(tmp_path / "ckpt.npz"), device="cpu")
+        feats, _ = pred.forward(b["semantic"], b["traj"])
+        decoded[swap] = pred.decode(feats, t(jout["waypoints"]) * 0.25)
+    np.testing.assert_allclose(decoded[True].numpy(),
+                               np.asarray(jout["trajectories"]), atol=4e-3)
+    assert float((decoded[True] - decoded[False]).abs().max()) > 10 * 4e-3
+
+
+@pytest.mark.parametrize("flag,over", [
+    ("compute_dtype", dict(compute_dtype="bfloat16")),
+    ("eth_world_coords", dict(dataset_name="eth", eth_world_coords=True)),
+    ("use_features_only", dict(use_features_only=True,
+                               segmentation_model_fp="seg.npz")),
+    ("n_fusion", dict(n_fusion=2))])
+def test_unported_flags_raise(flag, over):
+    """A flag mst_tpu acts on and the port does not yet raises, naming
+    itself, instead of being dropped."""
+    params = small_params(**over)
+    for build in (ynet_config, step_config,
+                  lambda p: Predictor(p, device="cpu")):
+        with pytest.raises(NotImplementedError, match=flag):
+            build(params)
+
+
+@pytest.mark.parametrize("over", [
+    dict(compute_dtype="float32"), dict(compute_dtype="f32"),
+    dict(eth_world_coords=True), dict(use_features_only=True),
+    dict(n_fusion=None)])
+def test_flags_at_what_the_port_does_are_accepted(over):
+    """float32, world coordinates outside eth, feature-only without a
+    backbone, no n_fusion: what mst_tpu also does there."""
+    params = small_params(**over)
+    assert ynet_config(params).n_semantic_classes == 3
+    assert step_config(params).obs_len == 8
+
+
+def test_step_config_for_validation():
+    """for_validation turns TTST off and keeps CWS (trainer.py:314-317)."""
+    params = small_params(use_TTST=True, use_CWS=True)
+    scfg = step_config(params, for_validation=True)
+    assert not scfg.use_ttst and scfg.use_cws
+    assert step_config(params).use_ttst
+
+
 def test_predictor_needs_a_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
