@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
+  1. the card (nvidia-smi name and power limit), the torch/CUDA versions,
+     and whether pandas, cv2 and PIL import;
   2. build every kernel from the sources in this checkout (one nvcc each,
      all started together, for csrc/fused_predict.cu and
      csrc/softargmax_rows.cu, and csrc/conv3x3.cu and csrc/decoder_chain.cu,
@@ -43,6 +44,16 @@ Phases, each fatal on failure:
      path's own maps, a torch.profiler trace of one more step; then the
      trainable-only delta (exactly the 18 LoRA leaves) saved, registered
      with phase 5's Predictor as a style and served once;
+  6c. the Experiment loop as the CLIs drive it (experiment_loop): at the
+     full width of sdd_shortterm_train.yaml with the identity backbone's 3
+     classes, on in-memory synthetic scenes at 352 x 480 (neither pandas
+     nor cv2), a 2-epoch scratch train run, the init check (exact), a
+     3-epoch mosa_2 fine-tune with validation, and a base + delta 2-round
+     TTST test; per-epoch losses and ADE/FDE, host seconds of data, steps
+     and validation, peak memory, every kernel's launches against the
+     count the code gives, no eval_k_chunk shrink, a trace of one more
+     fine-tune epoch, and the delta (LoRA leaves only) served as a
+     Predictor style;
   7. the probe paths at their full shapes, through
      mst_tpu_torch.probes.{conv,chain}_probe.run(): the two 3x3 conv
      kernels (x (160, 176, 240, 128) bf16) and the two decoder-chain
@@ -56,7 +67,8 @@ Phases, each fatal on failure:
      form at full shape, and a torch.profiler breakdown of each
      yardstick and each chain kernel.
 The line before the last is the per-kernel JSON record (launches on each
-kernel's own path, and train_launches on the fine-tune path); the last line is
+kernel's own path, train_launches on the fine-tune path and loop_launches
+on the Experiment loop's); the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
@@ -65,6 +77,7 @@ import ctypes
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -80,6 +93,19 @@ FUSED_TOL = 1e-2  # px, fused predictor + soft-argmax vs its plain version
 # px: with wpred = 0 every map is uniform and the answer is a closed form;
 # only f32 sums of the coordinates stand between
 UNIFORM_TOL = 1e-3
+
+
+def print_optional_packages():
+    """Whether the packages the port reads data with when they are there
+    (pandas for the pickles, cv2 to decode images) and PIL import here."""
+    import importlib
+
+    for name in ("pandas", "cv2", "PIL"):
+        try:
+            mod = importlib.import_module(name)
+            print(f"package {name}: {getattr(mod, '__version__', '?')}")
+        except ImportError as e:
+            print(f"package {name}: not importable ({e})")
 
 
 def check(cond, msg):
@@ -548,7 +574,8 @@ def print_trace(torch, label, fn, conv_ops=0):
     """fn() traced by torch.profiler (fn ends in a synchronize or a host
     copy): total kernel time over its wall time, the kernels that take the
     most device time and, with conv_ops, the convolution operators (forward
-    and backward, by input shapes) whose kernels take the most."""
+    and backward, by input shapes) whose kernels take the most. -> (kernel
+    ms, wall ms), or None if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -562,7 +589,7 @@ def print_trace(torch, label, fn, conv_ops=0):
     if not kernels:
         print("profiler: no device time recorded (device busy share not "
               "measured)")
-        return
+        return None
     print(f"profiler: {busy_ms:.1f} ms of kernels in a {wall_ms:.1f} ms "
           f"traced {label} (device busy {100 * busy_ms / wall_ms:.0f}%)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
@@ -575,6 +602,7 @@ def print_trace(torch, label, fn, conv_ops=0):
         shapes = [s for s in e.input_shapes if s][:3]
         print(f"  op {e.device_time_total / 1e3:8.2f} ms  x{e.count:<3d} "
               f"{e.key} {shapes}")
+    return busy_ms, wall_ms
 
 
 def where_time_goes(torch, pred, semantic, observed):
@@ -639,6 +667,19 @@ def small_train_reference(torch):
                for a, c in zip(ra, rc))
 
 
+def kernel_wrappers():
+    """{kernel name: its wrapper} for all six kernels; each wrapper's
+    `launches` counts the launches of its kernel."""
+    from mst_tpu_torch.ops.kernels.fused_predict import \
+        fused_predictor_softargmax
+    from mst_tpu_torch.ops.kernels.softargmax_rows import softargmax2d_rows
+    from mst_tpu_torch.probes import chain_probe, conv_probe
+
+    return {"softargmax_rows": softargmax2d_rows,
+            "fused_predict": fused_predictor_softargmax,
+            **dict(conv_probe.KERNELS), **dict(chain_probe.KERNELS)}
+
+
 def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
     """The few-shot fine-tune path at SDD short-term width: mosa_2 on
     positions 0-4, B = 8 at 352 x 480, Adam at lr 1e-3, TRAIN_STEPS steps
@@ -646,18 +687,17 @@ def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
     input draws with two padded rows; the rows kernel's launches counted
     over the steps. Then the rows kernel against its plain version on the
     path's own maps, a trace of one more step, and the delta it saved
-    served by `pred` as a style. -> {kernel name: launches over the
-    steps} for every kernel wrapper, each counted from 0."""
+    served by `pred` as a style. -> ({kernel name: launches over the
+    steps} for every kernel wrapper, each counted from 0; the steps' host
+    ms)."""
     import numpy as np
 
     from mst_tpu_torch import io
     from mst_tpu_torch.config import get_params, step_config, ynet_config
     from mst_tpu_torch.models.ynet import init_ynet
-    from mst_tpu_torch.ops.kernels.fused_predict import \
-        fused_predictor_softargmax
     from mst_tpu_torch.ops.kernels.softargmax_rows import (
         plain, softargmax2d_rows)
-    from mst_tpu_torch.probes import chain_probe, conv_probe, time_ms
+    from mst_tpu_torch.probes import time_ms
     from mst_tpu_torch.train.steps import make_train_step
     from mst_tpu_torch.train.trainer import save_params, setup_training
 
@@ -689,17 +729,17 @@ def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wrappers = {"softargmax_rows": softargmax2d_rows,
-                "fused_predict": fused_predictor_softargmax,
-                **dict(conv_probe.KERNELS), **dict(chain_probe.KERNELS)}
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     prev = {k: before[k] for k in trained}
+    step_ms = []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         m = step(weights, setup["optimizer"], setup["scheduler"], batch)
         torch.cuda.synchronize()
         dt = 1e3 * (time.perf_counter() - t0)
+        step_ms.append(dt)
         vals = {k: float(v) for k, v in m.items()}
         print(f"fine-tune step {i}: {dt:.1f} ms, " + ", ".join(
             f"{k} {v:.6f}" for k, v in vals.items()))
@@ -772,6 +812,201 @@ def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
     print(f"fine-tuned style vs base, same seed: max |difference| = "
           f"{moved:.4f} raw px")
     check(moved > 0, "the fine-tuned delta changed nothing")
+    return launches, step_ms
+
+
+LOOP_SCENE_HW = (1408, 1920)  # raw; x 0.25 -> 352 x 480, the other phases'
+LOOP_TRACKS = 36  # a scene; splits of 40 / 16 / 16 tracks
+LOOP_B = 8
+
+
+def loop_params(tmp, flags):
+    """(args, params) as the CLIs build them from flags, at the full width
+    of sdd_shortterm_train.yaml with the identity backbone's 3 classes."""
+    from mst_tpu_torch.config import get_params, get_parser
+
+    args = get_parser(True).parse_args([
+        "--config_filename", "sdd_shortterm_train.yaml", "--seed", "1",
+        "--batch_size", str(LOOP_B), "--dataset_path", "synth",
+        "--load_data", "predefined", "--ckpt_path",
+        os.path.join(tmp, "ckpts")] + flags)
+    return args, get_params(args=args, overrides={"n_semantic_classes": 3})
+
+
+def experiment_loop(torch, wrappers, step_ms_6b):
+    """Phase 6c: the Experiment loop on the card, driven as the CLIs drive
+    it, on in-memory synthetic scenes (2 scenes of 1408 x 1920, so 352 x 480
+    after resize_factor 0.25) split 40 / 16 / 16 tracks, B = 8:
+    a 2-epoch scratch train run (the base checkpoint), the init check and a
+    3-epoch mosa_2 fine-tune on positions 0-4 (n_train_batch 2, steps [1],
+    validation with TTST off), then restore_model with base + delta and a
+    2-round test with TTST on. Every kernel count is set to 0 before and
+    read after, and must equal what the code launches: the rows kernel 2
+    a train step (the top-1 metrics) and 1 a TTST test batch (the goal
+    point), the fused kernel 1 an eval batch (the decode tail, K in one
+    chunk), every other kernel 0. Then a trace of one more fine-tune
+    epoch, and the delta served as a Predictor style. -> {kernel: launches}.
+    """
+    import numpy as np
+
+    from mst_tpu_torch.config import get_experiment_name
+    from mst_tpu_torch.data import splits
+    from mst_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mst_tpu_torch.serve import Predictor
+    from mst_tpu_torch.train.trainer import Experiment, restore_model
+
+    t0 = time.perf_counter()
+    tracks, images = make_synthetic_dataset(
+        seed=0, n_scenes=2, n_traj=LOOP_TRACKS, img_hw=LOOP_SCENE_HW)
+    np.random.seed(0)
+    train, val, test = splits.dataset_split_by_ratio(tracks, 16, 16,
+                                                     shuffle=True)
+    train_ft = splits.limit_samples(train, 2, LOOP_B)
+    print(f"loop data: {len(train.meta_ids())} / {len(val.meta_ids())} / "
+          f"{len(test.meta_ids())} tracks (fine-tune "
+          f"{len(train_ft.meta_ids())}), scenes {LOOP_SCENE_HW}, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    tmp = tempfile.mkdtemp()
+    try:
+        scratch_args, scratch = loop_params(tmp, [
+            "--train_net", "train", "--n_epoch", "2", "--lr", "1e-4"])
+        scratch_name = get_experiment_name(scratch_args,
+                                           len(train.meta_ids()))
+        base = os.path.join(tmp, "ckpts", scratch_name + ".npz")
+        ft_args, ft = loop_params(tmp, [
+            "--train_net", "mosa_2", "--position", *POSITIONS,
+            "--fine_tune", "--n_train_batch", "2", "--steps", "1",
+            "--n_epoch", "3", "--lr", "3e-3", "--pretrained_ckpt", base])
+        ft_name = get_experiment_name(ft_args, len(train_ft.meta_ids()))
+        delta = os.path.join(tmp, "ckpts", ft_name + ".npz")
+        test_params = dict(ft, use_TTST=True, n_round=2)
+
+        # the counts the code gives (batches do not depend on the shuffle)
+        probe = Experiment(scratch, images=images)
+        n = {name: len(probe.prepare_data(t, None, "val"))
+             for name, t in (("train", train), ("train_ft", train_ft),
+                             ("val", val), ("test", test))}
+        del probe
+        want = dict.fromkeys(wrappers, 0)
+        want["softargmax_rows"] = (2 * 2 * n["train"] + 2 * 3 * n["train_ft"]
+                                   + 2 * n["test"])
+        want["fused_predict"] = (2 * n["val"] + 2 * n["test"]
+                                 + 3 * n["val"] + 2 * n["test"])
+        print(f"loop batches: {n}; expected launches {want}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        runs = {}
+        t = time.perf_counter()
+        exp = Experiment(scratch, images=images)
+        exp.train(train, val, None, None, scratch_name)
+        runs["scratch"] = (exp, time.perf_counter() - t)
+
+        model = Experiment(ft, images=images)
+        model.load_params(base)
+        twin = Experiment(dict(ft, position=[]), images=images)
+        twin.load_params(base)
+        test_batches = model.prepare_data(test, None, "test")
+        t = time.perf_counter()
+        ade_pre, fde_pre, _, _ = twin.test(None, None, batches=test_batches)
+        ade_cur, fde_cur, _, _ = model.test(None, None, batches=test_batches)
+        init_s = time.perf_counter() - t
+        print(f"init check: adapter-free {ade_pre!r} / {fde_pre!r}, mosa_2 "
+              f"{ade_cur!r} / {fde_cur!r}")
+        check(ade_pre == ade_cur and fde_pre == fde_cur,
+              "the init check failed: the zero-delta mosa_2 model scores "
+              "differently from its adapter-free twin")
+        t = time.perf_counter()
+        model.train(train_ft, val, None, None, ft_name)
+        runs["fine-tune"] = (model, time.perf_counter() - t)
+
+        tested = restore_model(test_params, True, base, delta, images=images)
+        t = time.perf_counter()
+        avg_ade, avg_fde, rounds, _ = tested.test(None, None,
+                                                  batches=test_batches)
+        test_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        print(f"loop launches: {launches}")
+        check(launches == want, f"the loop launched {launches}, the code "
+              f"gives {want}")
+        print(f"loop peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        for label, (e, wall) in runs.items():
+            print(f"{label}: {wall:.2f} s, data preparation and upload "
+                  f"{e.prepare_seconds:.3f} s, best epoch {e.best_epoch}")
+            for r in e.epoch_log:
+                check(np.isfinite(r["loss"]),
+                      f"{label} epoch {r['epoch']}: loss {r['loss']}")
+                print(f"  epoch {r['epoch']}: loss {r['loss']:.4f}, train "
+                      f"ADE/FDE {r['train_ade']:.3f} / {r['train_fde']:.3f}, "
+                      f"val ADE/FDE {r['val_ade']:.3f} / {r['val_fde']:.3f}; "
+                      f"{r['n_steps']} steps {r['steps_seconds']:.3f} s "
+                      f"({1e3 * r['steps_seconds'] / r['n_steps']:.1f} ms a "
+                      f"step), validation {r['val_seconds']:.3f} s "
+                      f"({1e3 * r['val_seconds'] / n['val']:.1f} ms a batch)")
+        steady = [1e3 * r["steps_seconds"] / r["n_steps"]
+                  for r in model.epoch_log[1:]]
+        print(f"mean fine-tune step in the loop (epochs 1-2): "
+              f"{np.mean(steady):.1f} ms; phase 6b's isolated steps 1-"
+              f"{len(step_ms_6b) - 1}: {np.mean(step_ms_6b[1:]):.1f} ms")
+        print(f"init check {init_s:.2f} s ({1e3 * init_s / (2 * n['test']):.1f}"
+              f" ms a TTST-off test batch); test {test_s:.2f} s "
+              f"({1e3 * test_s / (2 * n['test']):.1f} ms a TTST-on batch); "
+              f"average ADE/FDE {avg_ade:.3f} / {avg_fde:.3f}, rounds "
+              f"{[f'{a:.3f}' for a in tested.eval_ADE]}")
+        check(all(np.isfinite(m["ade"]).all() and len(m["ade"]) == 16
+                  for m in rounds), "test rows not finite or not 16 a round")
+        shrinks = sum(e.n_shrinks for e in (exp, model, twin, tested))
+        print(f"eval_k_chunk shrinks: {shrinks}")
+        check(shrinks == 0, "the shrink ladder fired")
+
+        # one more fine-tune epoch, traced: a train() call of 1 epoch, whose
+        # data preparation and upload run on the host before the epoch
+        one = Experiment(dict(ft, n_epoch=1), images=images)
+        one.load_params(base)
+        traced = print_trace(torch, "fine-tune train() of 1 epoch", lambda: (
+            one.train(train_ft, val, None, None, ft_name + "_traced"),
+            torch.cuda.synchronize()))
+        if traced:
+            busy_ms, wall_ms = traced
+            r = one.epoch_log[0]
+            epoch_ms = 1e3 * (r["steps_seconds"] + r["val_seconds"])
+            print(f"traced epoch: steps {1e3 * r['steps_seconds']:.1f} ms + "
+                  f"validation {1e3 * r['val_seconds']:.1f} ms; data "
+                  f"preparation and upload {1e3 * one.prepare_seconds:.1f} "
+                  f"ms before it; the rest of the call (set-up, saves) "
+                  f"{wall_ms - epoch_ms - 1e3 * one.prepare_seconds:.1f} ms;"
+                  f" kernels over the epoch's wall time "
+                  f"{100 * busy_ms / epoch_ms:.0f}%")
+
+        # the delta: LoRA leaves only, served as a style
+        with np.load(delta) as z:
+            keys = set(z.files)
+        check(keys and all(k.rsplit("/", 1)[-1] in ("lora_A", "lora_B")
+                           for k in keys),
+              f"the delta holds other leaves: {sorted(keys)[:4]}")
+        pred = Predictor(dict(test_params, train_net="mosa_2"), base,
+                         seed=0)
+        pred.add_style("loop", delta)
+        b = tested.prepare_data(test, None, "test")[0]
+        obs = b.trajectories[:, :scratch["obs_len"]]
+        outs = [pred.predict(b.image[None], obs, seed=0, style=s)
+                for s in (None, "loop")]
+        moved = float(np.abs(outs[1]["trajectories"]
+                             - outs[0]["trajectories"]).max())
+        check(all(np.isfinite(o["trajectories"]).all() for o in outs),
+              "the loop's style gives non-finite trajectories")
+        print(f"the loop's delta ({len(keys)} LoRA leaves) as a Predictor "
+              f"style vs the base, same seed: max |difference| = "
+              f"{moved:.4f} raw px")
+        check(moved > 0, "the loop's delta changed nothing")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return launches
 
 
@@ -805,6 +1040,7 @@ def main():
     print(smi.stdout.strip())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
+    print_optional_packages()
     resolve_device("cuda")  # TF32 off for the f32 path
 
     # ---- 2. build
@@ -912,12 +1148,18 @@ def main():
     check(err <= TRAIN_TOL, "the fine-tune step on the card disagrees with "
           "the CPU")
     rows_rec = next(r for r in records if r["name"] == "softargmax_rows")
-    train_launches = fine_tune_path(torch, base, semantic, observed, outs[0],
-                                    rows_rec)
+    train_launches, step_ms = fine_tune_path(torch, base, semantic, observed,
+                                             outs[0], rows_rec)
     print(f"fine-tune phase: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 7. the probe paths: the conv and decoder-chain kernels
+    # ---- 6c. the Experiment loop: scratch train, fine-tune, test
     del base
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loop_launches = experiment_loop(torch, kernel_wrappers(), step_ms)
+    print(f"loop phase: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 7. the probe paths: the conv and decoder-chain kernels
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     probe_records = probe_paths(torch)
@@ -933,9 +1175,10 @@ def main():
 
     for r in records:
         r["train_launches"] = train_launches[r["name"]]
+        r["loop_launches"] = loop_launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
-            "train_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "train_launches", "loop_launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

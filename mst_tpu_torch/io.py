@@ -1,5 +1,5 @@
 """Weight bridge from the JAX package's checkpoints (counterpart of
-mst_tpu/train/checkpoints.py:60-75, 111-140).
+mst_tpu/train/checkpoints.py:60-75, 111-148).
 
 A checkpoint is a flat npz with '/'-joined keys ('encoder/stages/0/conv0/
 weight'). Conv weights are HWIO there and OIHW here; LoRA factors
@@ -100,3 +100,11 @@ def overlay(params, new, strict=False):
                              f"match the parameters' {tuple(old.shape)}")
         node[parts[-1]] = val.to(device=old.device, dtype=old.dtype)
     return out
+
+
+def load_separated(params, base_path, delta_path):
+    """A base checkpoint, then an adapter delta over it, both non-strict
+    (mst_tpu/train/checkpoints.py:143-148; reference trainer.py:606-614)."""
+    for path in (base_path, delta_path):
+        params = overlay(params, params_from_numpy(load_checkpoint(path)))
+    return params

@@ -231,7 +231,7 @@ def test_predictor_swap_semantic_matches_jax(rng, tmp_path):
     ("compute_dtype", dict(compute_dtype="bfloat16")),
     ("eth_world_coords", dict(dataset_name="eth", eth_world_coords=True)),
     ("use_features_only", dict(use_features_only=True,
-                               segmentation_model_fp="seg.npz")),
+                               segmentation_model_fp=__file__)),
     ("n_fusion", dict(n_fusion=2))])
 def test_unported_flags_raise(flag, over):
     """A flag mst_tpu acts on and the port does not yet raises, naming
@@ -279,15 +279,49 @@ def _imports(path):
             yield node.module
 
 
+def _module_level_imports(path):
+    """The imports that run when the module is imported: those outside any
+    function body."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        todo.extend(ast.iter_child_nodes(node))
+
+
+PORT_FILES = sorted((REPO / "mst_tpu_torch").rglob("*.py")) + \
+    [REPO / "chip_smoke.py"]
+
+
 def test_port_imports_no_jax_and_no_mst_tpu():
     """An ast scan (a preloaded jax would fool a sys.modules check). Every
-    kernel of the port is CUDA C++ built by nvcc, so triton is banned too."""
-    files = sorted((REPO / "mst_tpu_torch").rglob("*.py")) + \
-        [REPO / "chip_smoke.py"]
-    assert len(files) > 15
-    for path in files:
+    kernel of the port is CUDA C++ built by nvcc, so triton is banned too.
+    pandas and cv2 may be imported only inside a function (the pickle
+    readers, load_images): the card's machine need not have them."""
+    assert len(PORT_FILES) > 15
+    for path in PORT_FILES:
         for name in _imports(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "mst_tpu", "optax",
                                 "benchmarks", "triton"), \
                 f"{os.path.relpath(path, REPO)} imports {name}"
+        for name in _module_level_imports(path):
+            assert name.split(".")[0] not in ("pandas", "cv2"), \
+                f"{os.path.relpath(path, REPO)} imports {name} at module level"
+
+
+def test_module_level_import_scan(tmp_path):
+    """The scan finds imports at module level, under if/try too, and not
+    those inside a function."""
+    path = tmp_path / "m.py"
+    path.write_text("import a\ntry:\n    from b import c\nexcept E:\n"
+                    "    pass\ndef f():\n    import d\nclass K:\n"
+                    "    import e\n")
+    assert sorted(_module_level_imports(path)) == ["a", "b", "e"]
