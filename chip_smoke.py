@@ -54,6 +54,20 @@ Phases, each fatal on failure:
      count the code gives, no eval_k_chunk shrink, a trace of one more
      fine-tune epoch, and the delta (LoRA leaves only) served as a
      Predictor style;
+  6d. Y-Net-Mod and the adapters (ynet_mod_path): at small width, card
+     against CPU for mosa_1 on the fusion network's scene, motion and
+     fusion branches, parallelLayer_3x3 on 0-4 and serial on 1-2 (three
+     Adam steps: losses at 1e-4 relative, the serial BN state at 1e-3 of
+     each leaf's max; one eval batch of the same weights, trajectories at
+     1e-2 px); then at the full width of inD_longterm_train.yaml with
+     network fusion, n_fusion 2 (B = 10 at 320 x 576, random weights from
+     seed 0): 5 mosa_1 steps with Adam at lr 5e-3, the delta added as a
+     style to a fusion Predictor (K = 20, pred_len 30), 5 requests of
+     B = 10; step and request host ms, peak memory, every kernel's count
+     set to 0 before and read after (rows 2 a step, fused 1 a request,
+     others 0), a torch.profiler trace of one more step and one more
+     request, and the fused kernel at P = 30 against its plain version
+     on the path's own operands, timed;
   7. the probe paths at their full shapes, through
      mst_tpu_torch.probes.{conv,chain}_probe.run(): the two 3x3 conv
      kernels (x (160, 176, 240, 128) bf16) and the two decoder-chain
@@ -67,8 +81,9 @@ Phases, each fatal on failure:
      form at full shape, and a torch.profiler breakdown of each
      yardstick and each chain kernel.
 The line before the last is the per-kernel JSON record (launches on each
-kernel's own path, train_launches on the fine-tune path and loop_launches
-on the Experiment loop's); the last line is
+kernel's own path, train_launches on the fine-tune path, loop_launches
+on the Experiment loop's and ymod_launches on Y-Net-Mod's); the last line
+is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
@@ -341,26 +356,28 @@ def small_reference(torch):
     batch = {"semantic": rng.normal(size=(1, 64, 96, 6)),
              "traj": rng.uniform(10, 50, size=(4, 20, 2)),
              "mask": np.ones(4)}
-    w_cpu = init_ynet(torch.Generator().manual_seed(0), mcfg)
-    w_gpu = tree_map(lambda t: t.cuda(), w_cpu)
+    w_cpu, s_cpu = init_ynet(torch.Generator().manual_seed(0), mcfg)
+    w_gpu, s_gpu = (tree_map(lambda t: t.cuda(), tree)
+                    for tree in (w_cpu, s_cpu))
     b_cpu = {k: torch.tensor(v, dtype=torch.float32)
              for k, v in batch.items()}
     b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
     step = make_eval_step(mcfg, step_config(params))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    feats, wps = step.forward(w_gpu, b_gpu, gen)
+    feats, wps = step.forward(w_gpu, s_gpu, b_gpu, gen)
     got = step.decode_trajs(w_gpu, feats, wps).cpu()
-    feats_cpu, _ = step.forward(w_cpu, b_cpu, torch.Generator())
+    feats_cpu, _ = step.forward(w_cpu, s_cpu, b_cpu, torch.Generator())
     want = step.decode_trajs(w_cpu, feats_cpu, wps.cpu())
     check(bool(torch.isfinite(got).all()), "non-finite trajectories")
     return float((got - want).abs().max())
 
 
-def check_path_tail(torch, pred, semantic, observed, seed):
+def check_path_tail(torch, pred, semantic, observed, seed, timed=False):
     """Kernel 2 against its plain version on the main path's own decode-tail
     operands (the pre-predictor activations of one request's K draws), and
     the path's trajectories against the plain tail's. -> max |kernel -
-    plain| in model px."""
+    plain| in model px; with timed, (that, {ms, device_ms, plain_ms,
+    bound_ms, shape}) of the kernel on those operands."""
     from mst_tpu_torch.ops.kernels.fused_predict import (
         fused_predictor_softargmax, fused_predictor_softargmax_plain)
     from mst_tpu_torch.train.steps import make_eval_step
@@ -382,7 +399,23 @@ def check_path_tail(torch, pred, semantic, observed, seed):
           f"{diff:.3e} model px (tol {FUSED_TOL})")
     check(diff <= FUSED_TOL, "the path's decode disagrees with the plain "
           "tail")
-    return max(err, diff)
+    if not timed:
+        return max(err, diff)
+    from mst_tpu_torch.probes import time_ms
+    from mst_tpu_torch.probes.serving_kernels import time_call
+
+    R, H, W, C = x.shape
+    rec = time_call(lambda: fused_predictor_softargmax(x, w, b), 20)
+    check_one_kernel("the fused predictor", rec, 20)
+    rec["plain_ms"] = time_ms(
+        lambda: fused_predictor_softargmax_plain(x, w, b), 3)
+    rec["bound_ms"] = fused_bound(R, H, W, C, w.shape[1])[0]
+    rec["shape"] = f"{tuple(x.shape)} x {tuple(w.shape)}"
+    print_times(f"fused_predict on the path's operands {rec['shape']}", rec,
+                rec["bound_ms"])
+    print(f"fused_predict on the path's operands: plain "
+          f"{rec['plain_ms']:.4f} ms")
+    return max(err, diff), rec
 
 
 PROBE_KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -651,14 +684,16 @@ def small_train_reference(torch):
              "mask": np.array([1.0, 1.0, 1.0, 0.0])}
     losses = {}
     for dev in ("cuda", "cpu"):
-        weights = init_ynet(torch.Generator().manual_seed(0), mcfg, dev)
+        weights, state = init_ynet(torch.Generator().manual_seed(0), mcfg,
+                                   dev)
         setup = setup_training(weights, params, steps_per_epoch=1)
         step = make_train_step(mcfg, step_config(params))
         b = {k: torch.tensor(v, dtype=torch.float32, device=dev)
              for k, v in batch.items()}
         losses[dev] = []
         for _ in range(3):
-            m = step(weights, setup["optimizer"], setup["scheduler"], b)
+            state, m = step(weights, state, setup["optimizer"],
+                            setup["scheduler"], b)
             losses[dev].append([float(m[k]) for k in LOSS_KEYS])
     for i, (a, c) in enumerate(zip(losses["cuda"], losses["cpu"])):
         print(f"small-width step {i}: card {a}, cpu {c}")
@@ -680,6 +715,33 @@ def kernel_wrappers():
             **dict(conv_probe.KERNELS), **dict(chain_probe.KERNELS)}
 
 
+def check_rows_on_path(torch, label, step, weights, state, batch, rows_rec):
+    """The rows kernel against its plain version on a train step's own
+    maps, as its top-1 metrics feed it: the trajectory map (B * pred_len
+    rows) and the last goal map (B rows), each timed beside its bound; the
+    largest error goes into rows_rec['max_abs_err']."""
+    from mst_tpu_torch.ops.kernels.softargmax_rows import (
+        plain, softargmax2d_rows)
+    from mst_tpu_torch.probes import time_ms
+
+    with torch.no_grad():
+        _, _, goal_map, traj_map, _ = step.forward(weights, state, batch)
+    for name, x in (("traj", traj_map.permute(0, 3, 1, 2).contiguous()),
+                    ("goal", goal_map[..., -1:].permute(0, 3, 1, 2)
+                     .contiguous())):
+        e = float((softargmax2d_rows(x) - plain(x)).abs().max())
+        R, HW = x.shape[0] * x.shape[1], x.shape[2] * x.shape[3]
+        b_ms, _ = bound(R * HW * 4 + R * 2 * 4, R * HW * 8)
+        print(f"softargmax_rows on the {label} {name} maps {tuple(x.shape)} "
+              f"({R} rows): max |kernel - plain| = {e:.3e} px (tol "
+              f"{ROWS_TOL}); {time_ms(lambda: softargmax2d_rows(x), 50):.4f}"
+              f" ms, plain {time_ms(lambda: plain(x), 20):.4f} ms, bound "
+              f"{b_ms:.4f} ms")
+        check(e <= ROWS_TOL, f"rows kernel disagrees on the {label} {name} "
+              "maps")
+        rows_rec["max_abs_err"] = max(rows_rec["max_abs_err"], e)
+
+
 def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
     """The few-shot fine-tune path at SDD short-term width: mosa_2 on
     positions 0-4, B = 8 at 352 x 480, Adam at lr 1e-3, TRAIN_STEPS steps
@@ -695,9 +757,6 @@ def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
     from mst_tpu_torch import io
     from mst_tpu_torch.config import get_params, step_config, ynet_config
     from mst_tpu_torch.models.ynet import init_ynet
-    from mst_tpu_torch.ops.kernels.softargmax_rows import (
-        plain, softargmax2d_rows)
-    from mst_tpu_torch.probes import time_ms
     from mst_tpu_torch.train.steps import make_train_step
     from mst_tpu_torch.train.trainer import save_params, setup_training
 
@@ -715,7 +774,7 @@ def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
     batch = {k: torch.tensor(v, dtype=torch.float32, device="cuda")
              for k, v in (("semantic", sem), ("traj", traj),
                           ("mask", mask))}
-    weights = init_ynet(torch.Generator().manual_seed(0), mcfg, "cuda")
+    weights, state = init_ynet(torch.Generator().manual_seed(0), mcfg, "cuda")
     setup = setup_training(weights, params, steps_per_epoch=1)
     step = make_train_step(mcfg, step_config(params))
     flat = io.flatten(weights)
@@ -736,7 +795,8 @@ def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
     step_ms = []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
-        m = step(weights, setup["optimizer"], setup["scheduler"], batch)
+        state, m = step(weights, state, setup["optimizer"],
+                        setup["scheduler"], batch)
         torch.cuda.synchronize()
         dt = 1e3 * (time.perf_counter() - t0)
         step_ms.append(dt)
@@ -766,25 +826,11 @@ def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
             check(torch.equal(flat[k], v), f"frozen leaf {k} changed")
     del before, prev
 
-    # the rows kernel against its plain version on the path's own maps
-    with torch.no_grad():
-        _, _, goal_map, traj_map = step.forward(weights, batch)
-    for name, x in (("traj", traj_map.permute(0, 3, 1, 2).contiguous()),
-                    ("goal", goal_map[..., -1:].permute(0, 3, 1, 2)
-                     .contiguous())):
-        e = float((softargmax2d_rows(x) - plain(x)).abs().max())
-        R = x.shape[0] * x.shape[1]
-        b_ms, _ = bound(R * H * W * 4 + R * 2 * 4, R * H * W * 8)
-        print(f"softargmax_rows on the fine-tune {name} maps {tuple(x.shape)}"
-              f": max |kernel - plain| = {e:.3e} px (tol {ROWS_TOL}); "
-              f"{time_ms(lambda: softargmax2d_rows(x), 50):.4f} ms, plain "
-              f"{time_ms(lambda: plain(x), 20):.4f} ms, bound {b_ms:.4f} ms")
-        check(e <= ROWS_TOL, f"rows kernel disagrees on the {name} maps")
-        rows_rec["max_abs_err"] = max(rows_rec["max_abs_err"], e)
-    del goal_map, traj_map, x
+    check_rows_on_path(torch, "fine-tune", step, weights, state, batch,
+                       rows_rec)
 
     def one_step():
-        step(weights, setup["optimizer"], setup["scheduler"], batch)
+        step(weights, state, setup["optimizer"], setup["scheduler"], batch)
         torch.cuda.synchronize()
 
     print_trace(torch, "fine-tune step", one_step, conv_ops=8)
@@ -1010,6 +1056,242 @@ def experiment_loop(torch, wrappers, step_ms_6b):
     return launches
 
 
+FUSION_POS = ["scene", "motion", "fusion"]
+# Y-Net-Mod as the paper's inD scripts run it (tune_mosa_S_A_F.sh): the
+# fusion encoder with 2 fused stages, MoSA rank 1 in every branch
+YMOD = dict(network="fusion", n_fusion=2, train_net="mosa_1",
+            position=FUSION_POS)
+YMOD_HW, YMOD_B, YMOD_LR = (320, 576), 10, 5e-3  # bench.py:41's ind shape
+YMOD_STEPS = 5
+# the small-width card-against-CPU cases: (label, flags)
+VARIANT_CASES = (("mosa_1 on scene motion fusion", YMOD),
+                 ("parallelLayer_3x3 on 0-4",
+                  dict(train_net="parallelLayer_3x3", position=POSITIONS)),
+                 ("serial on 1-2", dict(train_net="serial",
+                                        position=["1", "2"])))
+STATE_TOL = 1e-3  # the serial BN state, card against CPU, of each leaf's max
+
+
+def small_variant_reference(torch):
+    """Phase 6d's first part: each of VARIANT_CASES at the CPU tests' width
+    (inD long-term steps: obs 5, pred 30; 64 x 96, B = 4 with a padded
+    row) from the same seeded weights, three Adam steps (lr 1e-3) on the
+    card and on the CPU: the losses, and the BN state the steps return;
+    then one eval batch of the CPU's trained weights and state on both,
+    the card's waypoint draws decoded on both. -> the largest relative
+    loss difference, the largest state difference relative to each leaf's
+    max, and the largest trajectory difference (model px)."""
+    import numpy as np
+
+    from mst_tpu_torch import io
+    from mst_tpu_torch.config import get_params, step_config, ynet_config
+    from mst_tpu_torch.models.ynet import init_ynet, tree_map
+    from mst_tpu_torch.train.steps import make_eval_step, make_train_step
+    from mst_tpu_torch.train.trainer import setup_training
+
+    rng = np.random.default_rng(0)
+    batch = {"semantic": rng.normal(size=(1, 64, 96, 6)),
+             "traj": rng.uniform(5, 60, size=(4, 35, 2)),
+             "mask": np.array([1.0, 1.0, 1.0, 0.0])}
+    loss_err = state_err = traj_err = 0.0
+    for label, flags in VARIANT_CASES:
+        params = get_params("inD_longterm_train.yaml", dict(
+            encoder_channels=[8, 8, 16, 16, 16],
+            decoder_channels=[16, 16, 16, 8, 8], lr=1e-3, **flags))
+        mcfg = ynet_config(params)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            weights, state = init_ynet(torch.Generator().manual_seed(0), mcfg,
+                                       dev)
+            setup = setup_training(weights, params, steps_per_epoch=1)
+            step = make_train_step(mcfg, step_config(params))
+            b = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+                 for k, v in batch.items()}
+            losses = []
+            for _ in range(3):
+                state, m = step(weights, state, setup["optimizer"],
+                                setup["scheduler"], b)
+                losses.append([float(m[k]) for k in LOSS_KEYS])
+            runs[dev] = (weights, state, b, losses)
+        (_, s_gpu, b_gpu, l_gpu), (w_cpu, s_cpu, b_cpu, l_cpu) = \
+            runs["cuda"], runs["cpu"]
+        rel = max(abs(a - c) / abs(c) for ra, rc in zip(l_gpu, l_cpu)
+                  for a, c in zip(ra, rc))
+        st_gpu, st_cpu = io.state_to_numpy(s_gpu), io.state_to_numpy(s_cpu)
+        check(st_gpu.keys() == st_cpu.keys()
+              and bool(st_cpu) == (label.startswith("serial")),
+              f"{label}: the state's leaves {sorted(st_gpu)[:3]}")
+        st = max([float(np.abs(st_gpu[k] - v).max()
+                        / max(np.abs(v).max(), 1e-12))
+                  for k, v in st_cpu.items()] + [0.0])
+        check(all(int(st_gpu[k]) == 3 for k in st_gpu
+                  if k.endswith("num_batches")), f"{label}: num_batches")
+        # one eval batch: the CPU's trained weights and state on both
+        es = make_eval_step(mcfg, step_config(params))
+        w_gpu, s_gpu = (tree_map(lambda t: t.detach().cuda(), tree)
+                        for tree in (w_cpu, s_cpu))
+        with torch.no_grad():
+            feats, wps = es.forward(
+                w_gpu, s_gpu, b_gpu, torch.Generator(device="cuda")
+                .manual_seed(0))
+            got = es.decode_trajs(w_gpu, feats, wps).cpu()
+            feats_cpu, _ = es.forward(w_cpu, s_cpu, b_cpu, torch.Generator())
+            want = es.decode_trajs(w_cpu, feats_cpu, wps.cpu())
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite eval")
+        tr = float((got - want).abs().max())
+        print(f"small-width {label}: losses card {l_gpu[-1]}, cpu "
+              f"{l_cpu[-1]} (step 2); max relative |card - cpu| loss "
+              f"{rel:.3e}, state {st:.3e} ({len(st_cpu)} leaves), eval "
+              f"trajectories {tr:.3e} model px")
+        loss_err, state_err, traj_err = (max(loss_err, rel),
+                                         max(state_err, st),
+                                         max(traj_err, tr))
+    return loss_err, state_err, traj_err
+
+
+def ynet_mod_path(torch, wrappers, card, rows_rec):
+    """Phase 6d's full-width part: Y-Net-Mod (inD_longterm_train.yaml's
+    width, YMOD) from random weights (seed 0). YMOD_STEPS mosa_1 steps
+    with Adam at YMOD_LR on B = YMOD_B at YMOD_HW (bench.py:47-55's draws,
+    one padded row); the delta saved and added as a style to a fusion
+    Predictor (inD_longterm_eval.yaml: K = 20, TTST off); 5 requests of
+    B = YMOD_B, 4 styled and 1 base. Every kernel's count is set to 0
+    before the steps and read after the requests: the rows kernel twice
+    a step, the fused kernel once a request, the others never. Then the
+    fused kernel at P = 30 against its plain version on the path's own
+    operands, timed, and a torch.profiler trace of one more step and one
+    more request. The rows kernel against its plain version on a step's
+    own maps (B * pred_len and B rows), its error into rows_rec. ->
+    ({kernel: launches}, that timing)."""
+    import numpy as np
+
+    from mst_tpu_torch import io
+    from mst_tpu_torch.config import get_params, step_config, ynet_config
+    from mst_tpu_torch.models.ynet import init_ynet
+    from mst_tpu_torch.serve import Predictor
+    from mst_tpu_torch.train.steps import make_train_step
+    from mst_tpu_torch.train.trainer import save_params, setup_training
+
+    params = get_params("inD_longterm_train.yaml", dict(YMOD, lr=YMOD_LR))
+    mcfg = ynet_config(params)
+    (H, W), B = YMOD_HW, YMOD_B
+    rng = np.random.default_rng(0)
+    sem = rng.normal(size=(1, H, W, params["n_semantic_classes"]))
+    total = params["obs_len"] + params["pred_len"]
+    lo, hi = 0.2 * min(H, W), 0.6 * min(H, W)
+    traj = rng.uniform(lo, hi, size=(B, total, 2))
+    mask = np.ones(B)
+    mask[-1] = 0.0
+    batch = {k: torch.tensor(v, dtype=torch.float32, device="cuda")
+             for k, v in (("semantic", sem), ("traj", traj),
+                          ("mask", mask))}
+    weights, state = init_ynet(torch.Generator().manual_seed(0), mcfg, "cuda")
+    check(state == {}, "Y-Net-Mod with mosa_1 has a model state")
+    setup = setup_training(weights, params, steps_per_epoch=1)
+    step = make_train_step(mcfg, step_config(params))
+    flat = io.flatten(weights)
+    trained = [k for k, v in flat.items() if v.requires_grad]
+    check(trained and all(k.endswith(("lora_A", "lora_B"))
+                          and k.split("/")[1] in ("scene_stages",
+                                                  "motion_stages",
+                                                  "fusion_stages")
+                          for k in trained),
+          f"mosa_1 on {FUSION_POS} trains {trained[:3]}")
+    pred = Predictor(get_params("inD_longterm_eval.yaml", YMOD), seed=0)
+    logits = rng.normal(size=(1, H, W, params["n_semantic_classes"]))
+    semantic = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    start = rng.uniform([100, 80], [W - 100, H - 80], size=(B, 1, 2))
+    walk = rng.normal(scale=3.0, size=(B, params["obs_len"], 2))
+    observed = (start + np.cumsum(walk, axis=1)).astype(np.float32)
+    print(f"Y-Net-Mod: {setup['n_trainable']} trainable parameters in "
+          f"{len(trained)} leaves, batch ({B}, {H}, {W}), mask "
+          f"{mask.tolist()}, lr {YMOD_LR}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    prev = {k: flat[k].detach().clone() for k in trained}
+    step_ms = []
+    for i in range(YMOD_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(weights, state, setup["optimizer"],
+                        setup["scheduler"], batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"Y-Net-Mod step {i}: {step_ms[-1]:.1f} ms, " + ", ".join(
+            f"{k} {v:.6f}" for k, v in vals.items()))
+        check(all(np.isfinite(v) for v in vals.values()),
+              f"Y-Net-Mod step {i}: non-finite metrics {vals}")
+        for k in trained:
+            moved = not torch.equal(flat[k], prev[k])
+            if k.endswith("lora_B") or i > 0:
+                check(moved, f"Y-Net-Mod step {i}: {k} did not move")
+            prev[k] = flat[k].detach().clone()
+    train_peak = torch.cuda.max_memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ymod_mosa_1.npz")
+        save_params(path, weights, params)
+        with np.load(path) as z:
+            keys = set(z.files)
+        check(keys == set(trained), "the delta is not the trained leaves")
+        pred.add_style("ymod", path)
+    torch.cuda.reset_peak_memory_stats()
+    request_ms, outs = [], []
+    rf = params["resize_factor"]
+    for label, seed, style in (("request 0, style", 0, "ymod"),
+                               ("request 1, style", 1, "ymod"),
+                               ("request 2, style", 2, "ymod"),
+                               ("request 3, style", 3, "ymod"),
+                               ("request 4, base", 0, None)):
+        t0 = time.perf_counter()
+        out = pred.predict(semantic, observed, seed=seed, style=style)
+        request_ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append(out)
+        tr = out["trajectories"]
+        print(f"Y-Net-Mod {label}: {request_ms[-1]:.1f} ms, trajectories "
+              f"{tr.shape}")
+        check(tr.shape == (20, B, params["pred_len"], 2), f"{label}: shape")
+        check(np.isfinite(tr).all() and (tr >= 0).all()
+              and (tr[..., 0] <= (W - 1) / rf).all()
+              and (tr[..., 1] <= (H - 1) / rf).all(),
+              f"{label}: trajectories not finite or outside the image")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"Y-Net-Mod path launches: {launches}")
+    want = dict.fromkeys(wrappers, 0)
+    want.update(softargmax_rows=2 * YMOD_STEPS, fused_predict=5)
+    check(launches == want, f"the Y-Net-Mod path launched {launches}, the "
+          f"code gives {want}")
+    moved = float(np.abs(outs[0]["trajectories"]
+                         - outs[4]["trajectories"]).max())
+    print(f"Y-Net-Mod style vs base, same seed: max |difference| = "
+          f"{moved:.4f} raw px")
+    check(moved > 0, "the Y-Net-Mod delta changed nothing")
+    check_rows_on_path(torch, "Y-Net-Mod", step, weights, state, batch,
+                       rows_rec)
+    print(f"Y-Net-Mod ({card}): steps {[round(t, 1) for t in step_ms]} ms "
+          f"(steps 1-{YMOD_STEPS - 1} mean {np.mean(step_ms[1:]):.1f} ms), "
+          f"requests {[round(t, 1) for t in request_ms]} ms (1-4 mean "
+          f"{np.mean(request_ms[1:]):.1f} ms); peak device memory "
+          f"{train_peak / 2**30:.2f} GiB training, "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB serving")
+
+    def one_step():
+        step(weights, state, setup["optimizer"], setup["scheduler"], batch)
+        torch.cuda.synchronize()
+
+    print_trace(torch, "Y-Net-Mod step", one_step, conv_ops=8)
+    del weights, setup, step, prev, flat
+    print_trace(torch, "Y-Net-Mod request", lambda: pred.predict(
+        semantic, observed, seed=5, style="ymod"))
+    err, rec = check_path_tail(torch, pred, semantic, observed, seed=0,
+                               timed=True)
+    rec["max_abs_err"] = err
+    return launches, rec
+
+
 def main():
     import torch
 
@@ -1037,7 +1319,8 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True, check=True)
-    print(smi.stdout.strip())
+    card = smi.stdout.strip()
+    print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     print_optional_packages()
@@ -1159,6 +1442,24 @@ def main():
     loop_launches = experiment_loop(torch, kernel_wrappers(), step_ms)
     print(f"loop phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 6d. Y-Net-Mod: card against CPU at small width for three
+    # strategies, then the fusion network at full width
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loss_err, state_err, traj_err = small_variant_reference(torch)
+    print(f"small-width variants: max relative |card - cpu| loss = "
+          f"{loss_err:.3e} (tol {TRAIN_TOL}), state {state_err:.3e} (tol "
+          f"{STATE_TOL}), eval trajectories {traj_err:.3e} model px (tol "
+          f"{FUSED_TOL})")
+    check(loss_err <= TRAIN_TOL and state_err <= STATE_TOL
+          and traj_err <= FUSED_TOL,
+          "a variant on the card disagrees with the CPU")
+    ymod_launches, ymod_tail = ynet_mod_path(torch, kernel_wrappers(), card,
+                                             rows_rec)
+    fused_rec["max_abs_err"] = max(fused_rec["max_abs_err"],
+                                   ymod_tail["max_abs_err"])
+    print(f"Y-Net-Mod phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- 7. the probe paths: the conv and decoder-chain kernels
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1176,9 +1477,11 @@ def main():
     for r in records:
         r["train_launches"] = train_launches[r["name"]]
         r["loop_launches"] = loop_launches[r["name"]]
+        r["ymod_launches"] = ymod_launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
-            "train_launches", "loop_launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "train_launches", "loop_launches", "ymod_launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -194,9 +194,8 @@ def has_backbone(params: dict) -> bool:
 def _check_ported(params: dict):
     """Raise on a flag that mst_tpu acts on and the port does not yet: bf16
     compute (trainer.py:348-349), ETH world-coordinate metrics
-    (trainer.py:346-347), a segmentation backbone (mst_tpu/config.py:
-    184-190, with or without use_features_only) and the fusion network's
-    n_fusion."""
+    (trainer.py:346-347) and a segmentation backbone (mst_tpu/config.py:
+    184-190, with or without use_features_only)."""
     dtype = params.get("compute_dtype")
     if dtype is not None and str(dtype).lower() not in ("float32", "f32"):
         raise NotImplementedError(
@@ -211,10 +210,6 @@ def _check_ported(params: dict):
             f"segmentation_model_fp={params['segmentation_model_fp']!r} "
             "exists: the segmentation backbone (and its use_features_only "
             "mode) is not ported yet")
-    if params.get("n_fusion") is not None:
-        raise NotImplementedError(
-            f"n_fusion={params['n_fusion']!r}: the fusion network is not "
-            "ported yet")
 
 
 # the Experiment loop's flags the port does not act on yet, and the value
@@ -253,6 +248,7 @@ def ynet_config(params: dict) -> YNetConfig:
         train_net=params.get("train_net", "train"),
         position=tuple(params.get("position", ()) or ()),
         network=params.get("network") or "original",
+        n_fusion=params.get("n_fusion"),
     )
 
 

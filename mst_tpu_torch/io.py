@@ -3,7 +3,9 @@ mst_tpu/train/checkpoints.py:60-75, 111-148).
 
 A checkpoint is a flat npz with '/'-joined keys ('encoder/stages/0/conv0/
 weight'). Conv weights are HWIO there and OIHW here; LoRA factors
-(loralib's shapes) and biases carry over unchanged.
+(loralib's shapes) and biases carry over unchanged. Floating leaves are
+f32 here, integer leaves keep their dtype (the batch norms' int32
+num_batches, which mst_tpu's serving refuses to see change).
 """
 
 import os
@@ -38,13 +40,15 @@ def unflatten(flat):
 
 def params_from_numpy(tree_or_flat, device="cpu"):
     """The JAX package's parameters (nested, or flat with '/' keys; numpy
-    arrays) -> the port's nested dict of f32 tensors, conv weights
-    HWIO -> OIHW."""
+    arrays) -> the port's nested dict of tensors (f32, integer leaves
+    as they are), conv weights HWIO -> OIHW."""
     flat = flatten(tree_or_flat) if any(
         isinstance(v, dict) for v in tree_or_flat.values()) else tree_or_flat
     out = {}
     for key, val in flat.items():
-        arr = np.asarray(val, dtype=np.float32)
+        arr = np.asarray(val)
+        if not np.issubdtype(arr.dtype, np.integer):
+            arr = arr.astype(np.float32)
         if key.endswith("weight") and arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
         out[key] = torch.tensor(arr, device=device)
@@ -53,7 +57,7 @@ def params_from_numpy(tree_or_flat, device="cpu"):
 
 def params_to_numpy(params):
     """The inverse bridge: the port's tree -> the JAX package's flat
-    {'a/b/c': np.ndarray}, conv weights OIHW -> HWIO."""
+    {'a/b/c': np.ndarray}, conv weights OIHW -> HWIO, dtypes kept."""
     out = {}
     for key, val in flatten(params).items():
         arr = val.detach().cpu().numpy()
@@ -61,6 +65,13 @@ def params_to_numpy(params):
             arr = arr.transpose(2, 3, 1, 0)
         out[key] = arr
     return out
+
+
+# The model state (the batch norms' running_mean, running_var and int32
+# num_batches) has no 4-D 'weight' leaf, so the parameter bridge carries
+# it unchanged: no transposes, num_batches int32 both ways.
+state_from_numpy = params_from_numpy
+state_to_numpy = params_to_numpy
 
 
 def load_checkpoint(path):

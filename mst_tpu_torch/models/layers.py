@@ -25,6 +25,38 @@ def conv_apply(params, x):
     return conv2d(x, params["weight"], params.get("bias"))
 
 
+def batchnorm_init(ch):
+    """-> (params, state) of a BatchNorm2d: weight 1, bias 0; running mean
+    0, running var 1 and an int32 batch count (mst_tpu's dtype; torch's
+    own counter is int64)."""
+    params = {"weight": torch.ones(ch), "bias": torch.zeros(ch)}
+    state = {"running_mean": torch.zeros(ch), "running_var": torch.ones(ch),
+             "num_batches": torch.zeros((), dtype=torch.int32)}
+    return params, state
+
+
+def batchnorm_apply(params, state, x, train, momentum=0.1, eps=1e-5):
+    """BatchNorm2d on an NHWC x (mst_tpu/models/layers.py:198-218) ->
+    (y, new state). train normalises with the batch's biased variance and
+    returns running statistics moved to 0.9 old + 0.1 batch, with the
+    unbiased variance; the state given is not modified. Eval normalises
+    with the running statistics and returns the state as it is."""
+    if not train:
+        y = F.batch_norm(x.permute(0, 3, 1, 2), state["running_mean"],
+                         state["running_var"], params["weight"],
+                         params["bias"], False, momentum, eps)
+        return y.permute(0, 2, 3, 1), state
+    # F.batch_norm updates the running statistics it is given in place
+    # (outside autograd), so it gets copies: the new state
+    mean = state["running_mean"].detach().clone()
+    var = state["running_var"].detach().clone()
+    y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var, params["weight"],
+                     params["bias"], True, momentum, eps)
+    return y.permute(0, 2, 3, 1), {
+        "running_mean": mean, "running_var": var,
+        "num_batches": state["num_batches"] + 1}
+
+
 def lora_merged_weight(params, rank):
     """loralib's merged weight W + (B @ A).view(out, in, k, k) / rank.
 
@@ -49,8 +81,16 @@ def _uniform(generator, shape, bound):
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
 
 
-def conv_init(generator, in_ch, out_ch, kernel_size, bias=True):
-    """kaiming_uniform(a=sqrt(5)) weight and U(+-1/sqrt(fan_in)) bias."""
+def conv_init(generator, in_ch, out_ch, kernel_size, bias=True,
+              zero_init=False):
+    """kaiming_uniform(a=sqrt(5)) weight and U(+-1/sqrt(fan_in)) bias;
+    zero_init: zeros for both (the adapters), drawing nothing."""
+    if zero_init:
+        params = {"weight": torch.zeros(out_ch, in_ch, kernel_size,
+                                        kernel_size)}
+        if bias:
+            params["bias"] = torch.zeros(out_ch)
+        return params
     fan_in = in_ch * kernel_size * kernel_size
     bound = math.sqrt(2.0 / 6.0) * math.sqrt(3.0 / fan_in)
     params = {"weight": _uniform(

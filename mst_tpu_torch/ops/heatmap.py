@@ -42,10 +42,12 @@ def rasterize_dist_nhwc(points, H: int, W: int, template_size: int):
     scale = 2.0 / dist_template_scale(template_size)
     rows = torch.arange(H, dtype=torch.float32, device=pts.device)
     cols = torch.arange(W, dtype=torch.float32, device=pts.device)
-    dy2 = (rows[None, None, :] - y[..., None]) ** 2  # (B, T, H)
-    dx2 = (cols[None, None, :] - x[..., None]) ** 2  # (B, T, W)
-    d2 = (dy2.transpose(1, 2)[:, :, None, :]
-          + dx2.transpose(1, 2)[:, None, :, :])  # (B, H, W, T)
+    # T innermost in both terms, so the map comes out contiguous NHWC:
+    # laid out (B, T, H, W), it would make every conv that reads it (and
+    # every conv after) run NCHW, and the fused decode tail refuse it
+    dy2 = (rows[None, :, None] - y[:, None, :]) ** 2  # (B, H, T)
+    dx2 = (cols[None, :, None] - x[:, None, :]) ** 2  # (B, W, T)
+    d2 = dy2[:, :, None, :] + dx2[:, None, :, :]  # (B, H, W, T)
     return torch.sqrt(d2) * scale
 
 

@@ -4,9 +4,14 @@
 A Predictor is built from a config (a flat params dict, see config.py) and
 optionally an mst_tpu npz checkpoint; without one the weights are random
 from `seed`. It answers predict(semantic, observed) with all K sampled
-trajectories, and serves motion styles: LoRA deltas overlaid on the base
-weights, which stay shared. Export to a model directory and the HTTP daemon
-are not ported yet.
+trajectories, and serves motion styles: adapter deltas (LoRA factors, the
+parallel adapters, the semantic adapter) overlaid on the base
+weights, which stay shared. The model state (batch-norm running
+statistics) is init_ynet's; loading a state file, export to a model
+directory and the HTTP daemon are not ported yet. So a model with a state
+(the serial adapters) serves only its own random weights: a checkpoint or
+a style would bring weights trained with running statistics it cannot
+load, and raises NotImplementedError.
 """
 
 import numpy as np
@@ -14,23 +19,21 @@ import torch
 
 from mst_tpu_torch import io, resolve_device
 from mst_tpu_torch.config import step_config, ynet_config
-from mst_tpu_torch.models.ynet import init_ynet
+from mst_tpu_torch.models.ynet import init_ynet, is_adapter_leaf
 from mst_tpu_torch.train.steps import make_predict_step
-
-LORA_FACTORS = ("lora_A", "lora_B")
 
 
 def _load_base(init, path):
     """The base weights of a checkpoint, laid over `init` strictly: every
     parameter of `init` must be in the checkpoint, and every key of the
-    checkpoint must name a parameter of `init` with its shape. Only LoRA
-    factors may be missing: a base model trained without them keeps the
-    init's (lora_B = 0, so the merged weight is the base weight) until a
-    style delta brings them, as the reference's fine-tune flow does."""
+    checkpoint must name a parameter of `init` with its shape. Only the
+    adapter leaves (is_adapter_leaf) may be missing: a base model trained
+    without them keeps the init's until a style delta brings them, as the
+    reference's fine-tune flow does. The embed network's and the fusion
+    encoder's weights are the base model's own and are required."""
     ckpt = io.params_from_numpy(io.load_checkpoint(path))
     missing = sorted(k for k in io.flatten(init).keys()
-                     - io.flatten(ckpt).keys()
-                     if not k.endswith(LORA_FACTORS))
+                     - io.flatten(ckpt).keys() if not is_adapter_leaf(k))
     if missing:
         raise KeyError(f"checkpoint {path} lacks {len(missing)} parameters "
                        f"of the model, e.g. {missing[:3]}")
@@ -47,9 +50,10 @@ class Predictor:
         self.device = resolve_device(device)
         self.mcfg = ynet_config(params)
         self.scfg = step_config(params, **step_overrides)
-        weights = init_ynet(torch.Generator().manual_seed(seed), self.mcfg,
-                            self.device)
+        weights, self.state = init_ynet(torch.Generator().manual_seed(seed),
+                                        self.mcfg, self.device)
         if checkpoint is not None:
+            self._refuse_trained_weights("a checkpoint")
             weights = _load_base(weights, checkpoint)
         self.params = weights
         self._styles = {}
@@ -57,10 +61,19 @@ class Predictor:
 
     def add_style(self, name, delta_path):
         """Register a motion style: a delta checkpoint (the trainable-only
-        npz of a LoRA fine-tune) overlaid on the base weights. Strict: every
-        delta key must name an existing weight of the same shape."""
+        npz of an adapter fine-tune) overlaid on the base weights. Strict:
+        every delta key must name an existing weight of the same shape.
+        The styles share the Predictor's model state."""
+        self._refuse_trained_weights("a style")
         delta = io.params_from_numpy(io.load_checkpoint(delta_path))
         self._styles[name] = io.overlay(self.params, delta, strict=True)
+
+    def _refuse_trained_weights(self, what):
+        if self.state:
+            raise NotImplementedError(
+                f"train_net={self.mcfg.train_net!r} has batch-norm running "
+                f"statistics, and loading them is not ported yet: {what} "
+                "would be served with init_ynet's statistics")
 
     @property
     def styles(self):
@@ -86,7 +99,7 @@ class Predictor:
     def forward(self, semantic, observed, seed=0, style=None):
         """Stage 1: encoder, goal decoder and sampling -> (features,
         waypoint samples (K, B, n_wp, 2) in model-space pixels)."""
-        return self._predict.forward(self._weights(style),
+        return self._predict.forward(self._weights(style), self.state,
                                      *self._inputs(semantic, observed, seed))
 
     @torch.no_grad()
@@ -101,6 +114,6 @@ class Predictor:
         """semantic (1, H, W, C) + observed (B, obs_len, 2) model-space px
         -> {trajectories (K, B, pred_len, 2), waypoints (K, B, n_wp, 2)}
         as numpy arrays in raw-image pixels."""
-        out = self._predict(self._weights(style),
+        out = self._predict(self._weights(style), self.state,
                             *self._inputs(semantic, observed, seed))
         return {k: v.cpu().numpy() for k, v in out.items()}

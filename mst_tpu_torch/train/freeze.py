@@ -7,11 +7,12 @@ one parameter tree: `set_trainable` marks the predicate's leaves
 requires_grad and returns them for the optimizer; the other leaves are
 frozen (requires_grad False), so autograd computes no gradient for them.
 
-Ported strategies: 'train'/'all', 'encoder' (with or without position
-levels), 'mosa_<r>', 'biasEncoder'/'biasGoal'/'biasTraj'/'bias', and the
-additive ynet_bias flag. The adapter, semantic, fusion and segmentation
-strategies train parameters the port does not have yet and raise
-NotImplementedError.
+Ported strategies: every one of mst_tpu's but the segmentation
+backbone's: 'train'/'all', 'encoder' (with or without position levels),
+'serial*'/'parallel*' (the adapters), 'mosa_<r>', 'semantic_<k>x<k>', the
+Y-Net-Mod branch sets ('scene', ..., 'scene_motion_fusion', with
+network='fusion'), 'biasEncoder'/'biasGoal'/'biasTraj'/'bias', and the
+additive ynet_bias flag. 'segmentation_*' raises NotImplementedError.
 """
 
 import re
@@ -23,42 +24,65 @@ _BIAS_PREFIXES = {"biasEncoder": ("encoder/",),
                   "biasTraj": ("traj_decoder/",),
                   "bias": ("encoder/", "goal_decoder/", "traj_decoder/")}
 
+# the Y-Net-Mod branch sets and the encoder groups they train
+# (trainer.py:145-171)
+_FUSION_BRANCHES = {
+    "scene": ("scene_stages",),
+    "motion": ("motion_stages",),
+    "fusion": ("fusion_stages",),
+    "scene_fusion": ("scene_stages", "fusion_stages"),
+    "motion_fusion": ("motion_stages", "fusion_stages"),
+    "scene_motion": ("scene_stages", "motion_stages"),
+}
+
 
 def _is_ynet_bias(p: str) -> bool:
     return p.endswith("/bias") and p.startswith(_BIAS_PREFIXES["bias"])
 
 
-def make_trainable_predicate(train_net: str, position=(),
-                             ynet_bias: bool = False):
-    """-> fn(path) -> bool, whether the strategy trains that parameter.
-    (mst_tpu's `network` argument selects the fusion strategies, which are
-    not ported.)"""
-    position = [str(p) for p in position]
-    if "serial" in train_net or "parallel" in train_net:
-        # mst_tpu tests these before 'mosa' (freeze.py:69-74)
-        raise NotImplementedError(
-            f"train_net={train_net!r}: adapters are not ported yet")
+def _base_predicate(train_net, position, network):
+    """The strategy's own leaves, tested in mst_tpu's order
+    (freeze.py:49-105)."""
     if train_net in ("all", "train"):
-        def base(p):
-            return not p.startswith("segmentation")
-    elif train_net == "encoder" and not position:
-        def base(p):
-            return p.startswith("encoder/")
-    elif train_net == "encoder":
-        def base(p):
-            # the reference matches the stage index (trainer.py:124-127)
+        return lambda p: not p.startswith("segmentation")
+    if train_net == "encoder" and not position:
+        return lambda p: p.startswith("encoder/")
+    if train_net == "encoder":
+        def stage_in_position(p):
+            # the reference matches the stage index (trainer.py:124-127);
+            # a fusion tree has no encoder/stages/, so nothing matches
             m = re.match(r"encoder/stages/(\w+)/", p)
             return bool(m) and m.group(1) in position
-    elif "mosa" in train_net:
-        def base(p):
-            return p.startswith("encoder/") and "lora" in p
-    elif train_net in _BIAS_PREFIXES:
-        def base(p):
-            return (p.endswith("/bias")
-                    and p.startswith(_BIAS_PREFIXES[train_net]))
-    else:
+        return stage_in_position
+    for word in ("serial", "parallel"):
+        if word in train_net:
+            return lambda p, w=word: p.startswith("encoder/") and w in p
+    if "mosa" in train_net:
+        return lambda p: p.startswith("encoder/") and "lora" in p
+    if "semantic" in train_net:
+        return lambda p: "semantic_adapter" in p
+    if network == "fusion" and train_net in _FUSION_BRANCHES:
+        groups = tuple(f"encoder/{g}/" for g in _FUSION_BRANCHES[train_net])
+        return lambda p: p.startswith(groups)
+    if network == "fusion" and train_net == "scene_motion_fusion":
+        return lambda p: p.startswith("encoder/")
+    if train_net in _BIAS_PREFIXES:
+        prefixes = _BIAS_PREFIXES[train_net]
+        return lambda p: p.endswith("/bias") and p.startswith(prefixes)
+    if train_net.startswith("segmentation"):
         raise NotImplementedError(
-            f"train_net={train_net!r} is not ported yet")
+            f"train_net={train_net!r}: the segmentation backbone is not "
+            "ported yet")
+    raise NotImplementedError(
+        f"train_net={train_net!r} is not a strategy of "
+        f"network={network!r}")
+
+
+def make_trainable_predicate(train_net: str, position=(),
+                             ynet_bias: bool = False, network=None):
+    """-> fn(path) -> bool, whether the strategy trains that parameter.
+    network='fusion' enables the Y-Net-Mod branch sets, as in mst_tpu."""
+    base = _base_predicate(train_net, [str(p) for p in position], network)
 
     def pred(p: str) -> bool:
         if p.startswith("segmentation"):
@@ -68,12 +92,13 @@ def make_trainable_predicate(train_net: str, position=(),
     return pred
 
 
-def set_trainable(params, train_net, position=(), ynet_bias=False):
+def set_trainable(params, train_net, position=(), ynet_bias=False,
+                  network=None):
     """Mark the strategy's leaves of params requires_grad and freeze the
     others (in place) -> the trainable leaves, in path order: the
     optimizer's parameters. requires_grad is then the one record of which
     leaves train."""
-    pred = make_trainable_predicate(train_net, position, ynet_bias)
+    pred = make_trainable_predicate(train_net, position, ynet_bias, network)
     trainable = []
     for key, leaf in io.flatten(params).items():
         leaf.requires_grad_(pred(key))

@@ -67,34 +67,44 @@ def swap_pavement_terrain(semantic_img):
     return semantic_img[..., perm]
 
 
-def _prepare_inputs(scfg, semantic, traj):
-    """semantic (1 or B, H, W, C) + traj (B, T, 2) -> (semantic broadcast
-    to B, observed distance maps (B, H, W, obs_len))."""
+def _prepare_inputs(mcfg, scfg, params, semantic, traj):
+    """semantic (1 or B, H, W, C) + traj (B, T, 2) -> (semantic through
+    the semantic adapter, swapped if asked, broadcast to B; observed
+    distance maps (B, H, W, obs_len)), each through its embedding on the
+    embed network (mst_tpu/train/steps.py:157-175)."""
     B = traj.shape[0]
     H, W = semantic.shape[-3], semantic.shape[-2]
-    semantic = semantic.to(torch.float32)
+    semantic = ynet_lib.adapt_semantic(params, mcfg,
+                                       semantic.to(torch.float32))
     if scfg.swap_semantic:
         semantic = swap_pavement_terrain(semantic)
     if semantic.shape[0] != B:
         semantic = semantic.expand(B, *semantic.shape[1:])
     observed_map = rasterize_dist_nhwc(traj[:, :scfg.obs_len], H, W,
                                        scfg.template_size)
+    if mcfg.network == "embed":
+        semantic = ynet_lib.scene_embedding(params, semantic)
+        observed_map = ynet_lib.motion_embedding(params, observed_map)
     return semantic, observed_map
 
 
 def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     """The few-shot fine-tune step (mst_tpu make_train_step, unpacked).
 
-    train_step(params, optimizer, scheduler, batch) -> metrics. params is
-    the nested tree; its trainable leaves have requires_grad and are the
-    optimizer's parameters (freeze.set_trainable), and the step updates
-    them in place: zero the gradients, backward, optimizer.step(),
-    scheduler.step(). This replaces the JAX signature's functional
-    (trainable, frozen, state, opt_state) threading. batch: 'semantic'
-    (1 or B, H, W, C), 'traj' (B, obs_len + pred_len, 2) model-space
-    pixels, 'mask' (B,). metrics: 'loss', 'goal_loss', 'traj_loss' (each x
-    loss_scale), and the masked top-1 'ade_sum', 'fde_sum' and 'n', as 0-d
-    tensors detached from the graph.
+    train_step(params, state, optimizer, scheduler, batch) -> (new state,
+    metrics). params is the nested tree; its trainable leaves have
+    requires_grad and are the optimizer's parameters
+    (freeze.set_trainable), and the step updates them in place: zero the
+    gradients, backward, optimizer.step(), scheduler.step(). state is the
+    model state (init_ynet's); the encoder runs in train mode, so the
+    batch norms normalise with the batch's statistics and the new state
+    holds their moved running statistics. This replaces the JAX
+    signature's functional (trainable, frozen, state, opt_state)
+    threading. batch: 'semantic' (1 or B, H, W, C), 'traj' (B, obs_len +
+    pred_len, 2) model-space pixels, 'mask' (B,). metrics: 'loss',
+    'goal_loss', 'traj_loss' (each x loss_scale), and the masked top-1
+    'ade_sum', 'fde_sum' and 'n', as 0-d tensors detached from the
+    graph.
 
     The trajectory decoder runs in the split form on the ground-truth
     waypoint pyramid; its logits are the 1x1 predictor as an einsum plus
@@ -106,21 +116,21 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     waypoints = list(scfg.waypoints)
     n_levels = len(mcfg.encoder_channels) + 1
 
-    def forward(params, batch):
-        """-> (goal_loss, traj_loss, goal logits, traj logits); the maps
-        are (B, H, W, pred_len)."""
+    def forward(params, state, batch):
+        """-> (goal_loss, traj_loss, goal logits, traj logits, new state);
+        the maps are (B, H, W, pred_len)."""
         traj, mask = batch["traj"], batch["mask"]
         H, W = batch["semantic"].shape[-3], batch["semantic"].shape[-2]
-        semantic, observed_map = _prepare_inputs(scfg, batch["semantic"],
-                                                 traj)
+        semantic, observed_map = _prepare_inputs(mcfg, scfg, params,
+                                                 batch["semantic"], traj)
         gt_future = traj[:, scfg.obs_len:]
         gt_future_map = rasterize_gaussian_nhwc(gt_future, H, W,
                                                 scfg.kernlen, scfg.nsig)
         gt_waypoint_map = rasterize_dist_nhwc(gt_future[:, waypoints], H, W,
                                               scfg.template_size)
         wp_pyramid = avg_pool_pyramid(gt_waypoint_map, n_levels)
-        features = ynet_lib.pred_features(params, mcfg, semantic,
-                                          observed_map)
+        features, new_state = ynet_lib.pred_features(
+            params, state, mcfg, semantic, observed_map, train=True)
         goal_map = ynet_lib.pred_goal(params, features)
         x, w, b = ynet_lib.make_shared_pred_traj(
             params, features, len(waypoints))(wp_pyramid)
@@ -129,7 +139,7 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
                                     mask) * scfg.loss_scale
         traj_loss = bce_with_logits(traj_map, gt_future_map,
                                     mask) * scfg.loss_scale
-        return goal_loss, traj_loss, goal_map, traj_map
+        return goal_loss, traj_loss, goal_map, traj_map, new_state
 
     @torch.no_grad()
     def top1_metrics(goal_map, traj_map, traj, mask):
@@ -146,17 +156,19 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
         return {"ade_sum": (ade * mask).sum(), "fde_sum": (fde * mask).sum(),
                 "n": mask.sum()}
 
-    def train_step(params, optimizer, scheduler, batch):
+    def train_step(params, state, optimizer, scheduler, batch):
         optimizer.zero_grad(set_to_none=True)
-        goal_loss, traj_loss, goal_map, traj_map = forward(params, batch)
+        goal_loss, traj_loss, goal_map, traj_map, new_state = forward(
+            params, state, batch)
         loss = goal_loss + traj_loss
         loss.backward()
         optimizer.step()
         scheduler.step()
         metrics = top1_metrics(goal_map, traj_map, batch["traj"],
                                batch["mask"])
-        return {"loss": loss.detach(), "goal_loss": goal_loss.detach(),
-                "traj_loss": traj_loss.detach(), **metrics}
+        return new_state, {"loss": loss.detach(),
+                           "goal_loss": goal_loss.detach(),
+                           "traj_loss": traj_loss.detach(), **metrics}
 
     train_step.forward = forward
     return train_step
@@ -181,25 +193,27 @@ def _ttst_goals(generator, pred_waypoint_map, wp_sigmoid_hw, scfg):
 def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     """The multi-goal eval step.
 
-    eval_step(params, batch, generator) -> dict of per-trajectory min-over-K
-    'ade', 'fde' (B,), 'best_traj' (B, pred_len, 2) raw pixels, and the
-    masked sums. batch: 'semantic' (1 or B, H, W, C), 'traj'
-    (B, obs_len + pred_len, 2) model-space pixels, 'mask' (B,).
+    eval_step(params, state, batch, generator) -> dict of per-trajectory
+    min-over-K 'ade', 'fde' (B,), 'best_traj' (B, pred_len, 2) raw pixels,
+    and the masked sums. state is the model state, read in eval mode (the
+    batch norms' running statistics). batch: 'semantic' (1 or B, H, W, C),
+    'traj' (B, obs_len + pred_len, 2) model-space pixels, 'mask' (B,).
 
     The parts are exposed: eval_step.forward -> (features, waypoint
     samples (K, B, n_wp, 2)); eval_step.prepredictor -> the decode tail's
     inputs; eval_step.decode_trajs -> (K, B, pred_len, 2) model-space
-    trajectories; eval_step.decode_and_score.
+    trajectories; eval_step.decode_and_score. Only forward takes the
+    state: the decoders hold no batch norm (as in mst_tpu).
     """
     n_wp = len(scfg.waypoints)
     waypoints = list(scfg.waypoints)
 
-    def forward(params, batch, generator):
+    def forward(params, state, batch, generator):
         traj = batch["traj"]
-        semantic, observed_map = _prepare_inputs(scfg, batch["semantic"],
-                                                 traj)
-        features = ynet_lib.pred_features(params, mcfg, semantic,
-                                          observed_map)
+        semantic, observed_map = _prepare_inputs(mcfg, scfg, params,
+                                                 batch["semantic"], traj)
+        features, _ = ynet_lib.pred_features(params, state, mcfg, semantic,
+                                             observed_map)
         pred_goal_map = ynet_lib.pred_goal(params, features)  # (B,H,W,pred)
         pred_waypoint_map = pred_goal_map[..., waypoints]  # (B,H,W,n_wp)
         pred_wp_sigmoid = torch.sigmoid(pred_waypoint_map / scfg.temperature)
@@ -281,8 +295,9 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
                 "best_traj": best_traj / scfg.resize_factor}
 
     @torch.no_grad()
-    def eval_step(params, batch, generator):
-        features, waypoint_samples = forward(params, batch, generator)
+    def eval_step(params, state, batch, generator):
+        features, waypoint_samples = forward(params, state, batch,
+                                             generator)
         return decode_and_score(params, features, waypoint_samples,
                                 batch["traj"], batch["mask"])
 
@@ -296,21 +311,21 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
 def make_predict_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     """Serving predict: no ground truth; all K trajectories in raw pixels.
 
-    predict(params, semantic, observed, generator) -> dict
+    predict(params, state, semantic, observed, generator) -> dict
       trajectories (K, B, pred_len, 2) and waypoints (K, B, n_wp, 2), raw px.
     observed is (B, obs_len, 2) in model-space pixels (raw * resize_factor).
     predict.forward and predict.decode_trajs are the two stages.
     """
     es = make_eval_step(mcfg, scfg)
 
-    def forward(params, semantic, observed, generator):
+    def forward(params, state, semantic, observed, generator):
         # the forward only reads the first obs_len rows of traj
-        return es.forward(params, {"semantic": semantic, "traj": observed},
-                          generator)
+        return es.forward(params, state,
+                          {"semantic": semantic, "traj": observed}, generator)
 
-    def predict(params, semantic, observed, generator):
-        features, waypoint_samples = forward(params, semantic, observed,
-                                             generator)
+    def predict(params, state, semantic, observed, generator):
+        features, waypoint_samples = forward(params, state, semantic,
+                                             observed, generator)
         trajs = es.decode_trajs(params, features, waypoint_samples)
         return {"trajectories": trajs / scfg.resize_factor,
                 "waypoints": waypoint_samples / scfg.resize_factor}

@@ -15,6 +15,12 @@ multi-epoch program, --resume, cross-scene batching, device meshes, the
 segmentation backbone, eth, and forward_test (config.check_loop_ported
 raises on the flags).
 
+The model state (the serial adapters' batch-norm running statistics) is
+self.model_state: the train steps thread it, it is assigned once an epoch
+before validation, validation and test read it in eval mode, and the roll
+back to the best snapshot restores the trainable leaves only, as mst_tpu's
+does (trainer.py:745-781).
+
 Randomness. Weights come from init_ynet with a torch.Generator seeded
 from `seed`; the train batches are shuffled by np.random.default_rng(seed)
 in mst_tpu's order of draws. Eval batch i of stream s (validation epoch e:
@@ -68,7 +74,8 @@ def setup_training(model_params, params_dict, steps_per_epoch: int):
     resolve_device(leaf.device)
     trainable = freeze.set_trainable(
         model_params, params_dict.get("train_net", "train"),
-        params_dict.get("position", ()), params_dict.get("ynet_bias", False))
+        params_dict.get("position", ()), params_dict.get("ynet_bias", False),
+        params_dict.get("network"))
     optimizer = torch.optim.Adam(trainable, lr=float(params_dict["lr"]))
     milestones = []
     if params_dict.get("fine_tune") and params_dict.get("steps"):
@@ -126,8 +133,8 @@ class Experiment:
         self.division_factor = 2 ** len(self.params["encoder_channels"])
         self.seed = int(self.params.get("seed", 1))
         self._images_override = images
-        self.model_params = init_ynet(torch.Generator().manual_seed(self.seed),
-                                      self.mcfg, self.device)
+        self.model_params, self.model_state = init_ynet(
+            torch.Generator().manual_seed(self.seed), self.mcfg, self.device)
         self.val_ADE, self.val_FDE = [], []
         self.eval_ADE, self.eval_FDE = [], []
         self.epoch_log = []  # one record an epoch (see train)
@@ -145,7 +152,8 @@ class Experiment:
         leaves (see save_params)."""
         p = self.params
         freeze.set_trainable(self.model_params, p.get("train_net", "train"),
-                             p.get("position", ()), p.get("ynet_bias", False))
+                             p.get("position", ()), p.get("ynet_bias", False),
+                             p.get("network"))
         save_params(path, self.model_params, p)
 
     def load_separated_params(self, pretrained_path, tuned_path):
@@ -246,7 +254,8 @@ class Experiment:
                 gen = torch.Generator(device=self.device).manual_seed(
                     eval_seed(self.seed, stream, i))
                 try:
-                    out = eval_step(self.model_params, db, gen)
+                    out = eval_step(self.model_params, self.model_state, db,
+                                    gen)
                     # one device-to-host copy for the metrics
                     mask, ade, fde = torch.stack(
                         [out["mask"], out["ade"], out["fde"]]).cpu().numpy()
@@ -353,6 +362,7 @@ class Experiment:
                        if p.get("metrics_jsonl") else None)
         meter = ThroughputMeter()
         n_batches = len(train_items)
+        state = self.model_state
 
         def finish_epoch(e, losses, ade_sum, fde_sum, n_sum, val_ade,
                          val_fde, snapshot, timing):
@@ -427,7 +437,8 @@ class Experiment:
             rng.shuffle(train_items)
             step_metrics = []
             for _, db in train_items:
-                m = train_step(self.model_params, optimizer, scheduler, db)
+                state, m = train_step(self.model_params, state, optimizer,
+                                      scheduler, db)
                 step_metrics.append(m)
                 # the metrics stay on the device: one host read an epoch,
                 # and a NaN check every 100 steps (trainer.py:742-759)
@@ -438,6 +449,7 @@ class Experiment:
                 [m["loss"], m["ade_sum"], m["fde_sum"], m["n"]])
                 for m in step_metrics]).cpu().numpy()
             t_val = time.perf_counter()
+            self.model_state = state
             val_ade, val_fde, _, _ = self._evaluate(
                 val_items, ves_state["step"], e, ves_shrink)
             timing = dict(n_steps=len(step_metrics),

@@ -316,7 +316,7 @@ def test_test_rounds_match_jax(tmp_path, monkeypatch, data):
             db["traj"], db["mask"]))
     monkeypatch.setattr(
         trainer, "make_eval_step",
-        lambda *a: lambda params, batch, gen: stub_outputs(
+        lambda *a: lambda params, state, batch, gen: stub_outputs(
             batch["traj"], batch["mask"]))
     params = loop_params(tmp_path, n_round=3)
     port, jexp = pair(params, images)
@@ -364,10 +364,10 @@ def test_shrink_ladder_steps_down_on_oom(tmp_path, monkeypatch, data):
     def make(mcfg, scfg):
         step = real(mcfg, scfg)
 
-        def eval_step(params, batch, gen):
+        def eval_step(params, state, batch, gen):
             if not 0 < scfg.eval_k_chunk <= limit["kc"]:
                 raise torch.cuda.OutOfMemoryError("out of memory")
-            return step(params, batch, gen)
+            return step(params, state, batch, gen)
         return eval_step
 
     want = trainer.Experiment(loop_params(tmp_path, eval_k_chunk=2),
@@ -392,13 +392,25 @@ def test_shrink_ladder_steps_down_on_oom(tmp_path, monkeypatch, data):
     ("cross_scene_batching", dict(cross_scene_batching=True)),
     ("mesh_shape", dict(mesh_shape=[2])),
     ("mesh_axes", dict(mesh_axes=["data"])), ("remat", dict(remat=True)),
-    ("network", dict(network="embed")),
-    ("network", dict(network="fusion", n_fusion=2)),
     ("eth", dict(dataset_name="eth")),
     ("segmentation", dict(segmentation_model_fp=__file__))])
 def test_unported_loop_flags_raise(tmp_path, flag, over):
     with pytest.raises(NotImplementedError, match=flag):
         trainer.Experiment(loop_params(tmp_path, **over))
+
+
+@pytest.mark.parametrize("over", [
+    dict(network="embed"), dict(network="fusion", n_fusion=2),
+    dict(network="fusion", n_fusion=1, train_net="mosa_1",
+         position=["scene", "motion", "fusion"]),
+    dict(train_net="serial", position=["1", "2"])])
+def test_networks_and_adapters_accepted(tmp_path, over):
+    """The embed and fusion networks and the adapters build an Experiment
+    whose model matches the flags; the serial adapters bring a state."""
+    exp = trainer.Experiment(loop_params(tmp_path, **over))
+    assert exp.mcfg.network == over.get("network", "original")
+    assert exp.mcfg.n_fusion == over.get("n_fusion")
+    assert bool(exp.model_state) == ("serial" in over.get("train_net", ""))
 
 
 def test_accepted_flags(tmp_path):

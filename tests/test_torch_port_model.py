@@ -45,7 +45,7 @@ def jax_weights(rng, train_net, position=()):
     cfg = jynet.YNetConfig(train_net=train_net, position=position, **SMALL)
     tcfg = ynet.YNetConfig(train_net=train_net, position=position, **SMALL)
     params = to_jax_layout(ynet.init_ynet(torch.Generator().manual_seed(0),
-                                          tcfg))
+                                          tcfg)[0])
     for stage in params["encoder"]["stages"].values():
         for conv in stage.values():
             if "lora_B" in conv:
@@ -63,7 +63,7 @@ def test_init_matches_jax_shapes(train_net, position):
     want = {k: tuple(v.shape) for k, v in io.flatten(want).items()}
     tcfg = ynet.YNetConfig(train_net=train_net, position=position, **SMALL)
     got = to_jax_layout(ynet.init_ynet(torch.Generator().manual_seed(0),
-                                       tcfg))
+                                       tcfg)[0])
     assert {k: v.shape for k, v in io.flatten(got).items()} == want
 
 
@@ -80,7 +80,7 @@ def test_features_and_goal(rng, train_net, position):
     scene, motion = inputs(rng)
     jfeats, _ = jynet.pred_features(jp, {}, cfg, jnp.asarray(scene),
                                     jnp.asarray(motion))
-    tfeats = ynet.pred_features(tp, tcfg, t(scene), t(motion))
+    tfeats, _ = ynet.pred_features(tp, {}, tcfg, t(scene), t(motion))
     assert len(tfeats) == len(jfeats)
     for jf, tf in zip(jfeats, tfeats):
         np.testing.assert_allclose(tf.numpy(), np.asarray(jf),
@@ -94,9 +94,9 @@ def test_lora_changes_the_features(rng):
     """The random lora_B makes the mosa test above meaningful."""
     _, _, tcfg, tp = jax_weights(rng, "mosa_2", ("0",))
     scene, motion = inputs(rng)
-    with_lora = ynet.pred_features(tp, tcfg, t(scene), t(motion))[0]
+    with_lora = ynet.pred_features(tp, {}, tcfg, t(scene), t(motion))[0][0]
     tp["encoder"]["stages"]["0"]["conv0"]["lora_B"].zero_()
-    without = ynet.pred_features(tp, tcfg, t(scene), t(motion))[0]
+    without = ynet.pred_features(tp, {}, tcfg, t(scene), t(motion))[0][0]
     assert float((with_lora - without).abs().max()) > 1e-3
 
 
@@ -132,7 +132,7 @@ def test_checkpoint_bridge(rng, tmp_path):
     path = str(tmp_path / "ckpt.npz")
     save_checkpoint(path, jp)
     flat = io.load_checkpoint(path)
-    init = ynet.init_ynet(torch.Generator().manual_seed(1), tcfg)
+    init, _ = ynet.init_ynet(torch.Generator().manual_seed(1), tcfg)
     loaded = io.overlay(init, io.params_from_numpy(flat))
     conv = jp["encoder"]["stages"]["1"]["conv0"]
     got = loaded["encoder"]["stages"]["1"]["conv0"]
@@ -153,10 +153,3 @@ def test_checkpoint_bridge(rng, tmp_path):
     bad = {"encoder": {"stages": {"1": {"conv0": {"bias": t([1.0])}}}}}
     with pytest.raises(ValueError):
         io.overlay(loaded, bad)
-
-
-def test_unported_variants_raise():
-    for over in (dict(train_net="serial"), dict(train_net="parallel_1x1"),
-                 dict(network="fusion")):
-        with pytest.raises(NotImplementedError):
-            ynet.YNetConfig(**{**SMALL, **over})

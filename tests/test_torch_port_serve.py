@@ -53,7 +53,7 @@ def test_eval_step_matches_jax(rng, eval_k_chunk):
                           eval_k_chunk=eval_k_chunk)
     mcfg = ynet_config(params)
     scfg = step_config(params)
-    weights = init_ynet(torch.Generator().manual_seed(0), mcfg)
+    weights, state = init_ynet(torch.Generator().manual_seed(0), mcfg)
     jmcfg = jynet.YNetConfig(
         obs_len=8, pred_len=12, n_semantic_classes=3,
         encoder_channels=(8, 8, 16, 16, 16),
@@ -72,7 +72,8 @@ def test_eval_step_matches_jax(rng, eval_k_chunk):
 
     step = steps.make_eval_step(mcfg, scfg)
     tb = {k: t(v) for k, v in b.items()}
-    feats, _ = step.forward(weights, tb, torch.Generator().manual_seed(0))
+    feats, _ = step.forward(weights, state, tb,
+                            torch.Generator().manual_seed(0))
     got = step.decode_and_score(weights, feats, t(jwps), tb["traj"],
                                 tb["mask"])
     for k in ("ade", "fde", "best_traj"):
@@ -145,8 +146,8 @@ def test_predictor_checkpoint_matches_jax_forward(rng, tmp_path):
     """A Predictor built from a JAX-format checkpoint decodes JAX's own
     waypoint draws to JAX's trajectories (make_predict_step)."""
     params = small_params(n_goal=3)
-    weights = init_ynet(torch.Generator().manual_seed(2),
-                        ynet_config(params))
+    weights, _ = init_ynet(torch.Generator().manual_seed(2),
+                           ynet_config(params))
     flat = io.params_to_numpy(weights)
     np.savez(tmp_path / "ckpt.npz", **flat)
     pred = Predictor(params, str(tmp_path / "ckpt.npz"), device="cpu",
@@ -171,12 +172,12 @@ def test_predictor_checkpoint_matches_jax_forward(rng, tmp_path):
 
 
 def test_predictor_checkpoint_is_strict(tmp_path):
-    """A base checkpoint must hold every parameter (LoRA factors aside)
+    """A base checkpoint must hold every parameter (adapter leaves aside)
     and nothing the model lacks; else the Predictor raises instead of
     serving some of the seed's random weights."""
     params = small_params(train_net="mosa_2", position=["0"])
     flat = io.params_to_numpy(init_ynet(torch.Generator().manual_seed(2),
-                                        ynet_config(params)))
+                                        ynet_config(params))[0])
     base = {k: v for k, v in flat.items() if "lora_" not in k}
     np.savez(tmp_path / "base.npz", **base)
     pred = Predictor(params, str(tmp_path / "base.npz"), device="cpu",
@@ -201,7 +202,7 @@ def test_predictor_swap_semantic_matches_jax(rng, tmp_path):
     from its unswapped decode of the same draws."""
     params = small_params(n_goal=3, swap_semantic=True)
     flat = io.params_to_numpy(init_ynet(torch.Generator().manual_seed(2),
-                                        ynet_config(params)))
+                                        ynet_config(params))[0])
     np.savez(tmp_path / "ckpt.npz", **flat)
     jmcfg = jynet.YNetConfig(
         obs_len=8, pred_len=12, n_semantic_classes=3,
@@ -231,8 +232,7 @@ def test_predictor_swap_semantic_matches_jax(rng, tmp_path):
     ("compute_dtype", dict(compute_dtype="bfloat16")),
     ("eth_world_coords", dict(dataset_name="eth", eth_world_coords=True)),
     ("use_features_only", dict(use_features_only=True,
-                               segmentation_model_fp=__file__)),
-    ("n_fusion", dict(n_fusion=2))])
+                               segmentation_model_fp=__file__))])
 def test_unported_flags_raise(flag, over):
     """A flag mst_tpu acts on and the port does not yet raises, naming
     itself, instead of being dropped."""
@@ -246,13 +246,19 @@ def test_unported_flags_raise(flag, over):
 @pytest.mark.parametrize("over", [
     dict(compute_dtype="float32"), dict(compute_dtype="f32"),
     dict(eth_world_coords=True), dict(use_features_only=True),
-    dict(n_fusion=None)])
+    dict(n_fusion=None), dict(n_fusion=2),
+    dict(network="fusion", n_fusion=2), dict(network="embed")])
 def test_flags_at_what_the_port_does_are_accepted(over):
     """float32, world coordinates outside eth, feature-only without a
-    backbone, no n_fusion: what mst_tpu also does there."""
+    backbone, no n_fusion (or one the plain network ignores), the fusion
+    and embed networks: what mst_tpu also does there."""
     params = small_params(**over)
-    assert ynet_config(params).n_semantic_classes == 3
+    mcfg = ynet_config(params)
+    assert mcfg.n_semantic_classes == 3
+    assert (mcfg.network, mcfg.n_fusion) == (
+        params["network"], params["n_fusion"])
     assert step_config(params).obs_len == 8
+    assert Predictor(params, device="cpu").mcfg == mcfg
 
 
 def test_step_config_for_validation():
