@@ -79,11 +79,30 @@ Phases, each fatal on failure:
      images (several groups of chain_plane; the chains at P = 5, so 4P =
      20 of the predictor's 64 columns), the chains' uniform-logits closed
      form at full shape, and a torch.profiler breakdown of each
-     yardstick and each chain kernel.
+     yardstick and each chain kernel;
+  8. the deployment path (deployment_path) at phase 5's width, with its
+     scene map, rows and LoRA delta: export_model from an Experiment
+     (random weights from seed 0), LoadedModel against a Predictor of the
+     same weights (1e-4 raw px); the HTTP daemon (run_server in a thread,
+     max_wait_ms 5) under 1 client x 10 full-B requests and 8 clients x 10
+     requests of 1-2 rows over two seeds, with and without the style:
+     every response finite and inside the image, every full-B one equal
+     to a direct predict (1e-4 raw px); all six kernels' counts set to 0
+     before the traffic and read after (rows and fused once a dispatch,
+     the others never); a direct predict on a side stream during a
+     dispatch against the serial runs, and fused_predict queued on two
+     streams behind one gate event, every output against the plain
+     version and the trace showing the two streams' launches overlap; a
+     burst at max_queue 2 shed with
+     503s; max_styles 2 evicting the oldest of 3; the memory of two
+     resident styles; check --bench 5; a small-width serial model
+     directory card against CPU (FUSED_TOL), its init statistics moving
+     the trajectories by over 10x that. Latencies, requests/s and rows a
+     dispatch are printed beside the card's name and power limit.
 The line before the last is the per-kernel JSON record (launches on each
 kernel's own path, train_launches on the fine-tune path, loop_launches
-on the Experiment loop's and ymod_launches on Y-Net-Mod's); the last line
-is
+on the Experiment loop's, ymod_launches on Y-Net-Mod's and
+serve_launches on the daemon's); the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
@@ -1292,6 +1311,532 @@ def ynet_mod_path(torch, wrappers, card, rows_rec):
     return launches, rec
 
 
+# ---- phase 8: the deployment path
+DEPLOY_TOL = 1e-4  # raw px: the model directory and the daemon against a
+# direct predict of the same weights, rows and seed on the same card
+DEPLOY_REQUESTS = 10  # a client
+DEPLOY_CLIENTS = 8
+DEPLOY_BENCH = 5  # check --bench N
+
+
+def http_request(port, path, payload=None, method=None, expect=(200,)):
+    """One request to the daemon -> (status, JSON body, headers, host
+    seconds); a status outside `expect` fails the run."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method=method)
+    if data is not None:
+        req.add_header("Content-Type", "application/json")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, body, headers = r.status, r.read(), r.headers
+    except urllib.error.HTTPError as e:
+        code, body, headers = e.code, e.read(), e.headers
+    dt = time.perf_counter() - t0
+    out = json.loads(body)
+    check(code in expect, f"{method or 'GET/POST'} {path}: HTTP {code} "
+          f"{out}")
+    return code, out, headers, dt
+
+
+def start_server(**kw):
+    """run_server in a thread on port 0 -> (ready, thread): ready.server
+    and ready.batcher. A failure to start fails the run."""
+    import threading
+
+    from mst_tpu_torch.serve_http import run_server
+
+    ready, failed = threading.Event(), []
+
+    def serve():
+        try:
+            run_server(port=0, ready_event=ready, **kw)
+        except BaseException as e:  # handed to the main thread below
+            failed.append(e)
+            ready.set()
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    check(ready.wait(timeout=300), "the daemon did not start")
+    if failed:
+        raise failed[0]
+    return ready, thread
+
+
+def stop_server(ready, thread):
+    ready.server.shutdown()
+    ready.batcher.stop()
+    thread.join(timeout=60)
+    check(not thread.is_alive(), "the daemon's thread did not stop")
+
+
+def check_in_image(label, a, H, W, rf):
+    import numpy as np
+
+    check(np.isfinite(a).all(), f"{label}: non-finite values")
+    check((a >= 0).all() and (a[..., 0] <= (W - 1) / rf).all()
+          and (a[..., 1] <= (H - 1) / rf).all(), f"{label}: outside the "
+          "image")
+
+
+def pct(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def serial_state_check(torch, tmp):
+    """A small-width serial model (phase 6d's, inD long-term on positions
+    1-2) with every adapter leaf nonzero and its BN statistics moved,
+    exported and loaded on the card and on the CPU: the card's waypoint
+    draws decoded on both (trajectories within FUSED_TOL), and by the same
+    weights with init_ynet's statistics, which must differ by over 10x
+    FUSED_TOL. -> (card against CPU, moved by the state), raw px."""
+    import numpy as np
+
+    from mst_tpu_torch import io
+    from mst_tpu_torch.config import get_params
+    from mst_tpu_torch.models.ynet import is_adapter_leaf
+    from mst_tpu_torch.serve import LoadedModel, export_model
+    from mst_tpu_torch.train.trainer import Experiment
+
+    params = get_params("inD_longterm_eval.yaml", dict(
+        encoder_channels=[8, 8, 16, 16, 16],
+        decoder_channels=[16, 16, 16, 8, 8], train_net="serial",
+        position=["1", "2"], n_goal=5, seed=0))
+    exp = Experiment(params, device="cpu")
+    rng = np.random.default_rng(0)
+    flat = io.params_to_numpy(exp.model_params)
+    for k, v in flat.items():
+        if is_adapter_leaf(k):
+            flat[k] = rng.normal(size=v.shape).astype(np.float32)
+            if k.endswith("bn/weight"):
+                flat[k] += 1.0
+    init_state = exp.model_state
+    st = io.state_to_numpy(init_state)
+    for k, v in st.items():
+        if k.endswith("running_mean"):
+            st[k] = rng.normal(scale=2.0, size=v.shape).astype(np.float32)
+        elif k.endswith("running_var"):
+            st[k] = rng.uniform(0.05, 0.5, size=v.shape).astype(np.float32)
+        else:
+            st[k] = np.full(v.shape, 3, v.dtype)
+    exp.model_params = io.params_from_numpy(flat)
+    exp.model_state = io.state_from_numpy(st)
+    export_model(exp, f"{tmp}/serial", 64, 96, 4)
+    exp.model_state = init_state
+    export_model(exp, f"{tmp}/serial_init", 64, 96, 4)
+    card = LoadedModel(f"{tmp}/serial", device="cuda")
+    cpu = LoadedModel(f"{tmp}/serial", device="cpu")
+    init = LoadedModel(f"{tmp}/serial_init", device="cpu")
+    check(len(io.flatten(card.state)) == len(st) == 6,
+          f"the serial model's state: {sorted(io.flatten(card.state))}")
+    semantic = rng.normal(size=(1, 64, 96, 6))
+    observed = rng.uniform(10, 50, size=(4, params["obs_len"], 2))
+    feats, wps = card.forward(semantic, observed, seed=0)
+    got = card.decode(feats, wps).cpu()
+    check(bool(torch.isfinite(got).all()), "serial: non-finite trajectories")
+    want = cpu.decode(cpu.forward(semantic, observed)[0], wps.cpu())
+    other = init.decode(init.forward(semantic, observed)[0], wps.cpu())
+    return float((got - want).abs().max()), float((other - want).abs().max())
+
+
+# fused_predict on two streams at once: (R, H, W, C, P, launches a stream);
+# the eval decode tail's shape, and a short one whose blocks interleave
+ARRIVAL_CASES = ((160, 352, 480, 32, 12, 8), (8, 32, 48, 32, 12, 200))
+GATE_CYCLES = 10**9  # the gate kernel's spin: about 0.5 s at the H100's clock
+
+
+def check_stream_arrivals(torch):
+    """fused_predict's arrival counters with the overlap made certain on
+    the device: a gate kernel on a third stream holds the default stream
+    and a side stream, each with its launches queued behind one event and
+    no host sync between them, so that when the gate opens both streams
+    run their launches together. Every output is held against the plain
+    version (FUSED_TOL); the gate must still be shut when the last launch
+    is queued, and the profiler's trace must show launches of the two
+    streams whose device intervals overlap. Counters shared by the two
+    streams (one buffer a device) make outputs wrong here."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mst_tpu_torch.ops.kernels.fused_predict import (
+        fused_predictor_softargmax, fused_predictor_softargmax_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    main, gate, side = (torch.cuda.current_stream(), torch.cuda.Stream(),
+                        torch.cuda.Stream())
+    for R, H, W, C, P, n in ARRIVAL_CASES:
+        inputs = [(torch.randn((R, H, W, C), generator=g,
+                               device="cuda").relu_(),
+                   torch.randn((C, P), generator=g, device="cuda") * 0.3,
+                   torch.randn((P,), generator=g, device="cuda"))
+                  for _ in range(2)]
+        want = [fused_predictor_softargmax_plain(*a) for a in inputs]
+        for stream, args in zip((main, side), inputs):
+            with torch.cuda.stream(stream):  # each stream's counters made
+                fused_predictor_softargmax(*args)
+        outs = ([], [])
+        opened = torch.cuda.Event()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with torch.cuda.stream(gate):
+                torch.cuda._sleep(GATE_CYCLES)
+                opened.record()
+            main.wait_event(opened)
+            side.wait_event(opened)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                for out, stream, args in zip(outs, (main, side), inputs):
+                    with torch.cuda.stream(stream):
+                        out.append(fused_predictor_softargmax(*args))
+            t_issue = time.perf_counter() - t0
+            shut = not opened.query()
+            torch.cuda.synchronize()
+        errs = [float((o - w).abs().max()) for out, w in zip(outs, want)
+                for o in out]
+        wrong = sum(not e <= FUSED_TOL for e in errs)  # a NaN is wrong
+        spans = {}
+        for e in prof.profiler.kineto_results.events():
+            if (e.device_type() == torch.autograd.DeviceType.CUDA
+                    and "fused_predict_kernel" in e.name()):
+                spans.setdefault(e.device_resource_id(), []).append(
+                    (e.start_ns(), e.start_ns() + e.duration_ns()))
+        a, b = (list(spans.values()) + [[], []])[:2]
+        overlapping = sum(any(s0 < e1 and s1 < e0 for s1, e1 in a)
+                          for s0, e0 in b)
+        print(f"fused_predict on two streams gated on one event, "
+              f"{(R, H, W, C)} x ({C}, {P}), {n} launches a stream: "
+              f"queued in {t_issue * 1e3:.1f} ms, the gate "
+              f"{'still shut' if shut else 'already open'}; the trace: "
+              f"{[len(v) for v in spans.values()]} launches on "
+              f"{len(spans)} stream(s), {overlapping} of one stream's "
+              f"overlapping one of the other's; {wrong} of {len(errs)} "
+              f"outputs off the plain version (max |difference| "
+              f"{max(errs):.3e} px, tol {FUSED_TOL})")
+        check(wrong == 0, "fused_predict on two streams disagrees with its "
+              "plain version: the streams share arrival counters")
+        check(shut and len(spans) == 2 and overlapping > 0,
+              "the two streams' launches were not shown to overlap")
+        del inputs, want, outs
+    torch.cuda.empty_cache()
+
+
+def deployment_path(torch, wrappers, card, semantic, observed, delta):
+    """Phase 8: the deployment path at phase 5's width (sdd_shortterm_eval
+    with TTST, mosa_2 on 0-4, K = 20, B = 8 at 352 x 480, random weights
+    from seed 0, phase 5's scene map, rows and LoRA delta). Export from an
+    Experiment, LoadedModel against Predictor, the HTTP daemon under one
+    and DEPLOY_CLIENTS clients (every full-B response against a direct
+    predict; both serving kernels launched once a dispatch, every count
+    zeroed before the traffic and read after), a direct predict on a side
+    stream during a dispatch, fused_predict on two streams gated on one
+    event (check_stream_arrivals), an overload burst at max_queue 2, max_styles
+    2, the memory of two resident styles, check --bench, and the serial
+    state check. -> {kernel name: launches over the daemon's traffic}."""
+    import threading
+
+    import numpy as np
+
+    from mst_tpu_torch import io
+    from mst_tpu_torch.config import get_params
+    from mst_tpu_torch.serve import LoadedModel, Predictor, export_model
+    from mst_tpu_torch.serve import check as serve_check
+    from mst_tpu_torch.train.trainer import Experiment
+
+    semantic = semantic.astype(np.float32)
+    B, (H, W) = observed.shape[0], semantic.shape[1:3]
+    tmp = tempfile.mkdtemp(prefix="mst_deploy_")
+    try:
+        params = get_params("sdd_shortterm_eval.yaml", dict(
+            use_TTST=True, train_net="mosa_2", position=POSITIONS, seed=0))
+        rf = params["resize_factor"]
+        mdir, delta_path = f"{tmp}/model", f"{tmp}/mosa_2_style.npz"
+        np.savez(delta_path, **delta)
+        # ---- 1. export, load, against Predictor
+        t0 = time.perf_counter()
+        export_model(Experiment(params), mdir, H, W, B)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = LoadedModel(mdir)
+        t_load = time.perf_counter() - t0
+        model.add_style("mosa_2", delta_path)
+        pred = Predictor(params, seed=0)
+        pred.add_style("mosa_2", delta_path)
+        sizes = {f: os.path.getsize(f"{mdir}/{f}") for f in sorted(
+            os.listdir(mdir))}
+        err = 0.0
+        for seed, style in ((0, None), (1, "mosa_2")):
+            a = model.predict(semantic, observed, seed=seed, style=style)
+            b = pred.predict(semantic, observed, seed=seed, style=style)
+            err = max([err] + [float(np.abs(a[k] - b[k]).max()) for k in a])
+        print(f"deploy: export {t_export:.2f} s {sizes}, load "
+              f"{t_load:.2f} s; LoadedModel against Predictor (2 requests, "
+              f"one styled): max |difference| = {err:.3e} raw px (tol "
+              f"{DEPLOY_TOL})")
+        check(err <= DEPLOY_TOL, "the model directory serves other "
+              "predictions than the Predictor")
+        del pred, a, b
+
+        # ---- 2. the daemon
+        scene_path = f"{tmp}/scene.npy"
+        np.save(scene_path, semantic)
+        ready, thread = start_server(
+            model_dir=mdir, styles=[f"mosa_2={delta_path}"],
+            scenes=[f"sdd={scene_path}"], max_wait_ms=5.0)
+        port, batcher = ready.server.server_address[1], ready.batcher
+        _, health, _, _ = http_request(port, "/healthz")
+        check(health["batch_size"] == B and health["styles"] == ["mosa_2"]
+              and health["scenes"] == ["sdd"], f"healthz: {health}")
+
+        # the dispatcher's predicts on the host clock (each ends in the
+        # host copy), to split an HTTP request's latency
+        dispatch_s, served_predict = [], batcher.model.predict
+
+        def timed_predict(*args, **kw):
+            t0 = time.perf_counter()
+            out = served_predict(*args, **kw)
+            dispatch_s.append(time.perf_counter() - t0)
+            return out
+
+        batcher.model.predict = timed_predict
+
+        # ---- 3. traffic, every kernel's count zeroed before and read after
+        rng = np.random.default_rng(8)
+        for w in wrappers.values():
+            w.launches = 0
+        full, lat1 = [], []
+        for i in range(DEPLOY_REQUESTS):
+            rows = (observed + rng.normal(scale=2.0, size=observed.shape)
+                    ).astype(np.float32)
+            style = "mosa_2" if i % 2 else None
+            _, out, _, dt = http_request(port, "/predict", {
+                "scene": "sdd", "observed": rows.tolist(), "seed": 100 + i,
+                "style": style})
+            lat1.append(dt)
+            full.append((rows, 100 + i, style, out))
+        d1, rows1 = batcher.dispatches, batcher.dispatched_rows
+        dispatch1 = list(dispatch_s)
+        lat8, results, lock = [], [], threading.Lock()
+
+        def client(c):
+            crng = np.random.default_rng(100 + c)
+            for r in range(DEPLOY_REQUESTS):
+                n = 1 + (c + r) % 2
+                j = crng.integers(0, B - n + 1)
+                rows = (observed[j:j + n] + crng.normal(
+                    scale=2.0, size=(n,) + observed.shape[1:])
+                        ).astype(np.float32)
+                _, out, _, dt = http_request(port, "/predict", {
+                    "scene": "sdd", "observed": rows.tolist(),
+                    "seed": (c + r) % 2,
+                    "style": "mosa_2" if c % 2 else None})
+                with lock:
+                    lat8.append(dt)
+                    results.append((n, out))
+
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(DEPLOY_CLIENTS)]
+        for th in clients:
+            th.start()
+        for th in clients:
+            th.join(timeout=600)
+            check(not th.is_alive(), "a client did not finish")
+        t8 = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+        dispatches = batcher.dispatches
+        check(len(results) == DEPLOY_CLIENTS * DEPLOY_REQUESTS,
+              f"{len(results)} of the clients' requests answered")
+        print(f"deploy: {dispatches} dispatches ({d1} for the 1-client "
+              f"requests, {dispatches - d1} for the {len(results)} "
+              f"8-client ones), launches {launches}")
+        check(launches["softargmax_rows"] == launches["fused_predict"]
+              == dispatches > 0 and not any(
+                  v for k, v in launches.items()
+                  if k not in ("softargmax_rows", "fused_predict")),
+              "the serving kernels' launches are not one each a dispatch")
+
+        # ---- after the counts: every response against a direct predict
+        for n, out in results:
+            for k in ("trajectories", "waypoints"):
+                a = np.asarray(out[k])
+                check(a.shape[0] == n, f"8 clients: {k} {a.shape}")
+                check_in_image(f"8 clients: {k}", a, H, W, rf)
+        err, lat_direct = 0.0, []
+        for rows, seed, style, out in full:
+            t0 = time.perf_counter()
+            direct = model.predict(semantic, rows, seed=seed, style=style)
+            lat_direct.append(time.perf_counter() - t0)
+            for k in ("trajectories", "waypoints"):
+                a = np.asarray(out[k])
+                check_in_image(f"1 client: {k}", a, H, W, rf)
+                err = max(err, float(np.abs(
+                    a - np.moveaxis(direct[k], 1, 0)).max()))
+        print(f"deploy: {len(full)} full-B HTTP responses against direct "
+              f"predict: max |difference| = {err:.3e} raw px (tol "
+              f"{DEPLOY_TOL})")
+        check(err <= DEPLOY_TOL, "the daemon disagrees with direct predict")
+        print(f"deploy timings ({card}): HTTP latency 1 client p50 "
+              f"{pct(lat1, 50):.1f} ms p95 {pct(lat1, 95):.1f} ms; "
+              f"{DEPLOY_CLIENTS} clients p50 {pct(lat8, 50):.1f} ms p95 "
+              f"{pct(lat8, 95):.1f} ms; direct predict p50 "
+              f"{pct(lat_direct, 50):.1f} ms p95 {pct(lat_direct, 95):.1f}"
+              f" ms; {DEPLOY_CLIENTS} clients: {len(results) / t8:.2f} "
+              f"requests/s, "
+              f"{(batcher.dispatched_rows - rows1) / (dispatches - d1):.2f}"
+              f" rows a dispatch ({dispatches - d1} dispatches in "
+              f"{t8:.2f} s); 1 client: {rows1 / d1:.2f} rows a dispatch")
+        t0 = time.perf_counter()
+        json.dumps(full[0][3])
+        t_json = time.perf_counter() - t0
+        print("deploy, 1 client, request by request (ms): HTTP "
+              f"{[round(x * 1e3, 1) for x in lat1]}, the dispatcher's "
+              f"predict {[round(x * 1e3, 1) for x in dispatch1]}, direct "
+              f"predict {[round(x * 1e3, 1) for x in lat_direct]}; median "
+              "HTTP - dispatcher's predict "
+              f"{pct(np.subtract(lat1, dispatch1), 50):.1f} ms, median "
+              "dispatcher's predict - direct "
+              f"{pct(np.subtract(dispatch1, lat_direct), 50):.1f} ms; "
+              f"json.dumps of a full-B response {t_json * 1e3:.2f} ms")
+
+        # ---- a direct predict on a side stream during a dispatch
+        side = torch.cuda.Stream()
+        err, overlap = 0.0, []
+        for i in range(3):
+            rows_h, rows_s = full[i][0], full[i + 3][0]
+            box = {}
+
+            def request():
+                box["t0"] = time.perf_counter()
+                box["out"] = http_request(port, "/predict", {
+                    "scene": "sdd", "observed": rows_h.tolist(),
+                    "seed": 500 + i})[1]
+                box["t1"] = time.perf_counter()
+
+            th = threading.Thread(target=request)
+            th.start()
+            while batcher.depth() == 0 and th.is_alive():
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            with torch.cuda.stream(side):
+                on_side = model.predict(semantic, rows_s, seed=600 + i)
+            t1 = time.perf_counter()
+            th.join(timeout=300)
+            check(not th.is_alive(), "the side-stream request hung")
+            overlap.append(min(t1, box["t1"]) - max(t0, box["t0"]))
+            serial_s = model.predict(semantic, rows_s, seed=600 + i)
+            serial_h = model.predict(semantic, rows_h, seed=500 + i)
+            for k in ("trajectories", "waypoints"):
+                err = max(err, float(np.abs(on_side[k] - serial_s[k]).max()),
+                          float(np.abs(np.asarray(box["out"][k]) - np.moveaxis(
+                              serial_h[k], 1, 0)).max()))
+        print(f"deploy: direct predict on a side stream during a dispatch "
+              f"(overlap on the host clock "
+              f"{', '.join(f'{o * 1e3:.0f}' for o in overlap)} ms):"
+              f" max |difference| from the serial runs = {err:.3e} raw px "
+              f"(tol {DEPLOY_TOL})")
+        check(err <= DEPLOY_TOL and max(overlap) > 0, "a side-stream predict "
+              "and a dispatch disagree with their serial runs")
+        stop_server(ready, thread)
+        # the same kernel on two streams, the overlap certain on the device
+        check_stream_arrivals(torch)
+
+        # ---- 4. overload at max_queue 2, and max_styles 2
+        ready, thread = start_server(
+            model_dir=mdir, scenes=[f"sdd={scene_path}"], max_wait_ms=5.0,
+            max_queue=2, max_styles=2)
+        port = ready.server.server_address[1]
+        codes, retry = [], []
+        barrier = threading.Barrier(DEPLOY_CLIENTS)
+
+        def burst(c):
+            barrier.wait(timeout=60)
+            code, _, headers, _ = http_request(
+                port, "/predict", {"observed": observed.tolist(), "seed": c},
+                expect=(200, 503))
+            with lock:
+                codes.append(code)
+                retry.append(headers.get("Retry-After"))
+
+        clients = [threading.Thread(target=burst, args=(c,))
+                   for c in range(DEPLOY_CLIENTS)]
+        for th in clients:
+            th.start()
+        for th in clients:
+            th.join(timeout=600)
+            check(not th.is_alive(), "a burst client did not finish")
+        shed = [r for c, r in zip(codes, retry) if c == 503]
+        print(f"deploy: burst of {DEPLOY_CLIENTS} at max_queue 2: "
+              f"{codes.count(200)} answered, {len(shed)} shed with 503 "
+              f"(Retry-After {set(shed)})")
+        check(len(shed) > 0 and codes.count(200) > 0
+              and set(shed) == {"1"}, "the burst was not shed with 503s")
+        evicted = [http_request(port, f"/styles/{name}",
+                                {"delta_path": delta_path})[1]
+                   for name in ("a", "b", "c")]
+        print(f"deploy: max_styles 2, registrations a, b, c: evicted "
+              f"{[e['evicted'] for e in evicted]}, resident "
+              f"{evicted[-1]['styles']}")
+        check([e["evicted"] for e in evicted] == [[], [], ["a"]]
+              and evicted[-1]["styles"] == ["b", "c"],
+              "max_styles did not evict the oldest style")
+        stop_server(ready, thread)
+
+        # ---- 5. memory: the base, then two styles resident
+        del model
+        torch.cuda.empty_cache()
+        m0 = torch.cuda.memory_allocated()
+        model = LoadedModel(mdir)
+        m1 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model.predict(semantic, observed, seed=0)
+        peak_base = torch.cuda.max_memory_allocated()
+        model.add_style("a", delta_path)
+        model.add_style("b", delta_path)
+        m2 = torch.cuda.memory_allocated()
+        base, styled = io.flatten(model.params), io.flatten(
+            model._styles["a"])
+        shared = sum(styled[k] is v for k, v in base.items())
+        torch.cuda.reset_peak_memory_stats()
+        model.predict(semantic, observed, seed=0, style="a")
+        peak_styles = torch.cuda.max_memory_allocated()
+        delta_bytes = sum(v.nbytes for v in delta.values())
+        print(f"deploy memory: base weights and state {(m1 - m0) / 2**20:.2f}"
+              f" MiB, two styles +{(m2 - m1) / 2**20:.3f} MiB (deltas "
+              f"{2 * delta_bytes / 2**20:.3f} MiB; {shared} of {len(base)} "
+              f"tensors shared); peak over a request "
+              f"{peak_base / 2**30:.3f} GiB with the base alone, "
+              f"{peak_styles / 2**30:.3f} GiB with two styles resident")
+        check(shared == len(base) - len(delta)
+              and m2 - m1 <= 2 * delta_bytes + 2**20
+              and peak_styles - peak_base <= 4 * 2**20,
+              "a style costs more than its delta")
+
+        # ---- 6. check --bench, in-process
+        stats = serve_check(model, seed=0, bench=DEPLOY_BENCH)
+        print(f"deploy: check --bench {DEPLOY_BENCH} ({card}): "
+              f"{stats['traj_per_sec']} traj/s closed loop, "
+              f"{stats['pipelined_traj_per_sec']} pipelined")
+        del model
+        torch.cuda.empty_cache()
+
+        # ---- 7. the state of a serial model
+        err, moved = serial_state_check(torch, tmp)
+        print(f"deploy: serial model directory, card against CPU: max "
+              f"|difference| = {err:.3e} raw px (tol {FUSED_TOL}); the "
+              f"init statistics move it by {moved:.3f} raw px (must exceed "
+              f"{10 * FUSED_TOL})")
+        check(err <= FUSED_TOL and moved > 10 * FUSED_TOL,
+              "the serial model's exported state is not what it serves")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -1392,12 +1937,9 @@ def main():
         tr, wp = out["trajectories"], out["waypoints"]
         print(f"{label}: {dt:.1f} ms, trajectories {tr.shape}, "
               f"waypoints {wp.shape}")
-        rf = params["resize_factor"]
         for name, a in (("trajectories", tr), ("waypoints", wp)):
-            check(np.isfinite(a).all(), f"{label}: non-finite {name}")
-            check((a >= 0).all() and (a[..., 0] <= (W - 1) / rf).all()
-                  and (a[..., 1] <= (H - 1) / rf).all(),
-                  f"{label}: {name} outside the image")
+            check_in_image(f"{label}: {name}", a, H, W,
+                           params["resize_factor"])
         check(tr.shape == (20, B, params["pred_len"], 2), f"{label}: shape")
     style_moved = float(np.abs(outs[3]["trajectories"]
                                - outs[0]["trajectories"]).max())
@@ -1474,14 +2016,22 @@ def main():
     print(f"probe phase: {time.perf_counter() - t0:.1f} s")
     records += probe_records
 
+    # ---- 8. the deployment path: model directory, LoadedModel, the daemon
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve_launches = deployment_path(torch, kernel_wrappers(), card,
+                                     semantic, observed, delta)
+    print(f"deploy phase: {time.perf_counter() - t0:.1f} s")
+
     for r in records:
         r["train_launches"] = train_launches[r["name"]]
         r["loop_launches"] = loop_launches[r["name"]]
         r["ymod_launches"] = ymod_launches[r["name"]]
+        r["serve_launches"] = serve_launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "train_launches", "loop_launches", "ymod_launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "serve_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

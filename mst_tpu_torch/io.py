@@ -50,7 +50,9 @@ def params_from_numpy(tree_or_flat, device="cpu"):
         if not np.issubdtype(arr.dtype, np.integer):
             arr = arr.astype(np.float32)
         if key.endswith("weight") and arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)
+            # contiguous OIHW, as init_ynet makes them (torch.tensor keeps
+            # the strides of the transposed numpy view)
+            arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
         out[key] = torch.tensor(arr, device=device)
     return unflatten(out)
 

@@ -17,6 +17,7 @@ that split with the kernel's merge arithmetic on the CPU.
 """
 
 import ctypes
+import threading
 
 import torch
 
@@ -155,17 +156,23 @@ def fused_split_reference(x, weight, bias, blocks, eps: float = 1e-6):
 
 # ---- the kernel
 
-_ARRIVALS = {}  # device -> the rows' arrival counters, zero between calls
+# (device, stream) -> the rows' arrival counters, zero between calls
+_ARRIVALS = {}
+_ARRIVALS_LOCK = threading.Lock()
 
 
-def _arrivals(device, R):
-    """The kernel's per-row arrival counters: zeroed once, grown when R
-    grows; each call's last block of a row sets its counter back to 0. One
-    stream at a time may use them."""
-    buf = _ARRIVALS.get(device)
-    if buf is None or buf.numel() < R:
-        buf = torch.zeros(max(R, 256), dtype=torch.int32, device=device)
-        _ARRIVALS[device] = buf
+def _arrivals(device, stream, R):
+    """The kernel's per-row arrival counters for calls on `stream` (a
+    cudaStream_t as an int): zeroed once, on that stream, and grown when R
+    grows; each call's last block of a row sets its counter back to 0. The
+    calls of one stream run in order and share the buffer; calls on two
+    streams may overlap, so each stream has its own."""
+    key = (device, stream)
+    with _ARRIVALS_LOCK:
+        buf = _ARRIVALS.get(key)
+        if buf is None or buf.numel() < R:
+            buf = torch.zeros(max(R, 256), dtype=torch.int32, device=device)
+            _ARRIVALS[key] = buf
     return buf
 
 
@@ -242,7 +249,8 @@ def fused_predictor_softargmax(x, weight, bias, eps: float = 1e-6):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                     part.data_ptr(), _arrivals(x.device, R).data_ptr(),
+                     part.data_ptr(),
+                     _arrivals(x.device, stream, R).data_ptr(),
                      out.data_ptr(), R, HW, W, C, P, blocks, float(eps),
                      stream)
     if err != 0:
