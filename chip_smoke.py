@@ -99,10 +99,40 @@ Phases, each fatal on failure:
      directory card against CPU (FUSED_TOL), its init statistics moving
      the trajectories by over 10x that. Latencies, requests/s and rows a
      dispatch are printed beside the card's name and power limit.
+  9. the segmentation backbone (small_segmentation_reference,
+     segmentation_path): at small width (a shallow backbone with the real
+     widths, batch norms moved), card against CPU for three steps each of
+     segmentation_head and segmentation_bn with the backbone in the step
+     and of train with it in train mode (e_unfreeze; losses at 1e-4
+     relative, the 'segmentation_bn' state at 1e-3), one eval batch with
+     it in the step (1e-2 px) and use_features_only's 16 channels (1e-4);
+     then the full ResNet101 U-Net (random weights from seed 0, the batch
+     norms' statistics those of the other synthetic scene's activations)
+     written as data/sdd/sdd_segmentation.npz under a
+     temporary working directory, where the shipped configs find it: one
+     352 x 480 scene card against the CPU and a float64 forward (the
+     card's probabilities within twice the CPU f32's distance from
+     float64, at least 1e-4; the argmax agreement printed), CUDA-event ms
+     over 10 calls beside its bound
+     (torch's FLOP count at 67 TFLOP/s f32), peak memory; then, with all
+     six kernels' counts set to 0 before and read after,
+     sdd_shortterm_eval.yaml / _train.yaml as shipped (6 classes) on phase
+     6c's synthetic RGB scenes: a 2-round TTST test (the backbone once a
+     scene), 3 segmentation_head steps (the head moves, every other leaf
+     bit-identical), a 2-epoch run with e_unfreeze 1 (the 114 batch norms'
+     statistics adapt, the backbone's parameters stay) and
+     `python -m mst_tpu_torch.serve export --segment_in_step` of its
+     checkpoint, whose LoadedModel answers one request on the raw scene
+     within 1e-4 raw px of a Predictor on the segmented map (rows and fused
+     as the code launches them, the others never); the rows kernel on a
+     segmentation_head step's maps and the fused kernel on the directory's
+     request against their plain versions; a torch.profiler trace of one
+     segmented test batch with the backbone's share.
 The line before the last is the per-kernel JSON record (launches on each
 kernel's own path, train_launches on the fine-tune path, loop_launches
-on the Experiment loop's, ymod_launches on Y-Net-Mod's and
-serve_launches on the daemon's); the last line is
+on the Experiment loop's, ymod_launches on Y-Net-Mod's, serve_launches
+on the daemon's and seg_launches on the segmentation backbone's); the
+last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
@@ -1837,6 +1867,514 @@ def deployment_path(torch, wrappers, card, semantic, observed, delta):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- phase 9: the segmentation backbone
+
+# class probabilities at ResNet101 depth: the card's distance from a
+# float64 forward within twice the CPU f32 forward's own, and within
+# SEG_TOL where that is smaller (the CPU's f32 probabilities were 1.9e-4
+# from float64 on phase 9's scenes, the card's 2.7e-4: f32 rounding over
+# ~100 convs)
+SEG_TOL = 1e-4
+SEG_MAP_TOL = 1e-4  # small-width features and logits, of each one's max
+SEG_STEPS = 3  # segmentation_head steps at full width
+SEG_SMALL = dict(encoder_channels=[8, 8, 16, 16, 16],
+                 decoder_channels=[16, 16, 16, 8, 8], waypoints=[11],
+                 n_goal=4, n_traj=1, lr=1e-3)
+
+
+def moved_backbone(torch, layers, seed, calibrate=None):
+    """The port's unet_init at `layers` (seed 0) with every batch norm's
+    weight, bias and running statistics and the head's bias drawn from
+    `seed`: numpy leaves in the npz layout, as the converter writes a
+    released backbone. With calibrate (an NHWC image), the running
+    statistics are then those of the image's activations (one train-mode
+    pass with momentum 1), as a trained network's match its data: at
+    ResNet101 depth random statistics let the activations grow block by
+    block until the class logits tie at a scale where f32 rounding flips
+    the softmax."""
+    import numpy as np
+
+    from mst_tpu_torch import io
+    from mst_tpu_torch.models import unet
+
+    rng = np.random.default_rng(seed)
+    flat = io.params_to_numpy(unet.unet_init(
+        torch.Generator().manual_seed(0), layers=layers))
+    for k, v in flat.items():
+        if k.endswith(("running_mean", "/bias")):
+            flat[k] = rng.uniform(-0.3, 0.3, v.shape).astype(np.float32)
+        elif k.endswith("running_var"):
+            flat[k] = rng.uniform(0.7, 1.5, v.shape).astype(np.float32)
+        elif v.ndim == 1:  # batch-norm weights
+            flat[k] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+    if calibrate is not None:
+        params = io.params_from_numpy(flat)
+        bn, updates = unet.make_bn(None, train=True, momentum=1.0)
+        with torch.no_grad():
+            unet.decoder_apply(params["decoder"], unet.encoder_apply(
+                params["encoder"], torch.tensor(calibrate), bn=bn), bn=bn)
+        for path, stats in updates.items():
+            for leaf, v in stats.items():
+                flat[f"{path}/{leaf}"] = v.numpy()
+    return flat
+
+
+def small_segmentation_reference(torch):
+    """Phase 9's first part, card against CPU at the CPU tests' width: a
+    shallow backbone (layers (1, 1, 1, 1), the real widths, batch norms
+    moved) under sdd_shortterm_train.yaml's Y-Net at small width with its
+    6 classes, one raw 64 x 96 scene, B = 4 with a padded row. Three Adam
+    steps each of segmentation_head and segmentation_bn (the backbone in
+    the step) and of train with the backbone in train mode (e_unfreeze:
+    the losses and the 'segmentation_bn' state); one eval batch with the
+    backbone in the step (the card's draws decoded on both); the 16
+    decoder channels of use_features_only and the goal logits after them.
+    -> (relative loss, state (of each leaf's max), trajectory (model px)
+    and feature / logit (of each one's max) differences)."""
+    import numpy as np
+
+    from mst_tpu_torch import io
+    from mst_tpu_torch.config import get_params, step_config, ynet_config
+    from mst_tpu_torch.models import segmentation as seg_lib
+    from mst_tpu_torch.models.unet import extract_bn_stats
+    from mst_tpu_torch.models.ynet import (init_ynet, pred_features,
+                                           pred_goal, tree_map)
+    from mst_tpu_torch.train.steps import (_prepare_inputs, make_eval_step,
+                                           make_train_step)
+    from mst_tpu_torch.train.trainer import setup_training
+
+    tmp = tempfile.mkdtemp(prefix="mst_seg_small_")
+    try:
+        seg = os.path.join(tmp, "sdd_segmentation.npz")
+        np.savez(seg, **moved_backbone(torch, (1, 1, 1, 1), 1))
+        rng = np.random.default_rng(0)
+        batch = {"semantic": rng.normal(size=(1, 64, 96, 3)),
+                 "traj": rng.uniform(5, 60, size=(4, 20, 2)),
+                 "mask": np.array([1.0, 1.0, 1.0, 0.0])}
+        loss_err = state_err = traj_err = map_err = 0.0
+        for train_net, over in (("segmentation_head",
+                                 dict(segment_in_step=True)),
+                                ("segmentation_bn",
+                                 dict(segment_in_step=True)),
+                                ("train", dict(segment_in_step=True,
+                                               segment_train_mode=True))):
+            params = get_params("sdd_shortterm_train.yaml", dict(
+                SEG_SMALL, train_net=train_net, segmentation_model_fp=seg))
+            mcfg = ynet_config(params)
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                weights, state = init_ynet(torch.Generator().manual_seed(0),
+                                           mcfg, dev)
+                weights["segmentation"] = seg_lib.load_params(seg, dev)
+                if over.get("segment_train_mode"):
+                    state = {"segmentation_bn": extract_bn_stats(
+                        weights["segmentation"])}
+                setup = setup_training(weights, params, steps_per_epoch=1)
+                step = make_train_step(mcfg, step_config(params, **over))
+                b = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+                     for k, v in batch.items()}
+                losses = []
+                for _ in range(3):
+                    state, m = step(weights, state, setup["optimizer"],
+                                    setup["scheduler"], b)
+                    losses.append([float(m[k]) for k in LOSS_KEYS])
+                runs[dev] = (weights, state, b, losses)
+            (_, s_gpu, b_gpu, l_gpu), (w_cpu, s_cpu, b_cpu, l_cpu) = \
+                runs["cuda"], runs["cpu"]
+            rel = max(abs(a - c) / abs(c) for ra, rc in zip(l_gpu, l_cpu)
+                      for a, c in zip(ra, rc))
+            st_gpu, st_cpu = (io.state_to_numpy(s) for s in (s_gpu, s_cpu))
+            check(st_gpu.keys() == st_cpu.keys() and bool(st_cpu) == (
+                train_net == "train"), f"{train_net}: the state's leaves")
+            st = max([float(np.abs(st_gpu[k] - v).max()
+                            / max(np.abs(v).max(), 1e-12))
+                      for k, v in st_cpu.items()] + [0.0])
+            print(f"small-width {train_net} (backbone in the step"
+                  f"{', train mode' if st_cpu else ''}): losses card "
+                  f"{l_gpu[-1]}, cpu {l_cpu[-1]} (step 2); max relative "
+                  f"|card - cpu| loss {rel:.3e}, state {st:.3e} "
+                  f"({len(st_cpu)} leaves)")
+            loss_err, state_err = max(loss_err, rel), max(state_err, st)
+
+        # one eval batch with the backbone in the step: the CPU's weights
+        es = make_eval_step(mcfg, step_config(params, segment_in_step=True))
+        w_gpu = tree_map(lambda t: t.detach().cuda(), w_cpu)
+        with torch.no_grad():
+            feats, wps = es.forward(w_gpu, {}, b_gpu, torch.Generator(
+                device="cuda").manual_seed(0))
+            got = es.decode_trajs(w_gpu, feats, wps).cpu()
+            feats_cpu, _ = es.forward(w_cpu, {}, b_cpu, torch.Generator())
+            want = es.decode_trajs(w_cpu, feats_cpu, wps.cpu())
+        check(bool(torch.isfinite(got).all()), "segmented eval: non-finite")
+        traj_err = float((got - want).abs().max())
+        print(f"small-width eval batch, backbone in the step: max |card - "
+              f"cpu| trajectory {traj_err:.3e} model px")
+
+        # use_features_only: 16 channels into the Y-Net
+        params = get_params("sdd_shortterm_train.yaml", dict(
+            SEG_SMALL, use_features_only=True, segmentation_model_fp=seg))
+        mcfg = ynet_config(params)
+        check(mcfg.n_semantic_classes == 16, "use_features_only: not 16")
+        scfg = step_config(params, segment_in_step=True)
+        outs = {}
+        for dev, b in (("cuda", b_gpu), ("cpu", b_cpu)):
+            weights, _ = init_ynet(torch.Generator().manual_seed(0), mcfg,
+                                   dev)
+            weights["segmentation"] = seg_lib.load_params(seg, dev)
+            with torch.no_grad():
+                sem, obs, _ = _prepare_inputs(mcfg, scfg, weights,
+                                              b["semantic"], b["traj"])
+                f, _ = pred_features(weights, {}, mcfg, sem, obs)
+                outs[dev] = (sem.cpu(), pred_goal(weights, f).cpu())
+        for name, a, c in zip(("features", "goal logits"), outs["cuda"],
+                              outs["cpu"]):
+            e = float((a - c).abs().max() / c.abs().max())
+            print(f"small-width use_features_only: {name} {tuple(c.shape)}"
+                  f", max |card - cpu| / max = {e:.3e}")
+            map_err = max(map_err, e)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return loss_err, state_err, traj_err, map_err
+
+
+def trace_backbone_share(torch, label, fn, backbone="segmentation backbone"):
+    """fn() under torch.profiler, the backbone inside a record_function
+    range named `backbone`: the kernel time, the share of it launched
+    inside the range, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type == cuda
+               and e.key != backbone]
+    if not kernels:
+        print("profiler: no device time recorded (the backbone's share not "
+              "measured)")
+        return
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    seg_ms = sum(e.device_time_total for e in events
+                 if e.key == backbone and e.device_type != cuda) / 1e3
+    span_ms = sum(e.self_device_time_total for e in events
+                  if e.key == backbone and e.device_type == cuda) / 1e3
+    print(f"profiler: {busy_ms:.2f} ms of kernels in a {wall_ms:.1f} ms "
+          f"traced {label} (device busy {100 * busy_ms / wall_ms:.0f}%); "
+          f"launched inside the backbone's range {seg_ms:.2f} ms "
+          f"({100 * seg_ms / busy_ms:.1f}%), the range's span on the device "
+          f"{span_ms:.2f} ms")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}")
+
+
+def segmentation_path(torch, wrappers, card, rows_rec, fused_rec):
+    """Phase 9's full-width part. The full ResNet101 U-Net (random weights
+    from seed 0, batch norms moved and their statistics calibrated on the
+    other scene: moved_backbone) written as data/sdd/sdd_segmentation.npz
+    under a temporary working directory, where the shipped configs'
+    data_dir ('data/') finds it; phase 6c's synthetic RGB scenes (1408 x
+    1920 -> 352 x 480). The backbone alone: one scene card against CPU,
+    CUDA-event ms beside its bound, peak memory. Then, with every kernel's
+    count set to 0 before and read after: sdd_shortterm_eval.yaml (6
+    classes) with TTST on, a 2-round test (the backbone once a scene);
+    SEG_STEPS segmentation_head steps (the head moves, every other leaf
+    stays); a 2-epoch train run with e_unfreeze 1 (the backbone's
+    statistics adapt, its parameters stay); `python -m mst_tpu_torch.serve
+    export --segment_in_step` of that run's checkpoint, whose LoadedModel
+    answers one request on the raw scene as a Predictor does on the
+    segmented map. Then each serving kernel against its plain version on
+    the path's own operands, and a trace of one segmented test batch. ->
+    {kernel name: launches on the path}."""
+    import numpy as np
+    from torch.profiler import record_function
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mst_tpu_torch import io, serve
+    from mst_tpu_torch.config import get_params, step_config
+    from mst_tpu_torch.data import images as images_lib
+    from mst_tpu_torch.data import splits
+    from mst_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mst_tpu_torch.models import segmentation as seg_lib
+    from mst_tpu_torch.models.unet import extract_bn_stats, unet_apply
+    from mst_tpu_torch.probes import time_ms
+    from mst_tpu_torch.train.steps import make_eval_step, make_train_step
+    from mst_tpu_torch.train.trainer import Experiment, setup_training
+
+    cwd = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="mst_seg_")
+    try:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(tmp, "data", "sdd"))
+        seg_fp = os.path.join(tmp, "data", "sdd", "sdd_segmentation.npz")
+        tracks, raw = make_synthetic_dataset(
+            seed=0, n_scenes=2, n_traj=LOOP_TRACKS, img_hw=LOOP_SCENE_HW)
+        np.random.seed(0)
+        train, val, test = splits.dataset_split_by_ratio(tracks, 16, 16,
+                                                         shuffle=True)
+        scenes = images_lib.preprocess_scene_images(raw, 0.25, 32)
+        scene = scenes["synth_0"][None]
+        # the statistics of the other scene's activations
+        flat = moved_backbone(torch, (3, 4, 23, 3), 0,
+                              calibrate=scenes["synth_1"][None])
+        np.savez(seg_fp, **flat)
+        del flat
+        os.chdir(tmp)
+        H, W = scene.shape[1:3]
+        print(f"segmentation: backbone file written, data made in "
+              f"{time.perf_counter() - t0:.1f} s; scene {scene.shape}")
+
+        # ---- the backbone alone, card against CPU, timed
+        bb = seg_lib.load_params(seg_fp, "cuda")
+        bb_cpu = seg_lib.load_params(seg_fp, "cpu")
+        img = torch.tensor(scene, device="cuda")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bb64 = io.unflatten({k: v.double() if v.is_floating_point() else v
+                             for k, v in io.flatten(bb_cpu).items()})
+        with torch.no_grad():
+            with FlopCounterMode(display=False) as fc:
+                probs = unet_apply(bb, img)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            t = time.perf_counter()
+            want = unet_apply(bb_cpu, torch.tensor(scene)).double()
+            cpu_s = time.perf_counter() - t
+            exact = unet_apply(bb64, torch.tensor(scene).double())
+        got = probs.cpu().double()
+        errs = {name: float((a - b).abs().max()) for name, a, b in (
+            ("card - cpu", got, want), ("card - f64", got, exact),
+            ("cpu - f64", want, exact))}
+        agree = {name: 100 * float((a.argmax(-1) == b.argmax(-1))
+                                   .double().mean())
+                 for name, a, b in (("card - cpu", got, want),
+                                    ("card - f64", got, exact))}
+        tol = max(SEG_TOL, 2 * errs["cpu - f64"])
+        print(f"backbone (ResNet101 U-Net, {len(io.flatten(bb))} leaves) on "
+              f"{tuple(scene.shape)}: probabilities {tuple(got.shape)}; max "
+              + ", ".join(f"|{k}| = {v:.3e}" for k, v in errs.items())
+              + f" (the card's tol {tol:.3e}); argmax agreement "
+              + ", ".join(f"{k} {v:.4f}%" for k, v in agree.items())
+              + f" of pixels; rows sum to 1 within "
+              f"{float((got.sum(-1) - 1).abs().max()):.2e}; cpu f32 forward "
+              f"{cpu_s:.2f} s")
+        check(errs["card - f64"] <= tol, "the backbone on the card is "
+              "further from float64 than the CPU's f32 allows")
+        del bb64, exact
+        flops = fc.get_total_flops()
+        nbytes = (sum(v.numel() * v.element_size()
+                      for v in io.flatten(bb).values())
+                  + img.numel() * 4 + probs.numel() * 4)
+        b_ms, by = bound(nbytes, flops)
+        with torch.no_grad():
+            ms = time_ms(lambda: unet_apply(bb, img), 10)
+        print(f"backbone forward ({card}): {ms:.3f} ms (CUDA events, 10 "
+              f"calls after 2 warm-ups); bound {b_ms:.3f} ms ({by}: "
+              f"{flops / 1e9:.2f} GFLOP at {F32_FLOP_PER_S / 1e12:.0f} "
+              f"TFLOP/s f32, {nbytes / 2**20:.1f} MiB); {100 * b_ms / ms:.1f}%"
+              f" of the bound; peak device memory over the forward "
+              f"{peak / 2**30:.3f} GiB beyond the {before / 2**30:.3f} GiB "
+              f"held")
+        print_trace(torch, "backbone forward", lambda: (
+            unet_apply(bb, img), torch.cuda.synchronize()), conv_ops=6)
+        del bb_cpu, probs, got, want
+
+        # ---- the path, counted
+        base = dict(seed=0, batch_size=LOOP_B, dataset_path="synth",
+                    ckpt_path=os.path.join(tmp, "ckpts"))
+        test_params = get_params("sdd_shortterm_eval.yaml", dict(
+            base, use_TTST=True, n_round=2))
+        check(os.path.samefile(test_params["segmentation_model_fp"], seg_fp),
+              "the shipped config does not name the backbone file")
+        t = time.perf_counter()
+        tested = Experiment(test_params, images=raw)
+        load_s = time.perf_counter() - t
+        check(tested.mcfg.segmentation == "unet"
+              and tested.mcfg.n_semantic_classes == 6,
+              "the shipped config does not take the backbone's 6 classes")
+        n = {name: len(tested.prepare_data(tr, None, "val"))
+             for name, tr in (("train", train), ("val", val),
+                              ("test", test))}
+        n_test_scenes = len(test.scene_ids())
+        want = dict.fromkeys(wrappers, 0)
+        want["softargmax_rows"] = (2 * n["test"] + 2 * SEG_STEPS
+                                   + 2 * 2 * n["train"])
+        want["fused_predict"] = 2 * n["test"] + 2 * n["val"] + 2
+        print(f"segmentation path batches {n}; expected launches {want}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+
+        # a 2-round TTST test: the backbone once a scene
+        t = time.perf_counter()
+        ade, fde, rounds, _ = tested.test(test, None)
+        test_s = time.perf_counter() - t
+        print(f"TTST test, 2 rounds ({n['test']} batches a round): "
+              f"{test_s:.2f} s ({1e3 * test_s / (2 * n['test']):.1f} ms a "
+              f"batch), ADE/FDE {ade:.3f} / {fde:.3f}; the backbone ran "
+              f"{tested.n_segmented} times for {n_test_scenes} scenes; the "
+              f"Experiment with its backbone built in {load_s:.2f} s")
+        check(tested.n_segmented == n_test_scenes,
+              "the test segmented a scene more than once")
+        check(all(np.isfinite(m["ade"]).all() and len(m["ade"]) == 16
+                  for m in rounds), "test rows not finite or not 16 a round")
+
+        # segmentation_head steps: the backbone in the step
+        head = Experiment(get_params("sdd_shortterm_train.yaml", dict(
+            base, train_net="segmentation_head", lr=1e-3)), images=raw)
+        setup = setup_training(head.model_params, head.params, 1)
+        step = make_train_step(head.mcfg, step_config(
+            head.params, segment_in_step=True))
+        b0, db = head._device_batches(head.prepare_data(train, None,
+                                                        "val"))[0]
+        batch = {"semantic": db["image"], "traj": db["traj"],
+                 "mask": db["mask"]}
+        leaves = io.flatten(head.model_params)
+        trained = sorted(k for k, v in leaves.items() if v.requires_grad)
+        check(trained == ["segmentation/segmentation_head/0/bias",
+                          "segmentation/segmentation_head/0/weight"],
+              f"segmentation_head trains {trained}")
+        before = {k: v.detach().clone() for k, v in leaves.items()}
+        state, step_ms = {}, []
+        for i in range(SEG_STEPS):
+            t = time.perf_counter()
+            state, m = step(head.model_params, state, setup["optimizer"],
+                            setup["scheduler"], batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            vals = {k: float(v) for k, v in m.items()}
+            print(f"segmentation_head step {i}: {step_ms[-1]:.1f} ms, "
+                  + ", ".join(f"{k} {v:.6f}" for k, v in vals.items()))
+            check(all(np.isfinite(v) for v in vals.values()),
+                  f"segmentation_head step {i}: non-finite metrics")
+        for k, v in leaves.items():
+            moved = not torch.equal(v, before[k])
+            check(moved == (k in trained),
+                  f"segmentation_head: {k} {'moved' if moved else 'stayed'}")
+        step_peak = torch.cuda.max_memory_allocated()
+        del before
+
+        # two epochs across e_unfreeze
+        t = time.perf_counter()
+        unfrozen = Experiment(get_params("sdd_shortterm_train.yaml", dict(
+            base, n_epoch=2, e_unfreeze=1, lr=1e-4)), images=raw)
+        inline = extract_bn_stats(unfrozen.model_params["segmentation"])
+        backbone0 = {k: v.clone() for k, v in io.flatten(
+            unfrozen.model_params["segmentation"]).items()}
+        unfrozen.train(train, val, None, None, "unfreeze")
+        unfreeze_s = time.perf_counter() - t
+        adapted = io.flatten(unfrozen.model_state["segmentation_bn"])
+        inline = io.flatten(inline)
+        check(adapted.keys() == inline.keys() and len(adapted) == 2 * 114,
+              f"segmentation_bn holds {len(adapted)} leaves")
+        move = max(float((adapted[k] - v).abs().max()) for k, v in
+                   inline.items())
+        check(all(not torch.equal(adapted[k], v) for k, v in inline.items()),
+              "a batch norm's statistics did not adapt past e_unfreeze")
+        check(all(torch.equal(v, backbone0[k]) for k, v in io.flatten(
+            unfrozen.model_params["segmentation"]).items()),
+              "the backbone's parameters moved past e_unfreeze")
+        for r in unfrozen.epoch_log:
+            check(np.isfinite(r["loss"]), f"e_unfreeze epoch {r['epoch']}")
+            print(f"e_unfreeze run epoch {r['epoch']}: loss {r['loss']:.4f}"
+                  f", {r['n_steps']} steps {r['steps_seconds']:.3f} s "
+                  f"({1e3 * r['steps_seconds'] / r['n_steps']:.1f} ms a "
+                  f"step), validation {r['val_seconds']:.3f} s")
+        print(f"e_unfreeze run: {unfreeze_s:.2f} s; 114 batch norms "
+              f"adapted (max move {move:.4f}), the backbone's parameters "
+              f"unchanged; scenes segmented {unfrozen.n_segmented}")
+
+        # export --segment_in_step of that run's checkpoint, then one
+        # request each
+        ckpt = os.path.join(tmp, "ckpts", "unfreeze.npz")
+        mdir = os.path.join(tmp, "model")
+        argv = sys.argv
+        sys.argv = ["mst_tpu_torch.serve", "export", "--config_filename",
+                    "sdd_shortterm_eval.yaml", "--pretrained_ckpt", ckpt,
+                    "--out_dir", mdir, "--height", str(H), "--width",
+                    str(W), "--batch_size", str(LOOP_B),
+                    "--segment_in_step"]
+        t = time.perf_counter()
+        try:
+            serve._main()
+        finally:
+            sys.argv = argv
+        export_s = time.perf_counter() - t
+        t = time.perf_counter()
+        model = serve.LoadedModel(mdir)
+        print(f"export {export_s:.2f} s, LoadedModel "
+              f"{time.perf_counter() - t:.2f} s")
+        check(model.manifest["semantic_shape"] == [1, H, W, 3]
+              and model.scfg.segment_in_step,
+              "the exported directory does not take the raw scene")
+        pred = serve.Predictor(get_params("sdd_shortterm_eval.yaml", base),
+                               ckpt, seed=0)
+        observed = b0.trajectories[:, :8]
+        got = model.predict(scene, observed, seed=0)
+        with torch.no_grad():
+            sem = unet_apply(pred.params["segmentation"],
+                             torch.tensor(scene, device="cuda"))
+        ref = pred.predict(sem, observed, seed=0)
+        diff = max(float(np.abs(got[k] - ref[k]).max()) for k in got)
+        print(f"export --segment_in_step: LoadedModel on the raw scene vs "
+              f"Predictor on the segmented map, same seed: max |difference|"
+              f" = {diff:.3e} raw px (tol {DEPLOY_TOL})")
+        check(diff <= DEPLOY_TOL, "the segment_in_step directory disagrees")
+        check_in_image("segment_in_step request", got["trajectories"], H, W,
+                       0.25)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        path_peak = torch.cuda.max_memory_allocated()
+        print(f"segmentation path launches: {launches}")
+        check(launches == want, f"the segmentation path launched "
+              f"{launches}, the code gives {want}")
+        print(f"segmentation path ({card}): segmentation_head steps "
+              f"{[round(s, 1) for s in step_ms]} ms; peak device memory "
+              f"{step_peak / 2**30:.2f} GiB to the steps, "
+              f"{path_peak / 2**30:.2f} GiB after them")
+
+        # ---- each serving kernel on the path's own operands, then where
+        # a segmentation_head step's time goes
+        check_rows_on_path(torch, "segmentation_head", step,
+                           head.model_params, {}, batch, rows_rec)
+        print_trace(torch, "segmentation_head step", lambda: (
+            step(head.model_params, state, setup["optimizer"],
+                 setup["scheduler"], batch), torch.cuda.synchronize()),
+            conv_ops=6)
+        err = check_path_tail(torch, model, scene, observed, seed=0)
+        fused_rec["max_abs_err"] = max(fused_rec["max_abs_err"], err)
+
+        # ---- where a segmented test batch's time goes
+        es = make_eval_step(tested.mcfg, step_config(tested.params))
+        items = tested._device_batches(tested.prepare_data(test, None,
+                                                           "test"))
+        b1, db1 = items[0]
+
+        def segmented_batch():
+            with torch.no_grad():
+                with record_function("segmentation backbone"):
+                    sem = seg_lib.apply(tested.model_params["segmentation"],
+                                        db1["image"])
+                es(tested.model_params, tested.model_state,
+                   {"semantic": sem, "traj": db1["traj"],
+                    "mask": db1["mask"]},
+                   torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+
+        segmented_batch()
+        trace_backbone_share(torch, "segmented TTST test batch",
+                             segmented_batch)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -2023,15 +2561,34 @@ def main():
                                      semantic, observed, delta)
     print(f"deploy phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 9. the segmentation backbone: card against CPU at small width,
+    # then the ResNet101 U-Net at SDD width on the shipped configs' paths
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loss_err, state_err, traj_err, map_err = \
+        small_segmentation_reference(torch)
+    print(f"small-width segmentation: max relative |card - cpu| loss = "
+          f"{loss_err:.3e} (tol {TRAIN_TOL}), state {state_err:.3e} (tol "
+          f"{STATE_TOL}), eval trajectories {traj_err:.3e} model px (tol "
+          f"{FUSED_TOL}), features and logits {map_err:.3e} (tol "
+          f"{SEG_MAP_TOL})")
+    check(loss_err <= TRAIN_TOL and state_err <= STATE_TOL
+          and traj_err <= FUSED_TOL and map_err <= SEG_MAP_TOL,
+          "a segmentation path on the card disagrees with the CPU")
+    seg_launches = segmentation_path(torch, kernel_wrappers(), card,
+                                     rows_rec, fused_rec)
+    print(f"segmentation phase: {time.perf_counter() - t0:.1f} s")
+
     for r in records:
         r["train_launches"] = train_launches[r["name"]]
         r["loop_launches"] = loop_launches[r["name"]]
         r["ymod_launches"] = ymod_launches[r["name"]]
         r["serve_launches"] = serve_launches[r["name"]]
+        r["seg_launches"] = seg_launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "train_launches", "loop_launches", "ymod_launches",
-            "serve_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "serve_launches", "seg_launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ non-default value instead of being dropped: the model and step flags from
 ynet_config and step_config (_check_ported), the loop's flags from the
 Experiment (check_loop_ported). --seg_cache_device_mb and
 --max_scenes_per_batch size TPU-side caches and batches and are accepted
-and unused.
+and unused. The segmentation backbone is used when its weight file exists
+(has_backbone).
 """
 
 import argparse
@@ -193,9 +194,8 @@ def has_backbone(params: dict) -> bool:
 
 def _check_ported(params: dict):
     """Raise on a flag that mst_tpu acts on and the port does not yet: bf16
-    compute (trainer.py:348-349), ETH world-coordinate metrics
-    (trainer.py:346-347) and a segmentation backbone (mst_tpu/config.py:
-    184-190, with or without use_features_only)."""
+    compute (trainer.py:348-349) and ETH world-coordinate metrics
+    (trainer.py:346-347)."""
     dtype = params.get("compute_dtype")
     if dtype is not None and str(dtype).lower() not in ("float32", "f32"):
         raise NotImplementedError(
@@ -205,11 +205,6 @@ def _check_ported(params: dict):
         raise NotImplementedError(
             "eth_world_coords: ETH world-coordinate metrics are not ported "
             "yet")
-    if has_backbone(params):
-        raise NotImplementedError(
-            f"segmentation_model_fp={params['segmentation_model_fp']!r} "
-            "exists: the segmentation backbone (and its use_features_only "
-            "mode) is not ported yet")
 
 
 # the Experiment loop's flags the port does not act on yet, and the value
@@ -235,13 +230,18 @@ def check_loop_ported(params: dict):
 
 
 def ynet_config(params: dict) -> YNetConfig:
-    """The model config of a flat params dict (identity segmentation: the
-    semantic input is the scene image or the segmented map)."""
+    """The model config of a flat params dict (mst_tpu/config.py:182-204):
+    segmentation 'unet' when the backbone's file exists, else None (the
+    identity backbone); with the backbone, use_features_only feeds its 16
+    decoder channels to the Y-Net in place of the classes."""
     _check_ported(params)
+    backbone = has_backbone(params)
+    features_only = bool(params.get("use_features_only", False))
     return YNetConfig(
         obs_len=params["obs_len"],
         pred_len=params["pred_len"],
-        n_semantic_classes=params["n_semantic_classes"],
+        n_semantic_classes=(16 if features_only and backbone
+                            else params["n_semantic_classes"]),
         encoder_channels=tuple(params["encoder_channels"]),
         decoder_channels=tuple(params["decoder_channels"]),
         waypoints=tuple(params["waypoints"]),
@@ -249,6 +249,8 @@ def ynet_config(params: dict) -> YNetConfig:
         position=tuple(params.get("position", ()) or ()),
         network=params.get("network") or "original",
         n_fusion=params.get("n_fusion"),
+        use_features_only=features_only,
+        segmentation="unet" if backbone else None,
     )
 
 
@@ -257,7 +259,9 @@ def step_config(params: dict, for_validation: bool = False,
     """The step config of a flat params dict (as
     mst_tpu.train.trainer.Experiment._step_config builds it).
     for_validation turns TTST off and passes use_CWS through, as the
-    reference's per-epoch validation does (trainer.py:314-317)."""
+    reference's per-epoch validation does (trainer.py:314-317). The
+    backbone's step fields (segment_in_step, segment_train_mode) come as
+    overrides; use_features_only is the config's."""
     _check_ported(params)
     cws = params.get("CWS_params")
     scfg = StepConfig(
@@ -277,6 +281,7 @@ def step_config(params: dict, for_validation: bool = False,
         kernlen=int(params["kernlen"]), nsig=float(params["nsig"]),
         loss_scale=float(params["loss_scale"]),
         swap_semantic=bool(params["swap_semantic"]),
+        use_features_only=bool(params.get("use_features_only", False)),
     )
     return scfg._replace(**overrides)
 

@@ -9,8 +9,8 @@ K-sample trajectory decode with the encoder terms hoisted out of the K
 axis. Parameters are a nested dict of tensors with the JAX package's names
 (io.params_from_numpy converts its checkpoints); convs are OIHW. The model
 state is a second such tree: the serial adapters' batch-norm running
-statistics. The segmentation backbone is not ported yet (config.py
-raises on it).
+statistics. The segmentation backbone is models/unet.py; its output is
+the semantic map (the steps run it, train/steps.py).
 """
 
 import dataclasses
@@ -34,6 +34,8 @@ class YNetConfig:
     position: Sequence[str] = ()
     network: str = "original"  # original | embed | fusion
     n_fusion: Optional[int] = None
+    use_features_only: bool = False
+    segmentation: Optional[str] = None  # None -> identity backbone
 
     def __post_init__(self):
         for name in ("encoder_channels", "decoder_channels", "waypoints"):

@@ -13,7 +13,8 @@ mst_tpu's LRU cap on the resident styles.
     model_dir/
       manifest.json  input shapes, protocol constants, the device exported
                      for, and `config`: the flat params dict
-      params.npz     every parameter, in mst_tpu's flat-key HWIO layout
+      params.npz     every parameter, in mst_tpu's flat-key HWIO layout,
+                     the segmentation backbone's ('segmentation/...') too
       state.npz      the model state (batch-norm running statistics), may
                      be empty
 
@@ -33,6 +34,12 @@ its state loaded (`state=`, or a model directory's state.npz): otherwise
 weights trained with running statistics would be served with init_ynet's,
 and Predictor raises NotImplementedError. Styles share the base's state.
 
+With a segmentation backbone (the config's segmentation_model_fp exists,
+or a model directory's params.npz holds it) a request's semantic input is
+the segmented map; with segment_in_step (`export_model(...,
+segment_in_step=True)`) it is the preprocessed RGB scene and the backbone
+runs inside the predict step.
+
     python -m mst_tpu_torch.serve export|check|serve ...
 
 takes mst_tpu's flags, plus --device (cuda, which must exist, or cpu) in
@@ -50,6 +57,7 @@ import torch
 
 from mst_tpu_torch import io, resolve_device
 from mst_tpu_torch.config import step_config, ynet_config
+from mst_tpu_torch.models import segmentation as seg_lib
 from mst_tpu_torch.models.ynet import init_ynet, is_adapter_leaf
 from mst_tpu_torch.train.steps import make_predict_step
 
@@ -67,11 +75,13 @@ def _load_base(init, path, adapters_optional=True):
     missing: a base model trained without them keeps the init's until a
     style delta brings them, as the reference's fine-tune flow does. The
     embed network's and the fusion encoder's weights are the base model's
-    own and are required."""
+    own and are required. The backbone's may be missing: a whole-model
+    checkpoint leaves them out, and they come from their own file."""
     ckpt = io.params_from_numpy(io.load_checkpoint(path))
     missing = sorted(k for k in io.flatten(init).keys()
                      - io.flatten(ckpt).keys()
-                     if not (adapters_optional and is_adapter_leaf(k)))
+                     if not (adapters_optional and is_adapter_leaf(k))
+                     and not k.startswith("segmentation/"))
     if missing:
         raise KeyError(f"checkpoint {path} lacks {len(missing)} parameters "
                        f"of the model, e.g. {missing[:3]}")
@@ -117,6 +127,9 @@ class Predictor:
         self.scfg = step_config(params, **step_overrides)
         weights, self.state = init_ynet(torch.Generator().manual_seed(seed),
                                         self.mcfg, self.device)
+        if self.mcfg.segmentation:
+            weights["segmentation"] = seg_lib.load_params(
+                params["segmentation_model_fp"], self.device)
         self._state_loaded = state is not None
         if state is not None:
             flat = io.load_checkpoint(state)
@@ -124,7 +137,16 @@ class Predictor:
             if missing:
                 raise KeyError(f"state {state} lacks {len(missing)} leaves "
                                f"of the model state, e.g. {missing[:3]}")
-            self.state = _overlay_npz(self.state, flat, "state")
+            # the backbone's adapted statistics (e_unfreeze) are the
+            # file's own: the init state has none to check them against
+            seg_bn = {k: v for k, v in flat.items()
+                      if k.startswith("segmentation_bn/")}
+            self.state = _overlay_npz(
+                self.state, {k: v for k, v in flat.items()
+                             if k not in seg_bn}, "state")
+            if seg_bn:
+                self.state = {**self.state, **io.state_from_numpy(
+                    seg_bn, self.device)}
         if checkpoint is not None:
             self._refuse_trained_weights("a checkpoint")
             weights = _load_base(weights, checkpoint,
@@ -241,17 +263,15 @@ def export_model(experiment, out_dir, height, width, batch_size,
         division factor (2^n_stages), which preprocessing pads to.
       batch_size: trajectories per predict call (the daemon's B).
       semantic_channels: channels of the semantic input; defaults to
-        n_semantic_classes.
-      segment_in_step: the segmentation backbone inside the step; not
-        ported (NotImplementedError).
+        n_semantic_classes, or 3 with segment_in_step.
+      segment_in_step: the input is the preprocessed RGB scene and the
+        segmentation backbone (which params.npz holds, as it holds it
+        whenever the experiment has one) runs inside the predict step.
       eval_k_chunk: overrides the config's K-chunking of the decode.
 
     Returns the manifest dict: mst_tpu's fields (format FORMAT, and
     `platforms` the device type exported for), and `config`.
     """
-    if segment_in_step:
-        raise NotImplementedError(
-            "segment_in_step: the segmentation backbone is not ported yet")
     p = experiment.params
     div = experiment.division_factor
     if height % div or width % div:
@@ -261,8 +281,10 @@ def export_model(experiment, out_dir, height, width, batch_size,
     if eval_k_chunk is not None:
         config["eval_k_chunk"] = int(eval_k_chunk)
     step_config(config)  # raises on a flag the port does not serve
-    sem_c = (int(p["n_semantic_classes"]) if semantic_channels is None
-             else semantic_channels)
+    if semantic_channels is not None:
+        sem_c = semantic_channels
+    else:
+        sem_c = 3 if segment_in_step else int(p["n_semantic_classes"])
 
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -283,7 +305,7 @@ def export_model(experiment, out_dir, height, width, batch_size,
         "use_TTST": bool(p.get("use_TTST", False)),
         "use_CWS": bool(p.get("use_CWS", False)),
         "compute_dtype": str(p.get("compute_dtype", "float32")),
-        "segment_in_step": False,
+        "segment_in_step": bool(segment_in_step),
         "network": p.get("network", "original"),
         "train_net": p.get("train_net"),
         "files": {"params": _PARAMS_FILE, "state": _STATE_FILE},
@@ -302,7 +324,10 @@ class LoadedModel(Predictor):
     cap max_styles, predict with block=False); `manifest` is the dict
     export_model wrote. params.npz must hold every parameter, the adapter
     leaves too, as export_model writes it and as mst_tpu's exported
-    program takes them."""
+    program takes them. The backbone comes from params.npz when it holds
+    one (in place of the config's segmentation_model_fp), and a
+    directory exported with segment_in_step runs it in the predict
+    step."""
 
     _adapters_optional = False
 
@@ -315,8 +340,15 @@ class LoadedModel(Predictor):
                 f"{d} holds format {manifest.get('format')!r}, not "
                 f"{FORMAT!r}: export it with mst_tpu_torch.serve")
         files = manifest["files"]
-        super().__init__(manifest["config"], d / files["params"],
-                         device=device, state=d / files["state"])
+        config = dict(manifest["config"])
+        with np.load(d / files["params"]) as z:
+            has_backbone = any(k.startswith("segmentation/")
+                               for k in z.files)
+        config["segmentation_model_fp"] = (str(d / files["params"])
+                                           if has_backbone else None)
+        super().__init__(config, d / files["params"], device=device,
+                         state=d / files["state"],
+                         segment_in_step=bool(manifest["segment_in_step"]))
         self.manifest = manifest
 
 

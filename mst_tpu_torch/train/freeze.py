@@ -7,12 +7,13 @@ one parameter tree: `set_trainable` marks the predicate's leaves
 requires_grad and returns them for the optimizer; the other leaves are
 frozen (requires_grad False), so autograd computes no gradient for them.
 
-Ported strategies: every one of mst_tpu's but the segmentation
-backbone's: 'train'/'all', 'encoder' (with or without position levels),
-'serial*'/'parallel*' (the adapters), 'mosa_<r>', 'semantic_<k>x<k>', the
-Y-Net-Mod branch sets ('scene', ..., 'scene_motion_fusion', with
-network='fusion'), 'biasEncoder'/'biasGoal'/'biasTraj'/'bias', and the
-additive ynet_bias flag. 'segmentation_*' raises NotImplementedError.
+Every strategy of mst_tpu's: 'train'/'all', 'encoder' (with or without
+position levels), 'serial*'/'parallel*' (the adapters), 'mosa_<r>',
+'semantic_<k>x<k>', the Y-Net-Mod branch sets ('scene', ...,
+'scene_motion_fusion', with network='fusion'),
+'biasEncoder'/'biasGoal'/'biasTraj'/'bias', the backbone's
+'segmentation_{head,bias,bn,<layer>}', and the additive ynet_bias flag.
+The backbone ('segmentation/...') is frozen under every other strategy.
 """
 
 import re
@@ -70,9 +71,16 @@ def _base_predicate(train_net, position, network):
         prefixes = _BIAS_PREFIXES[train_net]
         return lambda p: p.endswith("/bias") and p.startswith(prefixes)
     if train_net.startswith("segmentation"):
-        raise NotImplementedError(
-            f"train_net={train_net!r}: the segmentation backbone is not "
-            "ported yet")
+        # mst_tpu's rule with its quirks (freeze.py:90-96): head, bias and
+        # bn match by substring, so 'bn' selects the encoder's bn1-bn3
+        # (their running statistics too) and not the decoder's; any other
+        # word is a decoder layer, 'decoder/blocks/<i>/<word>'
+        layer = train_net.split("_")[1]
+        if layer in ("head", "bias", "bn"):
+            return lambda p: p.startswith("segmentation/") and layer in p
+        pattern = re.compile(rf"decoder/blocks/\d+/{layer}")
+        return lambda p: (p.startswith("segmentation/")
+                          and pattern.search(p) is not None)
     raise NotImplementedError(
         f"train_net={train_net!r} is not a strategy of "
         f"network={network!r}")
@@ -85,8 +93,9 @@ def make_trainable_predicate(train_net: str, position=(),
     base = _base_predicate(train_net, [str(p) for p in position], network)
 
     def pred(p: str) -> bool:
-        if p.startswith("segmentation"):
-            return False  # the backbone is always frozen (trainer.py:113)
+        if p.startswith("segmentation") and \
+                not train_net.startswith("segmentation"):
+            return False  # the backbone is frozen (trainer.py:113)
         return base(p) or (ynet_bias and _is_ynet_bias(p))
 
     return pred

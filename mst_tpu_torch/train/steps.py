@@ -18,6 +18,7 @@ import torch
 
 from mst_tpu_torch.evaluator.metrics import ade_fde_per_sample
 from mst_tpu_torch.models import ynet as ynet_lib
+from mst_tpu_torch.models.unet import unet_apply
 from mst_tpu_torch.ops.heatmap import (rasterize_dist_nhwc,
                                        rasterize_gaussian_nhwc)
 from mst_tpu_torch.ops.kernels.fused_predict import \
@@ -57,6 +58,14 @@ class StepConfig(NamedTuple):
     nsig: float = 4.0  # and its sigma
     loss_scale: float = 1000.0
     swap_semantic: bool = False  # swap semantic channels 1 and 2
+    # the backbone inside the step: 'semantic' is then the preprocessed
+    # image (the segmentation_* strategies, e_unfreeze, a model directory
+    # exported with segment_in_step); otherwise it is the segmented map
+    segment_in_step: bool = False
+    # past e_unfreeze: the train step runs the backbone's batch norms on
+    # the batch's statistics and moves state['segmentation_bn']
+    segment_train_mode: bool = False
+    use_features_only: bool = False  # the backbone's 16 decoder channels
 
 
 def swap_pavement_terrain(semantic_img):
@@ -67,15 +76,32 @@ def swap_pavement_terrain(semantic_img):
     return semantic_img[..., perm]
 
 
-def _prepare_inputs(mcfg, scfg, params, semantic, traj):
+def _prepare_inputs(mcfg, scfg, params, semantic, traj, train=False,
+                    seg_bn_state=None):
     """semantic (1 or B, H, W, C) + traj (B, T, 2) -> (semantic through
     the semantic adapter, swapped if asked, broadcast to B; observed
-    distance maps (B, H, W, obs_len)), each through its embedding on the
-    embed network (mst_tpu/train/steps.py:157-175)."""
+    distance maps (B, H, W, obs_len); the backbone's batch-norm updates)
+    (mst_tpu/train/steps.py:125-175). With segment_in_step, semantic is
+    the preprocessed image and the backbone runs here first, with the
+    statistics of seg_bn_state where given; differentiably (the
+    segmentation_* strategies train its leaves), and in a train step past
+    e_unfreeze (segment_train_mode) on the batch's statistics, whose
+    running-statistic updates are returned (else {}). Each output goes
+    through its embedding on the embed network."""
     B = traj.shape[0]
     H, W = semantic.shape[-3], semantic.shape[-2]
-    semantic = ynet_lib.adapt_semantic(params, mcfg,
-                                       semantic.to(torch.float32))
+    semantic = semantic.to(torch.float32)
+    seg_updates = {}
+    if scfg.segment_in_step and "segmentation" in params:
+        if scfg.segment_train_mode and train:
+            semantic, seg_updates = unet_apply(
+                params["segmentation"], semantic, scfg.use_features_only,
+                bn_state=seg_bn_state, train=True)
+        else:
+            semantic = unet_apply(params["segmentation"], semantic,
+                                  scfg.use_features_only,
+                                  bn_state=seg_bn_state)
+    semantic = ynet_lib.adapt_semantic(params, mcfg, semantic)
     if scfg.swap_semantic:
         semantic = swap_pavement_terrain(semantic)
     if semantic.shape[0] != B:
@@ -85,7 +111,7 @@ def _prepare_inputs(mcfg, scfg, params, semantic, traj):
     if mcfg.network == "embed":
         semantic = ynet_lib.scene_embedding(params, semantic)
         observed_map = ynet_lib.motion_embedding(params, observed_map)
-    return semantic, observed_map
+    return semantic, observed_map, seg_updates
 
 
 def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
@@ -98,7 +124,10 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     gradients, backward, optimizer.step(), scheduler.step(). state is the
     model state (init_ynet's); the encoder runs in train mode, so the
     batch norms normalise with the batch's statistics and the new state
-    holds their moved running statistics. This replaces the JAX
+    holds their moved running statistics; with segment_in_step the
+    backbone runs first (_prepare_inputs), and with segment_train_mode
+    its moved statistics are the new state's 'segmentation_bn'. This
+    replaces the JAX
     signature's functional (trainable, frozen, state, opt_state)
     threading. batch: 'semantic' (1 or B, H, W, C), 'traj' (B, obs_len +
     pred_len, 2) model-space pixels, 'mask' (B,). metrics: 'loss',
@@ -121,8 +150,9 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
         the maps are (B, H, W, pred_len)."""
         traj, mask = batch["traj"], batch["mask"]
         H, W = batch["semantic"].shape[-3], batch["semantic"].shape[-2]
-        semantic, observed_map = _prepare_inputs(mcfg, scfg, params,
-                                                 batch["semantic"], traj)
+        semantic, observed_map, seg_updates = _prepare_inputs(
+            mcfg, scfg, params, batch["semantic"], traj, train=True,
+            seg_bn_state=state.get("segmentation_bn"))
         gt_future = traj[:, scfg.obs_len:]
         gt_future_map = rasterize_gaussian_nhwc(gt_future, H, W,
                                                 scfg.kernlen, scfg.nsig)
@@ -131,6 +161,8 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
         wp_pyramid = avg_pool_pyramid(gt_waypoint_map, n_levels)
         features, new_state = ynet_lib.pred_features(
             params, state, mcfg, semantic, observed_map, train=True)
+        if seg_updates:
+            new_state = {**new_state, "segmentation_bn": seg_updates}
         goal_map = ynet_lib.pred_goal(params, features)
         x, w, b = ynet_lib.make_shared_pred_traj(
             params, features, len(waypoints))(wp_pyramid)
@@ -210,8 +242,9 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
 
     def forward(params, state, batch, generator):
         traj = batch["traj"]
-        semantic, observed_map = _prepare_inputs(mcfg, scfg, params,
-                                                 batch["semantic"], traj)
+        semantic, observed_map, _ = _prepare_inputs(
+            mcfg, scfg, params, batch["semantic"], traj,
+            seg_bn_state=state.get("segmentation_bn"))
         features, _ = ynet_lib.pred_features(params, state, mcfg, semantic,
                                              observed_map)
         pred_goal_map = ynet_lib.pred_goal(params, features)  # (B,H,W,pred)

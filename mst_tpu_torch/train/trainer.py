@@ -11,9 +11,18 @@ Experiment keeps mst_tpu's policy: the per-epoch batch shuffle, the NaN
 guard, smooth-val with its lagging snapshot window, best tracking and the
 best-weights save when not fine-tuning, save_every_n saves, the fine-tune
 early stop and the roll back to the best snapshot. Not ported: the fused
-multi-epoch program, --resume, cross-scene batching, device meshes, the
-segmentation backbone, eth, and forward_test (config.check_loop_ported
-raises on the flags).
+multi-epoch program, --resume, cross-scene batching, device meshes, eth,
+and forward_test (config.check_loop_ported raises on the flags).
+
+The segmentation backbone (when its file exists) turns each scene's
+image into its semantic map once a pass and a cache (_semantic_for):
+one cache for the train epochs before e_unfreeze, one across validation
+epochs while the backbone cannot change, one across the test's rounds.
+The segmentation_* strategies run it inside the train step from the
+first epoch, and from epoch e_unfreeze every train step runs it with its
+batch norms on the batch's statistics, whose running statistics move in
+the state's 'segmentation_bn' (mst_tpu/train/trainer.py:181-200,
+697-735).
 
 The model state (the serial adapters' batch-norm running statistics) is
 self.model_state: the train steps thread it, it is assigned once an epoch
@@ -44,6 +53,8 @@ from mst_tpu_torch import io, resolve_device
 from mst_tpu_torch.data import images as images_lib
 from mst_tpu_torch.data import scenes as scenes_lib
 from mst_tpu_torch.evaluator.logs import MetricsLogger
+from mst_tpu_torch.models import segmentation as seg_lib
+from mst_tpu_torch.models.unet import extract_bn_stats
 from mst_tpu_torch.models.ynet import init_ynet
 from mst_tpu_torch.train import freeze
 from mst_tpu_torch.train.steps import make_eval_step, make_train_step
@@ -90,14 +101,18 @@ def setup_training(model_params, params_dict, steps_per_epoch: int):
 
 
 def save_params(path, model_params, params_dict):
-    """The whole model for 'train'/'all', else the strategy's trainable
-    leaves only (a delta: the leaves setup_training marked requires_grad),
-    as mst_tpu's Experiment.save_params writes it (trainer.py:88-101,
-    checkpoints.py:78-101): np.savez of the flat JAX layout at path, and
-    the metadata at path + '.json'."""
+    """The whole model but the segmentation backbone for 'train'/'all',
+    else the strategy's trainable leaves only (a delta: the leaves
+    setup_training marked requires_grad, the backbone's too under a
+    segmentation_* strategy), as mst_tpu's Experiment.save_params writes
+    it (trainer.py:88-101, checkpoints.py:78-101): np.savez of the flat
+    JAX layout at path, and the metadata at path + '.json'."""
     train_net = params_dict.get("train_net", "train")
     flat = io.flatten(model_params)
-    if train_net not in ("all", "train"):
+    if train_net in ("all", "train"):
+        flat = {k: v for k, v in flat.items()
+                if not k.startswith("segmentation")}
+    else:
         flat = {k: v for k, v in flat.items() if v.requires_grad}
         if not flat:
             raise ValueError(f"train_net={train_net!r}: no leaf requires "
@@ -135,6 +150,10 @@ class Experiment:
         self._images_override = images
         self.model_params, self.model_state = init_ynet(
             torch.Generator().manual_seed(self.seed), self.mcfg, self.device)
+        if self.mcfg.segmentation:
+            self.model_params["segmentation"] = seg_lib.load_params(
+                self.params["segmentation_model_fp"], self.device)
+        self.n_segmented = 0  # scene maps the backbone made (_semantic_for)
         self.val_ADE, self.val_FDE = [], []
         self.eval_ADE, self.eval_FDE = [], []
         self.epoch_log = []  # one record an epoch (see train)
@@ -187,26 +206,74 @@ class Experiment:
             shuffle=(mode == "train"), rng=rng)
 
     def _device_batches(self, batches):
-        """[(batch, its device batch)], each scene's semantic map uploaded
-        once: the identity backbone's map is the preprocessed image."""
-        semantic = {}
+        """[(batch, its device batch)], each scene's preprocessed image
+        (1, H, W, C) uploaded once as 'image'; _with_semantic adds the
+        semantic map."""
+        images = {}
         out = []
         for b in batches:
-            if b.scene_id not in semantic:
-                sem = torch.tensor(b.image[None], device=self.device)
-                if sem.shape[-1] != self.mcfg.n_semantic_classes:
-                    raise ValueError(
-                        f"semantic map for scene {b.scene_id!r} has "
-                        f"{sem.shape[-1]} channels but the model expects "
-                        f"n_semantic_classes={self.mcfg.n_semantic_classes}"
-                        " (the identity backbone passes the scene image: "
-                        "plain RGB scenes have 3)")
-                semantic[b.scene_id] = sem
+            if b.scene_id not in images:
+                images[b.scene_id] = torch.tensor(b.image[None],
+                                                  device=self.device)
             out.append((b, {
-                "semantic": semantic[b.scene_id],
+                "image": images[b.scene_id],
                 "traj": torch.tensor(b.trajectories, device=self.device),
                 "mask": torch.tensor(b.mask, device=self.device)}))
         return out
+
+    def _segment_in_step(self):
+        """The backbone runs inside every train step when a
+        segmentation_* strategy trains its leaves (trainer.py:181-189)."""
+        return "segmentation" in self.model_params and str(
+            self.params.get("train_net", "")).startswith("segmentation")
+
+    def _e_unfreeze(self):
+        """The epoch from which the train step runs the backbone with its
+        batch norms in train mode (reference train_epoch.py:27-48), or
+        None: no backbone, or e_unfreeze >= n_epoch (10000 in every
+        shipped config; trainer.py:191-200)."""
+        e = int(self.params.get("e_unfreeze", 10000))
+        if "segmentation" not in self.model_params or \
+                e >= int(self.params.get("n_epoch", 0)):
+            return None
+        return e
+
+    def _semantic_for(self, scene_id, image, cache, raw=False):
+        """The scene's semantic map: the image itself when raw (the
+        backbone then runs in the step), else cache[scene_id], made on a
+        miss by the backbone (with the state's adapted 'segmentation_bn'
+        statistics once e_unfreeze has made them), or the image for the
+        identity backbone (trainer.py:229-290)."""
+        if raw:
+            return image
+        if scene_id not in cache:
+            if "segmentation" in self.model_params:
+                with torch.no_grad():
+                    sem = seg_lib.apply(
+                        self.model_params["segmentation"], image,
+                        self.mcfg.use_features_only,
+                        bn_state=self.model_state.get("segmentation_bn"))
+                self.n_segmented += 1
+                source = "segmentation backbone output"
+            else:
+                sem = image
+                source = ("scene image (identity backbone: plain RGB "
+                          "scenes have 3)")
+            if sem.shape[-1] != self.mcfg.n_semantic_classes:
+                raise ValueError(
+                    f"semantic map for scene {scene_id!r} has "
+                    f"{sem.shape[-1]} channels but the model expects "
+                    f"n_semantic_classes={self.mcfg.n_semantic_classes} "
+                    f"(source: {source})")
+            cache[scene_id] = sem
+        return cache[scene_id]
+
+    def _with_semantic(self, items, cache, raw=False):
+        """items with each device batch's 'semantic' (_semantic_for)."""
+        return [(b, {"semantic": self._semantic_for(b.scene_id, db["image"],
+                                                    cache, raw),
+                     "traj": db["traj"], "mask": db["mask"]})
+                for b, db in items]
 
     # -- evaluation (reference trainer.py:295-352) ---------------------------
     def _eval_step(self, eval_k_chunk=None, for_validation=False):
@@ -299,10 +366,13 @@ class Experiment:
         list_metrics, list_trajs = [], []
         print("TTST setting:", p.get("use_TTST", False))
         items = self._device_batches(batches)
+        # the backbone is fixed during the test: one scene -> semantic map
+        # cache serves every round (trainer.py:1038-1045)
+        seg_cache = {}
         for e in range(int(p.get("n_round", 1))):
             ade, fde, metrics, trajs = self._evaluate(
-                items, es_state["step"], TEST_STREAM + e, es_shrink,
-                collect_preds=return_preds)
+                self._with_semantic(items, seg_cache), es_state["step"],
+                TEST_STREAM + e, es_shrink, collect_preds=return_preds)
             list_metrics.append(metrics)
             list_trajs.append(trajs)
             print(f"Round {e}: \nTest ADE: {ade} \nTest FDE: {fde}")
@@ -344,9 +414,20 @@ class Experiment:
         trainable = {k: v for k, v in io.flatten(self.model_params).items()
                      if v.requires_grad}
         fine_tune = bool(p.get("fine_tune", False))
-        train_step = make_train_step(self.mcfg, config_lib.step_config(p))
+        segment_in_step = self._segment_in_step()
+        train_step = make_train_step(self.mcfg, config_lib.step_config(
+            p, segment_in_step=segment_in_step))
         ves_state, ves_shrink = self._eval_shrinker(
             lambda kc: self._eval_step(kc, for_validation=True))
+        e_unfreeze = self._e_unfreeze()
+        unfreeze_step = None  # made at the boundary
+        # one train cache for the run: it serves only while the backbone is
+        # frozen in eval mode (the in-step epochs bypass it); one
+        # validation cache across epochs only while the backbone cannot
+        # change (trainer.py:697-735, 497-503)
+        seg_cache = {}
+        val_seg_cache = ({} if not segment_in_step and e_unfreeze is None
+                         else None)
 
         best_val_ade = float("inf")
         best_epoch = 0
@@ -431,14 +512,31 @@ class Experiment:
             return False
 
         for e in range(int(p["n_epoch"])):
+            # from e_unfreeze the backbone runs inside the step with its
+            # batch norms on the batch's statistics; their running
+            # statistics start from the inline ones and adapt in
+            # state['segmentation_bn']
+            in_unfreeze = e_unfreeze is not None and e >= e_unfreeze
+            if in_unfreeze and unfreeze_step is None:
+                unfreeze_step = make_train_step(
+                    self.mcfg, config_lib.step_config(
+                        p, segment_in_step=True, segment_train_mode=True))
+                if "segmentation_bn" not in state:
+                    state = {**state, "segmentation_bn": extract_bn_stats(
+                        self.model_params["segmentation"])}
+            step = unfreeze_step if in_unfreeze else train_step
+            raw = segment_in_step or in_unfreeze
             # the scene-batch order is reshuffled every epoch, like the
             # reference's DataLoader(shuffle=True) (trainer.py:574-576)
             t_steps = time.perf_counter()
             rng.shuffle(train_items)
             step_metrics = []
-            for _, db in train_items:
-                state, m = train_step(self.model_params, state, optimizer,
-                                      scheduler, db)
+            for b, db in train_items:
+                db = {"semantic": self._semantic_for(
+                          b.scene_id, db["image"], seg_cache, raw),
+                      "traj": db["traj"], "mask": db["mask"]}
+                state, m = step(self.model_params, state, optimizer,
+                                scheduler, db)
                 step_metrics.append(m)
                 # the metrics stay on the device: one host read an epoch,
                 # and a NaN check every 100 steps (trainer.py:742-759)
@@ -451,7 +549,9 @@ class Experiment:
             t_val = time.perf_counter()
             self.model_state = state
             val_ade, val_fde, _, _ = self._evaluate(
-                val_items, ves_state["step"], e, ves_shrink)
+                self._with_semantic(val_items, {} if val_seg_cache is None
+                                    else val_seg_cache),
+                ves_state["step"], e, ves_shrink)
             timing = dict(n_steps=len(step_metrics),
                           steps_seconds=t_val - t_steps,
                           val_seconds=time.perf_counter() - t_val)

@@ -22,6 +22,7 @@ from mst_tpu.data import synthetic as jsynthetic
 from mst_tpu_torch import config
 from mst_tpu_torch.data import images, scenes, splits, synthetic
 from mst_tpu_torch.data.tracks import Tracks, unique_in_order
+from mst_tpu_torch.models import segmentation
 
 COLUMNS = ("metaId", "sceneId", "frame", "x", "y")
 TOTAL = 20
@@ -311,7 +312,9 @@ def test_get_params_overrides_and_filename():
 
 def test_segmentation_rule(tmp_path):
     """segmentation_model_fp is set for sdd, but the backbone is present
-    (and the port raises) only when the file exists."""
+    only when the file exists: then the model config is mst_tpu's (unet,
+    16 channels under use_features_only), and a file that is no backbone
+    npz raises where it is loaded."""
     params = config.get_params("sdd_shortterm_train.yaml",
                                {"use_features_only": True})
     assert params["segmentation_model_fp"].endswith("sdd_segmentation.npz")
@@ -320,8 +323,12 @@ def test_segmentation_rule(tmp_path):
     seg = tmp_path / "sdd_segmentation.npz"
     seg.write_bytes(b"")
     params["segmentation_model_fp"] = str(seg)
-    with pytest.raises(NotImplementedError, match="segmentation"):
-        config.ynet_config(params)
+    mcfg = config.ynet_config(params)
+    jmcfg = jconfig.ynet_config(params)
+    assert (mcfg.segmentation, mcfg.n_semantic_classes) == \
+        (jmcfg.segmentation, jmcfg.n_semantic_classes) == ("unet", 16)
+    with pytest.raises(ValueError, match="not a backbone npz"):
+        segmentation.load_params(str(seg), "cpu")
 
 
 def name_args(**over):

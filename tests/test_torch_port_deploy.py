@@ -194,9 +194,16 @@ def test_export_refuses_what_it_cannot_serve(exports, tmp_path):
     exp = Experiment(exports["mosa_2"]["params"], device="cpu")
     with pytest.raises(ValueError, match="multiples"):
         serve.export_model(exp, tmp_path / "bad", 60, W, B)
-    with pytest.raises(NotImplementedError, match="segment_in_step"):
-        serve.export_model(exp, tmp_path / "seg", H, W, B,
-                           segment_in_step=True)
+    # segment_in_step is ported: the input is the raw 3-channel scene
+    # (here the identity backbone's), the backbone runs in the step
+    manifest = serve.export_model(exp, tmp_path / "seg", H, W, B,
+                                  segment_in_step=True)
+    assert manifest["segment_in_step"] and \
+        manifest["semantic_shape"] == [1, H, W, 3]
+    assert LoadedModel(tmp_path / "seg", device="cpu").scfg.segment_in_step
+    with pytest.raises(ValueError, match="not a backbone npz"):
+        Experiment(dict(exports["mosa_2"]["params"],
+                        segmentation_model_fp=__file__), device="cpu")
     with pytest.raises(ValueError, match="mst_tpu_torch.serve"):
         LoadedModel(exports["mosa_2"]["jax"], device="cpu")
 

@@ -37,6 +37,7 @@ from mst_tpu.train import trainer as jtrainer
 from mst_tpu_torch import config, io
 from mst_tpu_torch import test as test_cli
 from mst_tpu_torch.data.tracks import Tracks
+from mst_tpu_torch.models import unet
 from mst_tpu_torch.train import trainer
 from mst_tpu_torch.train.__main__ import main as train_main
 
@@ -395,6 +396,21 @@ def test_shrink_ladder_steps_down_on_oom(tmp_path, monkeypatch, data):
     ("eth", dict(dataset_name="eth")),
     ("segmentation", dict(segmentation_model_fp=__file__))])
 def test_unported_loop_flags_raise(tmp_path, flag, over):
+    """Each flag raises, naming itself; but the segmentation backbone,
+    which is ported: a backbone npz builds the model with it, and a file
+    that exists but is no backbone npz (this test file) raises."""
+    if flag == "segmentation":
+        seg = tmp_path / "sdd_segmentation.npz"
+        np.savez(seg, **io.params_to_numpy(unet.unet_init(
+            torch.Generator().manual_seed(0), n_classes=3,
+            layers=(1, 1, 1, 1))))
+        exp = trainer.Experiment(loop_params(
+            tmp_path, segmentation_model_fp=str(seg)))
+        assert exp.mcfg.segmentation == "unet"
+        assert "layer4" in exp.model_params["segmentation"]["encoder"]
+        with pytest.raises(ValueError, match="not a backbone npz"):
+            trainer.Experiment(loop_params(tmp_path, **over))
+        return
     with pytest.raises(NotImplementedError, match=flag):
         trainer.Experiment(loop_params(tmp_path, **over))
 

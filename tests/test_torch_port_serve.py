@@ -17,6 +17,7 @@ from mst_tpu.models import ynet as jynet
 from mst_tpu.train import steps as jsteps
 from mst_tpu_torch import io
 from mst_tpu_torch.config import get_params, step_config, ynet_config
+from mst_tpu_torch.models import unet
 from mst_tpu_torch.models.ynet import init_ynet
 from mst_tpu_torch.ops.softargmax import softargmax2d_nhwc
 from mst_tpu_torch.serve import Predictor
@@ -233,10 +234,25 @@ def test_predictor_swap_semantic_matches_jax(rng, tmp_path):
     ("eth_world_coords", dict(dataset_name="eth", eth_world_coords=True)),
     ("use_features_only", dict(use_features_only=True,
                                segmentation_model_fp=__file__))])
-def test_unported_flags_raise(flag, over):
+def test_unported_flags_raise(tmp_path, flag, over):
     """A flag mst_tpu acts on and the port does not yet raises, naming
-    itself, instead of being dropped."""
+    itself, instead of being dropped. use_features_only with a backbone
+    is ported: the model takes the backbone's 16 decoder channels, and a
+    backbone file that exists but is no backbone npz (this test file)
+    raises where it is loaded."""
     params = small_params(**over)
+    if flag == "use_features_only":
+        assert ynet_config(params).n_semantic_classes == 16
+        assert step_config(params).use_features_only
+        with pytest.raises(ValueError, match="not a backbone npz"):
+            Predictor(params, device="cpu")
+        seg = tmp_path / "sdd_segmentation.npz"
+        np.savez(seg, **io.params_to_numpy(unet.unet_init(
+            torch.Generator().manual_seed(0), layers=(1, 1, 1, 1))))
+        pred = Predictor(dict(params, segmentation_model_fp=str(seg)),
+                         device="cpu")
+        assert pred.mcfg.feature_channels == 16 + 8
+        return
     for build in (ynet_config, step_config,
                   lambda p: Predictor(p, device="cpu")):
         with pytest.raises(NotImplementedError, match=flag):

@@ -274,8 +274,21 @@ def test_freeze_matches_jax(train_net, position, ynet_bias):
 
 @pytest.mark.parametrize("train_net", ["scene", "segmentation_head"])
 def test_unported_strategy_raises(train_net):
-    """The backbone's strategies are not ported; a branch set without
-    network='fusion' is no strategy (mst_tpu's predicate raises too)."""
+    """A branch set without network='fusion' is no strategy (mst_tpu's
+    predicate raises too). The backbone's strategies are ported:
+    segmentation_head trains the backbone's head and nothing else, and an
+    Experiment whose backbone file exists but is no backbone npz (this
+    test file) raises."""
+    if train_net == "segmentation_head":
+        pred = freeze.make_trainable_predicate(train_net)
+        assert pred("segmentation/segmentation_head/0/weight")
+        assert not pred("segmentation/encoder/bn1/weight")
+        assert not pred("segmentation/_meta/activation")
+        assert not pred("encoder/stages/0/conv0/weight")
+        with pytest.raises(ValueError, match="not a backbone npz"):
+            trainer.Experiment(train_params(
+                train_net, segmentation_model_fp=__file__), device="cpu")
+        return
     with pytest.raises(NotImplementedError,
                        match="not ported|not a strategy"):
         freeze.make_trainable_predicate(train_net)
