@@ -128,11 +128,30 @@ Phases, each fatal on failure:
      segmentation_head step's maps and the fused kernel on the directory's
      request against their plain versions; a torch.profiler trace of one
      segmented test batch with the backbone's share.
+  10. from raw annotations to a resumed run (raw_to_resumed), at the full
+     width of sdd_shortterm_train.yaml (352 x 480, B = 8, 3 classes): phase
+     6c's scenes written as SDD annotations and reference.jpg files; the
+     builder CLIs (`python -m mst_tpu_torch.data.sdd`, then --reload
+     --varf agent_type, then data.split_dataset), their pickles equal to
+     the pandas chain's, and the native windowing timed against the chain
+     at 1M rows; `python -m mst_tpu_torch.train` runs A and B (4 epochs,
+     smooth-val, a training state every epoch), C (2 epochs) and R
+     (--resume to 4): what C held as it wrote epoch 2's state equals, bit
+     for bit, what R holds after the restore, and R's leaves and val
+     histories lie within twice B's distance from A (plus 1e-6); then an
+     ETH world (5 scenes of oracle.png masks and homographies): the
+     validation cut's 30 // B scenes, a 1-epoch mosa_2 fine-tune and a
+     --eth_world_coords test, world ADE/FDE on the card against the CPU on
+     the same draws (1e-4 relative); each CLI process's kernel launches
+     against what the code gives, the rows kernel on a train step's maps
+     and the fused kernel on the ETH path's operands against their plain
+     versions; host seconds of the build, split, epochs and resume, and
+     the peak memory.
 The line before the last is the per-kernel JSON record (launches on each
 kernel's own path, train_launches on the fine-tune path, loop_launches
 on the Experiment loop's, ymod_launches on Y-Net-Mod's, serve_launches
-on the daemon's and seg_launches on the segmentation backbone's); the
-last line is
+on the daemon's, seg_launches on the segmentation backbone's and
+res_launches over phase 10's CLI processes); the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
@@ -2375,6 +2394,608 @@ def segmentation_path(torch, wrappers, card, rows_rec, fused_rec):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: from raw annotations to a resumed run
+# ---------------------------------------------------------------------------
+
+RES_EPOCHS, RES_CUT = 4, 2  # the uninterrupted runs; the cut before --resume
+RES_FLAGS = ["--train_net", "train", "--lr", "1e-4", "--smooth_val",
+             "--window_size", "3"]
+RES_NOISE_TOL = 1e-6  # resumed vs uninterrupted: 2 x the card's noise + this
+ETH_TOL = 1e-4  # world ADE/FDE, card against the CPU, relative
+WINDOW_ROWS = 1_000_000  # rows of the native-against-pandas windowing
+ETH_SCENES = ("eth", "hotel", "students003", "uni_examples", "zara01")
+# eth and hotel take (y, x), so their matrices differ in the two scales;
+# the others are plain scales
+ETH_HOMOGRAPHIES = {"eth": [[0.05, 0.0, 1.0], [0.0, 0.02, -2.0],
+                            [0.0, 0.0, 1.0]],
+                    "hotel": [[0.03, 0.001, 0.5], [0.002, 0.06, 1.5],
+                              [0.0, 0.0, 1.0]],
+                    "students003": [[0.02, 0, 0], [0, 0.02, 0], [0, 0, 1]],
+                    "uni_examples": [[0.04, 0, 0], [0, 0.04, 0], [0, 0, 1]],
+                    "zara01": [[0.03, 0, 0], [0, 0.03, 0], [0, 0, 1]]}
+
+# `python -m <module> <args>` with the port's training-state calls wrapped:
+# the process dumps (torch.save) what it holds when it writes the state of
+# epoch <dump_epoch>, and what a restore put in place, and prints its kernel
+# launches and peak device memory as it ends.
+#   python -c HOOKED_CLI <dump path> <dump_epoch> <module> <args...>
+HOOKED_CLI = r'''
+import json, runpy, sys, torch
+from mst_tpu_torch import io
+from mst_tpu_torch.ops.kernels.fused_predict import fused_predictor_softargmax
+from mst_tpu_torch.ops.kernels.softargmax_rows import softargmax2d_rows
+from mst_tpu_torch.probes import chain_probe, conv_probe
+from mst_tpu_torch.train import trainer
+
+dump, dump_epoch, module = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+sys.argv = [module] + sys.argv[4:]
+wrappers = {"softargmax_rows": softargmax2d_rows,
+            "fused_predict": fused_predictor_softargmax,
+            **dict(conv_probe.KERNELS), **dict(chain_probe.KERNELS)}
+for fn in wrappers.values():
+    fn.launches = 0
+
+
+def cpu(d):
+    return {k: v.detach().cpu().clone() for k, v in d.items()}
+
+
+def held(trainable, optimizer, scheduler, state, val_ade, val_fde, best,
+         snapshots, best_val_ade, best_epoch):
+    return {"trainable": cpu(trainable),
+            "adam": {k: cpu(optimizer.state.get(p, {}))
+                     for k, p in trainable.items()},
+            "lr": [g["lr"] for g in optimizer.param_groups],
+            "last_epoch": scheduler.last_epoch,
+            "state": cpu(io.flatten(state or {})),
+            "val_ADE": [float(a) for a in val_ade],
+            "val_FDE": [float(a) for a in val_fde],
+            "best": None if best is None else cpu(best),
+            "snapshots": [cpu(s) for s in snapshots or []],
+            "best_val_ade": float("inf") if best_val_ade is None
+            else float(best_val_ade),
+            "best_epoch": int(best_epoch or 0)}
+
+
+save = trainer.Experiment.save_training_state
+restore = trainer.Experiment.restore_training_state
+
+
+def save_hook(self, path, trainable, optimizer, scheduler, epoch,
+              val_history=None, model_state=None, val_fde_history=None,
+              best_snapshot=None, best_val_ade=None, best_epoch=None,
+              snapshots=None):
+    save(self, path, trainable, optimizer, scheduler, epoch, val_history,
+         model_state, val_fde_history, best_snapshot, best_val_ade,
+         best_epoch, snapshots)
+    if epoch == dump_epoch:
+        torch.save(held(trainable, optimizer, scheduler, model_state,
+                        val_history or [], val_fde_history or [],
+                        best_snapshot, snapshots, best_val_ade, best_epoch),
+                   dump + ".saved")
+
+
+def restore_hook(self, path, trainable, optimizer, scheduler):
+    epoch, x = restore(self, path, trainable, optimizer, scheduler)
+    torch.save(held(trainable, optimizer, scheduler, x["model_state"],
+                    x["val_ADE"], x["val_FDE"], x["best_snapshot"],
+                    x["snapshots"], x["best_val_ade"], x["best_epoch"]),
+               dump + ".restored")
+    return epoch, x
+
+
+trainer.Experiment.save_training_state = save_hook
+trainer.Experiment.restore_training_state = restore_hook
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+finally:
+    peak = 0.0
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    print("KERNEL_LAUNCHES " + json.dumps(
+        {k: fn.launches for k, fn in wrappers.items()}))
+    print(f"PEAK_GIB {peak:.3f}")
+'''
+
+
+def run_cli(label, module, args, cwd, dump=None, dump_epoch=-1):
+    """`python -m module args` in cwd (the hooked form for the train and
+    test CLIs) -> (stdout, host seconds, kernel launches or None, peak
+    GiB or None). Raises on a non-zero exit, with the output's tail."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    if dump is None:
+        cmd = [sys.executable, "-m", module, *args]
+    else:
+        cmd = [sys.executable, "-c", HOOKED_CLI, dump, str(dump_epoch),
+               module, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: `{module}` exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    launches = peak = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("KERNEL_LAUNCHES "):
+            launches = json.loads(line.split(" ", 1)[1])
+        elif line.startswith("PEAK_GIB "):
+            peak = float(line.split()[1])
+    print(f"{label}: `python -m {module}` {dt:.1f} s host"
+          + (f", peak device memory {peak:.2f} GiB" if peak is not None
+             else ""))
+    return proc.stdout, dt, launches, peak
+
+
+def state_distance(a, b):
+    """The largest |difference| of a trainable leaf of two training-state
+    files' arrays, over that leaf's max in b."""
+    import numpy as np
+
+    keys = [k for k in b if k.startswith("trainable/")]
+    check(keys and sorted(keys) == sorted(k for k in a
+                                          if k.startswith("trainable/")),
+          "the training-state files hold other trainable leaves")
+    return max(float(np.abs(a[k] - b[k]).max())
+               / max(float(np.abs(b[k]).max()), 1e-30) for k in keys)
+
+
+def history_distance(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    check(a.shape == b.shape, "val histories of different lengths")
+    return float((np.abs(a - b) / np.abs(b)).max())
+
+
+def assert_same_held(saved, restored):
+    """What the 2-epoch process held as it wrote its state against what the
+    resumed process holds after the restore, bit for bit."""
+    import torch
+
+    def same(x, y, what):
+        if isinstance(x, dict):
+            check(isinstance(y, dict) and sorted(x) == sorted(y),
+                  f"restore: {what} keys differ")
+            for k in x:
+                same(x[k], y[k], f"{what}/{k}")
+        elif isinstance(x, list):
+            check(isinstance(y, list) and len(x) == len(y),
+                  f"restore: {what} lengths differ")
+            for i, (u, v) in enumerate(zip(x, y)):
+                same(u, v, f"{what}/{i}")
+        elif isinstance(x, torch.Tensor):
+            check(isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                  and x.shape == y.shape and torch.equal(x, y),
+                  f"restore: {what} differs")
+        else:
+            check(x == y, f"restore: {what} {x!r} != {y!r}")
+
+    same(saved, restored, "state")
+
+
+def write_eth_world(root, images_hw, seed=1, n_traj=16):
+    """ETH_SCENES as oracle.png class masks (blocks of 32 px, classes 0-2)
+    under root/data/eth/images/<scene>, their homographies under
+    root/data/eth_ucy, and tracks split 40 / 24 / 16 into
+    root/data/eth/split/{train,val,test}.pkl -> the tracks."""
+    import numpy as np
+
+    import cv2
+    import pandas as pd
+
+    from mst_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    tracks, _ = make_synthetic_dataset(seed=seed, n_scenes=len(ETH_SCENES),
+                                       n_traj=n_traj, img_hw=images_hw)
+    names = {f"synth_{i}": s for i, s in enumerate(ETH_SCENES)}
+    tracks = tracks.replace(sceneId=np.asarray(
+        [names[s] for s in tracks.sceneId], object))
+    rng = np.random.default_rng(seed)
+    for scene in ETH_SCENES:
+        d = os.path.join(root, "data", "eth", "images", scene)
+        os.makedirs(d)
+        blocks = rng.integers(0, 3, size=(images_hw[0] // 32,
+                                          images_hw[1] // 32))
+        cv2.imwrite(os.path.join(d, "oracle.png"),
+                    np.kron(blocks, np.ones((32, 32))).astype(np.uint8))
+    os.makedirs(os.path.join(root, "data", "eth_ucy"))
+    for scene, mat in ETH_HOMOGRAPHIES.items():
+        np.savetxt(os.path.join(root, "data", "eth_ucy", f"{scene}_H.txt"),
+                   np.asarray(mat, np.float64))
+    df = pd.DataFrame({"metaId": tracks.metaId, "sceneId": tracks.sceneId,
+                       "frame": tracks.frame, "x": tracks.x, "y": tracks.y,
+                       "label": "Pedestrian"})
+    ids = np.random.default_rng(seed).permutation(np.unique(tracks.metaId))
+    split = os.path.join(root, "data", "eth", "split")
+    os.makedirs(split)
+    for name, part in (("train", ids[:40]), ("val", ids[40:64]),
+                       ("test", ids[64:])):
+        df[df.metaId.isin(part)].to_pickle(os.path.join(split,
+                                                        f"{name}.pkl"))
+    return tracks
+
+
+def time_windowing():
+    """The native windowing against its pandas chain at WINDOW_ROWS rows
+    (SDD's step 12, window 20, stride 20, with frame gaps): equal frames,
+    host ms of each."""
+    import numpy as np
+
+    import pandas as pd
+
+    from mst_tpu_torch import native
+    from mst_tpu_torch.data.trajectories import window_chain
+
+    rng = np.random.default_rng(0)
+    n_tracks, length = WINDOW_ROWS // 250, 250
+    frame = np.tile(np.arange(length), n_tracks)
+    frame = frame + (frame >= 97) * (np.repeat(np.arange(n_tracks), length)
+                                     % 2)  # a gap in every odd track
+    df = pd.DataFrame({"metaId": np.repeat(np.arange(n_tracks), length),
+                       "frame": frame, "x": rng.uniform(0, 1900, n_tracks
+                                                        * length),
+                       "y": rng.uniform(0, 1400, n_tracks * length),
+                       "sceneId": "s_0", "label": "Pedestrian"})
+    native.load_lib()  # the build is not timed
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = native.load_and_window_native(df, 12, 20, 20)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    want = window_chain(df, 12, 20, 20)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    pd.testing.assert_frame_equal(got, want)
+    print(f"windowing {len(df)} rows -> {len(got)} ({got.metaId.nunique()} "
+          f"windows): native {min(ms):.1f} ms (best of 3: "
+          f"{[round(m, 1) for m in ms]}), pandas chain {plain_ms:.1f} ms, "
+          f"{plain_ms / min(ms):.1f}x; equal frames")
+    return min(ms), plain_ms
+
+
+def raw_to_resumed(torch, wrappers, card, rows_rec, fused_rec):
+    """Phase 10: from raw annotations to a resumed run, at the full width
+    of sdd_shortterm_train.yaml (352 x 480, B = 8, the identity backbone's
+    3 classes). -> {kernel: launches over the phase's CLI processes}."""
+    import numpy as np
+
+    import pandas as pd
+
+    from mst_tpu_torch.config import get_params, step_config
+    from mst_tpu_torch.data import splits, trajectories
+    from mst_tpu_torch.data.sdd import load_raw_sdd
+    from mst_tpu_torch.data.synthetic import (make_synthetic_dataset,
+                                              write_sdd_annotations)
+    from mst_tpu_torch.ops.kernels.fused_predict import (
+        fused_predictor_softargmax, fused_predictor_softargmax_plain)
+    from mst_tpu_torch.train.steps import make_eval_step, make_train_step
+    from mst_tpu_torch.train.trainer import Experiment, restore_model
+
+    import cv2
+    import yaml
+
+    tmp = tempfile.mkdtemp(prefix="mst_res_")
+    try:
+        # ---- the raw files: phase 6c's scenes as SDD annotations
+        t0 = time.perf_counter()
+        tracks, images = make_synthetic_dataset(
+            seed=0, n_scenes=2, n_traj=LOOP_TRACKS, img_hw=LOOP_SCENE_HW)
+        raw = os.path.join(tmp, "data", "sdd", "raw")
+        n_rows = write_sdd_annotations(tracks, raw, step=12,
+                                       labels=("Pedestrian",))
+        for scene, im in images.items():
+            name, idx = scene.split("_")
+            cv2.imwrite(os.path.join(raw, "annotations", name, f"video{idx}",
+                                     "reference.jpg"),
+                        (im * 255).astype(np.uint8))
+        print(f"raw SDD files: {n_rows} annotation rows of "
+              f"{len(np.unique(tracks.metaId))} tracks (12 raw frames a "
+              f"sample), 2 reference.jpg of {LOOP_SCENE_HW}, written in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # ---- the builders, in scripts/sdd/preprocessing.sh's order
+        _, build_s, _, _ = run_cli("build", "mst_tpu_torch.data.sdd", [],
+                                   tmp)
+        _, bucket_s, _, _ = run_cli(
+            "buckets", "mst_tpu_torch.data.sdd",
+            ["--reload", "--varf", "agent_type", "--labels", "Pedestrian"],
+            tmp)
+        bucket = os.path.join(tmp, "data/sdd/filter/shortterm/agent_type")
+        _, split_s, _, _ = run_cli(
+            "split", "mst_tpu_torch.data.split_dataset",
+            ["--data_dir", bucket, "--data_filename", "Pedestrian.pkl",
+             "--val_split", "16", "--test_split", "16", "--seed", "1"], tmp)
+        # the same pickles from the pandas chain, in this process
+        plain = os.path.join(tmp, "plain")
+        chain = trajectories.window_chain(load_raw_sdd(raw), 12, 20, 20)
+        pd.testing.assert_frame_equal(
+            pd.read_pickle(os.path.join(raw, "data_8_12_2_5fps.pkl")), chain)
+        trajectories.create_dataset_by_agent_type(chain, ["Pedestrian"],
+                                                  plain)
+        splits.split_train_val_test_randomly(plain, "Pedestrian.pkl", 16, 16,
+                                             seed=1)
+        for rel in ("Pedestrian.pkl", "Pedestrian/train.pkl",
+                    "Pedestrian/val.pkl", "Pedestrian/test.pkl"):
+            pd.testing.assert_frame_equal(
+                pd.read_pickle(os.path.join(bucket, rel)),
+                pd.read_pickle(os.path.join(plain, rel)))
+        print(f"builder pickles: the windowed frame ({len(chain)} rows, "
+              f"{chain.metaId.nunique()} windows) and the bucket and split "
+              f"pickles equal the pandas chain's; host seconds build "
+              f"{build_s:.1f}, buckets {bucket_s:.1f}, split {split_s:.1f} "
+              f"(each a process)")
+        native_ms, chain_ms = time_windowing()
+
+        # ---- the config: the shipped yaml with the identity backbone's 3
+        # classes
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "mst_tpu_torch", "configs",
+                               "sdd_shortterm_train.yaml")) as f:
+            shipped = yaml.safe_load(f)
+        # the identity backbone's 3 classes; a training state every epoch
+        shipped.update(n_semantic_classes=3, save_every_n=1)
+        with open(os.path.join(tmp, "sdd3.yaml"), "w") as f:
+            yaml.safe_dump(shipped, f)
+        common = ["--config_filename", "sdd3.yaml", "--seed", "1",
+                  "--batch_size", str(LOOP_B), "--dataset_path",
+                  "filter/shortterm/agent_type/Pedestrian", "--load_data",
+                  "predefined"]
+        params = get_params("sdd_shortterm_train.yaml", {
+            "n_semantic_classes": 3, "batch_size": LOOP_B, "seed": 1,
+            "save_every_n": 1, "data_dir": os.path.join(tmp, "data")})
+        sdd_images = os.path.join(raw, "annotations")
+        data_path = os.path.join(bucket, "Pedestrian")
+        train_t, val_t, test_t = (splits.read_pickle(os.path.join(
+            data_path, f"{n}.pkl")) for n in ("train", "val", "test"))
+        probe = Experiment(params)
+        n = {name: len(probe.prepare_data(t, sdd_images, "val"))
+             for name, t in (("train", train_t), ("val", val_t),
+                             ("test", test_t))}
+        del probe
+
+        def want_launches(epochs, tests=1, train=None, val=None, test=None):
+            w = dict.fromkeys(wrappers, 0)
+            w["softargmax_rows"] = 2 * epochs * (train or n["train"])
+            w["fused_predict"] = epochs * (val or n["val"]) + tests * (
+                test or n["test"])
+            return w
+
+        res = dict.fromkeys(wrappers, 0)
+
+        def tally(label, launches, want):
+            print(f"{label}: launches {launches}")
+            check(launches == want, f"{label} launched {launches}, the code "
+                  f"gives {want}")
+            for k, v in launches.items():
+                res[k] += v
+
+        # ---- A and B: two uninterrupted runs; C: the cut; R: --resume
+        name = "Seed_1__filter_shortterm_agent_type_Pedestrian__train__" \
+            "original"
+        runs = {}
+        for label, ckpt, epochs, extra in (
+                ("A", "ckpts_a", RES_EPOCHS, []),
+                ("B", "ckpts_b", RES_EPOCHS, []),
+                ("C", "ckpts_r", RES_CUT, []),
+                ("R", "ckpts_r", RES_EPOCHS, ["--resume"])):
+            out, secs, launches, peak = run_cli(
+                f"run {label}", "mst_tpu_torch.train",
+                common + RES_FLAGS + [
+                    "--n_epoch", str(epochs), "--ckpt_path", ckpt,
+                    "--metrics_jsonl", f"{ckpt}_{label}.jsonl"] + extra,
+                tmp, dump=os.path.join(tmp, f"held_{label}"),
+                dump_epoch=RES_CUT)
+            done = epochs - (RES_CUT if label == "R" else 0)
+            tally(f"run {label}", launches, want_launches(done))
+            with open(os.path.join(tmp, f"{ckpt}_{label}.jsonl")) as f:
+                log = [json.loads(line) for line in f]
+            state = dict(np.load(os.path.join(
+                tmp, ckpt, f"{name}__train_state.npz")))
+            with open(os.path.join(tmp, ckpt,
+                                   f"{name}__train_state.npz.json")) as f:
+                meta = json.load(f)
+            runs[label] = dict(log=log, state=state, meta=meta, secs=secs,
+                               peak=peak, out=out)
+            for r in log:
+                check(np.isfinite(r["loss"]), f"run {label} epoch "
+                      f"{r['epoch']}: loss {r['loss']}")
+                print(f"  run {label} epoch {r['epoch']}: loss "
+                      f"{r['loss']:.6f}, val ADE/FDE {r['val_ade']:.4f} / "
+                      f"{r['val_fde']:.4f}; {r['n_steps']} steps "
+                      f"{r['steps_seconds']:.3f} s, validation "
+                      f"{r['val_seconds']:.3f} s")
+        check("Resumed training state at epoch 2" in runs["R"]["out"],
+              "run R did not resume")
+        check([r["epoch"] for r in runs["R"]["log"]] == [2, 3],
+              "run R did not start at epoch 2")
+        check(runs["R"]["meta"]["epoch"] == RES_EPOCHS
+              and runs["A"]["meta"]["epoch"] == RES_EPOCHS,
+              "the final training states are not epoch 4's")
+
+        # the restore is exact: what C held when it wrote epoch 2's state
+        # is what R holds after loading it
+        saved = torch.load(os.path.join(tmp, "held_C.saved"))
+        restored = torch.load(os.path.join(tmp, "held_R.restored"))
+        assert_same_held(saved, restored)
+        n_adam = sum(len(v) for v in saved["adam"].values())
+        print(f"restore: {len(saved['trainable'])} leaves, {n_adam} Adam "
+              f"tensors (step, exp_avg, exp_avg_sq), LR {saved['lr']} at "
+              f"scheduler step {saved['last_epoch']}, {len(saved['state'])}"
+              f" state leaves, val history {saved['val_ADE']}, best "
+              f"{'none' if saved['best'] is None else 'a snapshot'}, "
+              f"{len(saved['snapshots'])} smooth-val snapshot(s): equal bit "
+              f"for bit")
+
+        # the resumed run within the card's own run-to-run noise
+        d_ba = state_distance(runs["B"]["state"], runs["A"]["state"])
+        d_ra = state_distance(runs["R"]["state"], runs["A"]["state"])
+        h = {}
+        for key in ("val_ADE", "val_FDE"):
+            h[key] = (history_distance(runs["B"]["meta"][key],
+                                       runs["A"]["meta"][key]),
+                      history_distance(runs["R"]["meta"][key],
+                                       runs["A"]["meta"][key]))
+        print(f"resume against the card's noise ({card}): leaves |B - A| "
+              f"{d_ba:.3e}, |R - A| {d_ra:.3e} of each leaf's max; val ADE "
+              f"B {h['val_ADE'][0]:.3e}, R {h['val_ADE'][1]:.3e}; val FDE B "
+              f"{h['val_FDE'][0]:.3e}, R {h['val_FDE'][1]:.3e} (relative); "
+              f"bound 2 x B + {RES_NOISE_TOL}")
+        check(d_ra <= 2 * d_ba + RES_NOISE_TOL, "the resumed run's leaves "
+              "are further from A than twice the card's own noise")
+        for key, (b, r) in h.items():
+            check(r <= 2 * b + RES_NOISE_TOL, f"the resumed run's {key} is "
+                  "further from A than twice the card's own noise")
+        if d_ba == 0 and all(b == 0 for b, _ in h.values()):
+            check(d_ra == 0 and all(r == 0 for _, r in h.values()),
+                  "A and B are bit-identical but R is not")
+        a_epochs = [r["steps_seconds"] + r["val_seconds"]
+                    for r in runs["A"]["log"]]
+        r_epochs = [r["steps_seconds"] + r["val_seconds"]
+                    for r in runs["R"]["log"]]
+        print(f"phase 10 host seconds ({card}): build {build_s:.1f}, "
+              f"buckets {bucket_s:.1f}, split {split_s:.1f}; run A "
+              f"{runs['A']['secs']:.1f} (epochs "
+              f"{[round(s, 3) for s in a_epochs]}), C "
+              f"{runs['C']['secs']:.1f}, R (--resume) "
+              f"{runs['R']['secs']:.1f} (epochs "
+              f"{[round(s, 3) for s in r_epochs]}); peak device memory "
+              f"{max(r['peak'] for r in runs.values()):.2f} GiB; windowing "
+              f"native {native_ms:.1f} ms, pandas {chain_ms:.1f} ms")
+
+        # the rows kernel on a train step's own maps of this path
+        exp = Experiment(params)
+        exp.load_params(os.path.join(tmp, "ckpts_a", f"{name}.npz"))
+        items = exp._device_batches(exp.prepare_data(
+            train_t, sdd_images, "train", rng=np.random.default_rng(0)))
+        b, db = items[0]
+        check_rows_on_path(torch, "resumed path's", make_train_step(
+            exp.mcfg, step_config(params)), exp.model_params,
+            exp.model_state, exp._step_batch(b, db, {}), rows_rec)
+        del exp, items
+
+        # ---- ETH: a 1-epoch fine-tune and a test in world coordinates
+        write_eth_world(tmp, LOOP_SCENE_HW)
+        eth_cfg = dict(shipped, dataset_name="eth", use_raw_data=False)
+        with open(os.path.join(tmp, "eth.yaml"), "w") as f:
+            yaml.safe_dump(eth_cfg, f)
+        base = os.path.join(tmp, "ckpts_a", f"{name}.npz")
+        eth_common = ["--config_filename", "eth.yaml", "--seed", "1",
+                      "--batch_size", str(LOOP_B), "--dataset_path", "split",
+                      "--load_data", "predefined", "--eth_world_coords"]
+        eth_params = get_params("sdd_shortterm_train.yaml", {
+            "n_semantic_classes": 3, "batch_size": LOOP_B, "seed": 1,
+            "dataset_name": "eth", "use_raw_data": False,
+            "data_dir": os.path.join(tmp, "data"), "eth_world_coords": True,
+            "train_net": "mosa_2", "position": POSITIONS,
+            "fine_tune": True})
+        eth_images = os.path.join(tmp, "data", "eth", "images")
+        eth_t = {k: splits.read_pickle(os.path.join(
+            tmp, "data", "eth", "split", f"{k}.pkl"))
+            for k in ("train", "val", "test")}
+        probe = Experiment(eth_params)
+        val_batches = probe.prepare_data(eth_t["val"], eth_images, "val")
+        cut = probe._validation_cut(val_batches)
+        cut_scenes = sorted({b.scene_id for b in cut})
+        all_scenes = sorted({b.scene_id for b in val_batches})
+        print(f"ETH validation: {len(val_batches)} batches of "
+              f"{len(all_scenes)} scenes; the cut keeps {len(cut)} batches "
+              f"of {len(cut_scenes)} scenes (30 // {LOOP_B} = "
+              f"{30 // LOOP_B})")
+        check(len(cut_scenes) == 30 // LOOP_B < len(all_scenes),
+              "the ETH validation cut does not hold 30 // B scenes")
+        ne = {"train": len(probe.prepare_data(eth_t["train"], eth_images,
+                                              "val")),
+              "val": len(cut),
+              "test": len(probe.prepare_data(eth_t["test"], eth_images,
+                                             "val"))}
+        del probe
+        out, eth_s, launches, _ = run_cli(
+            "ETH fine-tune", "mst_tpu_torch.train",
+            eth_common + ["--train_net", "mosa_2", "--position", *POSITIONS,
+                          "--fine_tune", "--n_train_batch", "5",
+                          "--n_epoch", "1", "--lr", "3e-3",
+                          "--pretrained_ckpt", base, "--ckpt_path",
+                          "ckpts_eth"], tmp, dump=os.path.join(tmp, "held_e"))
+        tally("ETH fine-tune", launches, want_launches(
+            1, train=ne["train"], val=ne["val"], test=ne["test"]))
+        (delta,) = [os.path.join(tmp, "ckpts_eth", f)
+                    for f in os.listdir(os.path.join(tmp, "ckpts_eth"))
+                    if f.endswith("__original.npz")]
+        out, test_s, launches, _ = run_cli(
+            "ETH test", "mst_tpu_torch.test",
+            eth_common + ["--n_round", "1", "--pretrained_ckpt", base,
+                          "--tuned_ckpt", delta], tmp,
+            dump=os.path.join(tmp, "held_t"))
+        tally("ETH test", launches, want_launches(0, test=ne["test"]))
+        ades = [float(a) for a in re.findall(r"Test ADE: ([\d.eE+-]+)", out)]
+        fdes = [float(a) for a in re.findall(r"Test FDE: ([\d.eE+-]+)", out)]
+        print(f"ETH test (world coordinates, {card}): ADE {ades[-1]:.4f}, "
+              f"FDE {fdes[-1]:.4f}; fine-tune {eth_s:.1f} s, test "
+              f"{test_s:.1f} s host")
+        check(ades and all(np.isfinite(ades + fdes))
+              and 0 < ades[-1] < 50, "the ETH world metrics are not finite "
+              "world distances")
+
+        # world ADE/FDE on the card against the CPU, on the same draws, and
+        # the fused kernel on this path's own operands
+        models = {dev: restore_model(eth_params, True, base, delta,
+                                     device=dev) for dev in ("cuda", "cpu")}
+        card_exp = models["cuda"]
+        batches = card_exp.prepare_data(eth_t["test"], eth_images, "test")
+        fullest = max(batches, key=lambda b: b.mask.sum())
+        b, db = card_exp._device_batches([fullest])[0]
+        db = card_exp._step_batch(b, db, {})
+        check(step_config(eth_params).world_coords,
+              "the ETH step does not score in world coordinates")
+        es = make_eval_step(card_exp.mcfg, step_config(eth_params))
+        with torch.no_grad():
+            feats, wps = es.forward(card_exp.model_params,
+                                    card_exp.model_state, db,
+                                    torch.Generator("cuda").manual_seed(0))
+            got = es.decode_and_score(card_exp.model_params, feats, wps,
+                                      db["traj"], db["mask"],
+                                      db["homography"])
+            x, w, bias = es.prepredictor(card_exp.model_params, feats)(wps)
+            cpu = models["cpu"]
+            cdb = {k: v.cpu() for k, v in db.items()}
+            cfeats, _ = es.forward(cpu.model_params, cpu.model_state, cdb,
+                                   torch.Generator().manual_seed(0))
+            want = es.decode_and_score(cpu.model_params, cfeats, wps.cpu(),
+                                       cdb["traj"], cdb["mask"],
+                                       cdb["homography"])
+        m = db["mask"].cpu().numpy() > 0
+        errs = {k: float((np.abs(got[k].cpu().numpy() - want[k].numpy())
+                          / np.abs(want[k].numpy()))[m].max())
+                for k in ("ade", "fde")}
+        print(f"ETH world ADE/FDE, card against CPU on one test batch's "
+              f"draws ({int(m.sum())} rows): max relative |difference| ADE "
+              f"{errs['ade']:.3e}, FDE {errs['fde']:.3e} (tol {ETH_TOL})")
+        check(max(errs.values()) <= ETH_TOL,
+              "ETH world metrics on the card disagree with the CPU")
+        k_out = fused_predictor_softargmax(x, w, bias)
+        k_plain = fused_predictor_softargmax_plain(x, w, bias)
+        e = float((k_out - k_plain).abs().max())
+        print(f"fused predictor on the ETH path's operands {tuple(x.shape)} "
+              f"x {tuple(w.shape)}: max |kernel - plain| = {e:.3e} px (tol "
+              f"{FUSED_TOL})")
+        check(e <= FUSED_TOL, "fused kernel disagrees on the ETH path")
+        fused_rec["max_abs_err"] = max(fused_rec["max_abs_err"], e)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 10 launches over its CLI processes: {res}")
+    for k in ("softargmax_rows", "fused_predict"):
+        check(res[k] > 0, f"{k} never ran on phase 10's path")
+    return res
+
+
 def main():
     import torch
 
@@ -2579,16 +3200,24 @@ def main():
                                      rows_rec, fused_rec)
     print(f"segmentation phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 10. from raw annotations to a resumed run, and ETH
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res_launches = raw_to_resumed(torch, kernel_wrappers(), card, rows_rec,
+                                  fused_rec)
+    print(f"resume phase: {time.perf_counter() - t0:.1f} s")
+
     for r in records:
         r["train_launches"] = train_launches[r["name"]]
         r["loop_launches"] = loop_launches[r["name"]]
         r["ymod_launches"] = ymod_launches[r["name"]]
         r["serve_launches"] = serve_launches[r["name"]]
         r["seg_launches"] = seg_launches[r["name"]]
+        r["res_launches"] = res_launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "train_launches", "loop_launches", "ymod_launches",
-            "serve_launches", "seg_launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "serve_launches", "seg_launches", "res_launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

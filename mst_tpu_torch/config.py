@@ -54,7 +54,8 @@ def get_parser(is_train: bool) -> argparse.ArgumentParser:
     parser.add_argument("--network",
                         choices=["original", "embed", "fusion"],
                         default="original",
-                        help="embed and fusion are not ported yet (raise)")
+                        help="the Y-Net, the embed network or Y-Net-Mod"
+                             " (fusion, with --n_fusion)")
     parser.add_argument("--n_fusion", default=None, type=int)
     parser.add_argument("--swap_semantic", action="store_true")
     parser.add_argument("--position", default=[], type=str, nargs="+")
@@ -84,8 +85,8 @@ def get_parser(is_train: bool) -> argparse.ArgumentParser:
                         help="sizes --cross_scene_batching's batches;"
                              " accepted and unused")
     parser.add_argument("--eth_world_coords", action="store_true",
-                        help="ETH/UCY world-meter metrics; not ported yet"
-                             " (raises)")
+                        help="ETH/UCY metrics in world coordinates through"
+                             " each scene's homography (dataset_name eth)")
     parser.add_argument("--remat", action="store_true",
                         help="recompute the train forward in the backward;"
                              " not ported yet (raises)")
@@ -101,7 +102,9 @@ def get_parser(is_train: bool) -> argparse.ArgumentParser:
         # train args (parser.py:53-69)
         parser.add_argument("--fine_tune", action="store_true")
         parser.add_argument("--resume", action="store_true",
-                            help="mid-run resume; not ported yet (raises)")
+                            help="resume from <ckpt_path>/<experiment>"
+                                 "__train_state.npz (written every"
+                                 " save_every_n epochs) if it exists")
         parser.add_argument("--n_epoch", default=100, type=int)
         parser.add_argument("--n_early_stop", default=300, type=int)
         parser.add_argument("--n_train_batch", default=None, type=float)
@@ -194,38 +197,28 @@ def has_backbone(params: dict) -> bool:
 
 def _check_ported(params: dict):
     """Raise on a flag that mst_tpu acts on and the port does not yet: bf16
-    compute (trainer.py:348-349) and ETH world-coordinate metrics
-    (trainer.py:346-347)."""
+    compute (trainer.py:348-349)."""
     dtype = params.get("compute_dtype")
     if dtype is not None and str(dtype).lower() not in ("float32", "f32"):
         raise NotImplementedError(
             f"compute_dtype={dtype!r}: only float32 is ported yet")
-    if (str(params.get("dataset_name", "")).lower() == "eth"
-            and params.get("eth_world_coords")):
-        raise NotImplementedError(
-            "eth_world_coords: ETH world-coordinate metrics are not ported "
-            "yet")
 
 
 # the Experiment loop's flags the port does not act on yet, and the value
 # that means "off"
-_LOOP_FLAGS = dict(fused=False, resume=False, cross_scene_batching=False,
+_LOOP_FLAGS = dict(fused=False, cross_scene_batching=False,
                    mesh_shape=None, mesh_axes=None, remat=False)
 
 
 def check_loop_ported(params: dict):
     """Raise on a flag of mst_tpu's Experiment loop that the port does not
-    act on yet: the fused multi-epoch program, --resume, cross-scene
-    batching, a device mesh, remat, and the eth dataset (its validation cut
-    and homographies). Then the model and step flags (_check_ported)."""
+    act on yet: the fused multi-epoch program, cross-scene batching, a
+    device mesh and remat. Then the model and step flags
+    (_check_ported)."""
     for flag, off in _LOOP_FLAGS.items():
         if params.get(flag, off) not in (off, [], ()):
             raise NotImplementedError(
                 f"{flag}={params[flag]!r} is not ported yet")
-    if str(params.get("dataset_name", "")).lower() == "eth":
-        raise NotImplementedError(
-            "dataset_name: eth (its validation cut and homographies) is not "
-            "ported yet")
     _check_ported(params)
 
 
@@ -282,6 +275,10 @@ def step_config(params: dict, for_validation: bool = False,
         loss_scale=float(params["loss_scale"]),
         swap_semantic=bool(params["swap_semantic"]),
         use_features_only=bool(params.get("use_features_only", False)),
+        # ETH metrics are in pixels unless --eth_world_coords
+        # (trainer.py:341-347)
+        world_coords=(str(params.get("dataset_name", "")).lower() == "eth"
+                      and bool(params.get("eth_world_coords", False))),
     )
     return scfg._replace(**overrides)
 
@@ -292,7 +289,10 @@ def get_image_and_data_path(params):
     if "sdd" in dataset_name:
         image_path = os.path.join(params["data_dir"], params["dataset_name"],
                                   "raw", "annotations")
-    elif "ind" in dataset_name:
+    elif "ind" in dataset_name or dataset_name == "eth":
+        # eth: the port's layout, <data_dir>/eth/images/<scene>/oracle.png
+        # beside <data_dir>/eth_ucy/<scene>_H.txt (the reference and
+        # mst_tpu have no eth path here)
         image_path = os.path.join(params["data_dir"], params["dataset_name"],
                                   "images")
     else:

@@ -1,14 +1,18 @@
 """Train/val/test splits (counterpart of mst_tpu/data/splits.py:10-143;
 reference utils/data_utils.py:754-964).
 
-The functions take and return track tables (data/tracks.py) and draw from
-the global np.random stream exactly as mst_tpu does, so --shuffle under one
-np.random.seed picks the same metaIds. The pickles are pandas DataFrames:
-their readers import pandas when called, and nothing else here needs it.
-The varf and given-scenes helpers are not ported.
+The loop's functions take and return track tables (data/tracks.py) and
+draw from the global np.random stream exactly as mst_tpu does, so --shuffle
+under one np.random.seed picks the same metaIds. The pickles are pandas
+DataFrames: their readers import pandas when called. The builders' helpers
+at the end (mst_tpu/data/splits.py:146-215: the given-scenes split, the
+random train/val/test split and the variation-factor filters) take and
+write those pickles, the interface between the builders and either
+package's loop, and import pandas when called too.
 """
 
 import os
+import pathlib
 import warnings
 
 import numpy as np
@@ -150,3 +154,91 @@ def prepare_dataset(data_path, load_data, batch_size, n_train_batch,
             if d is not None and len(d):
                 print(f"{name}_meta_ids: {d.meta_ids()}")
     return train, val, test
+
+
+# ---------------------------------------------------------------------------
+# the builders' helpers on pandas pickles (mst_tpu/data/splits.py:146-215)
+# ---------------------------------------------------------------------------
+
+def _reduce_frame(df, meta_ids):
+    return df[df["metaId"].isin(np.asarray(meta_ids))]
+
+
+def dataset_split_given_scenes(data_path, files, scenes):
+    """The rows of the listed pickles in the given sceneIds (reference
+    data_utils.py:816-820) -> a DataFrame."""
+    import pandas as pd
+
+    print(f"Split {files} given scenes={scenes}")
+    df = pd.concat([pd.read_pickle(os.path.join(data_path, f))
+                    for f in files])
+    return df[df.sceneId.isin(scenes)]
+
+
+def separate_data_label(df):
+    """A velocity-bucketed DataFrame -> one frame per vel_range, sorted by
+    the range's label (reference utils/dataloader.py:53-56)."""
+    labels = np.sort(np.unique(df["vel_range"]))
+    return [df[df["vel_range"] == label] for label in labels]
+
+
+def split_train_val_test_randomly(data_dir, data_filename, val_split,
+                                  test_split, seed=1):
+    """<data_dir>/<name>.pkl -> <data_dir>/<name>/{train,val,test}.pkl,
+    the metaIds shuffled by np.random.default_rng(seed) (reference
+    data_utils.py:823-856, the split_dataset CLI)."""
+    import pandas as pd
+
+    out_dir = f"{data_dir}/{data_filename.replace('.pkl', '')}"
+    pathlib.Path(out_dir).mkdir(parents=True, exist_ok=True)
+    df = pd.read_pickle(f"{data_dir}/{data_filename}")
+    ids = np.unique(df["metaId"])
+    n = ids.shape[0]
+    n_val = int(val_split) if val_split > 1 else int(val_split * n)
+    n_test = int(test_split) if test_split > 1 else int(test_split * n)
+    n_train = n - n_val - n_test
+    np.random.default_rng(seed).shuffle(ids)
+    train_ids, val_ids, test_ids = np.split(ids, [n_train, n_train + n_val])
+    _reduce_frame(df, train_ids).to_pickle(f"{out_dir}/train.pkl")
+    _reduce_frame(df, val_ids).to_pickle(f"{out_dir}/val.pkl")
+    _reduce_frame(df, test_ids).to_pickle(f"{out_dir}/test.pkl")
+
+
+def filter_dataset_by_varf(data_path, out_path, varf, lower, upper, obs_len):
+    """Keep the trajectories whose `varf` statistic, computed from the data,
+    lies in [lower, upper] (reference utils/filter_dataset.py:5-18, the
+    recompute variant) -> the frame, also written to out_path."""
+    import pandas as pd
+
+    from mst_tpu_torch.data.trajectories import aggregate_per_varf_value
+
+    df = pd.read_pickle(data_path)
+    stats = aggregate_per_varf_value(df, varf, obs_len)
+    keep = stats[(stats[varf] >= lower) & (stats[varf] <= upper)].metaId
+    out = _reduce_frame(df, keep.to_numpy())
+    out.to_pickle(out_path)
+    return out
+
+
+def filter_by_varf_table(data_path, varf_path, lower_bound=None,
+                         upper_bound=None, factor="avg_vel", out_path=None):
+    """Keep the trajectories whose `factor` in a precomputed varf table
+    (written by the builders or generate_varf) lies within the optional
+    bounds (reference utils/filter_dataset.py:5-18 `filter_by_avg_vel`)
+    -> the frame, written to out_path (default <data>_filter.pkl beside
+    the input)."""
+    import pandas as pd
+
+    data = pd.read_pickle(data_path)
+    varf = pd.read_pickle(varf_path)
+    varf = varf[varf.metaId.isin(data.metaId.unique())]
+    if lower_bound is not None:
+        varf = varf[varf[factor] >= lower_bound]
+    if upper_bound is not None:
+        varf = varf[varf[factor] <= upper_bound]
+    out = data[data.metaId.isin(varf.metaId.unique())]
+    print(f"Before filter: #={data.shape[0]}")
+    print(f"After filter: #={out.shape[0]}")
+    out_path = out_path or data_path.replace(".pkl", "_filter.pkl")
+    out.to_pickle(out_path)
+    return out

@@ -1,7 +1,11 @@
 """Synthetic scenes (counterpart of mst_tpu/data/synthetic.py:13-47): random
 RGB-like images and smooth random-walk tracks, drawn from one numpy
-generator in mst_tpu's order, so a seed gives mst_tpu's rows.
+generator in mst_tpu's order, so a seed gives mst_tpu's rows; and
+write_sdd_annotations, which writes tracks in SDD's raw annotation format
+for the builders (data/sdd.py).
 """
+
+import os
 
 import numpy as np
 
@@ -48,3 +52,49 @@ def make_synthetic_dataset(seed=0, n_scenes=2, n_traj=16, total_len=20,
         images[scene_id] = rng.uniform(
             0, 1, size=(*img_hw, n_channels)).astype(np.float32)
     return Tracks.concat(tables), images
+
+
+SDD_LABELS = ("Pedestrian", "Biker", "Car")
+
+
+def write_sdd_annotations(tracks, root, step=1, labels=SDD_LABELS,
+                          half_box=2.0, lost_every=0):
+    """Tracks -> SDD's raw layout, root/annotations/<name>/video<i>/
+    annotations.txt for scene '<name>_<i>' (what data.sdd.load_raw_sdd
+    reads). Each track's samples are `step` raw frames apart, with the
+    frames between interpolated linearly, so a builder that downsamples by
+    `step` gets the samples back; its bounding box is centred on the point
+    (half width half_box) and its label is labels[metaId % len(labels)].
+    With lost_every k > 0, every k-th raw row of each odd metaId is marked
+    lost, which the builder drops, splitting that track into fragments.
+    Each file starts with a header row, which the loader's header=0
+    consumes (the released files have none, so there it drops their first
+    row, as the reference's does). -> the number of rows written."""
+    n = 0
+    for scene in tracks.scene_ids():
+        t = tracks.take(tracks.sceneId == scene)
+        name, idx = scene.rsplit("_", 1)
+        d = os.path.join(root, "annotations", name, f"video{idx}")
+        os.makedirs(d, exist_ok=True)
+        rows = [" ".join(("trackId", "xmin", "ymin", "xmax", "ymax",
+                          "frame", "lost", "occluded", "generated",
+                          "label"))]
+        for track, meta in enumerate(np.unique(t.metaId)):
+            sel = t.metaId == meta
+            xy = np.stack([t.x[sel], t.y[sel]], axis=1)
+            f0 = int(t.frame[sel][0]) * step
+            label = labels[int(meta) % len(labels)]
+            frac = (np.arange(step) / step)[None, :, None]
+            dense = (xy[:-1, None] + (xy[1:] - xy[:-1])[:, None] * frac
+                     ).reshape(-1, 2)
+            dense = np.concatenate([dense, xy[-1:]])
+            for j, (x, y) in enumerate(dense):
+                lost = int(lost_every > 0 and meta % 2 == 1
+                           and j % lost_every == lost_every - 1)
+                rows.append(f"{track} {x - half_box:.4f} {y - half_box:.4f} "
+                            f"{x + half_box:.4f} {y + half_box:.4f} "
+                            f"{f0 + j} {lost} 0 0 \"{label}\"")
+        with open(os.path.join(d, "annotations.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+        n += len(rows) - 1
+    return n

@@ -1,5 +1,6 @@
 """Weight bridge from the JAX package's checkpoints (counterpart of
-mst_tpu/train/checkpoints.py:60-75, 111-148).
+mst_tpu/train/checkpoints.py:60-75, 111-148), and the Adam state of its
+training-state file (adam_state_to_numpy / adam_state_from_numpy).
 
 A checkpoint is a flat npz with '/'-joined keys ('encoder/stages/0/conv0/
 weight'). Conv weights are HWIO there and OIHW here; LoRA factors
@@ -121,3 +122,85 @@ def load_separated(params, base_path, delta_path):
     for path in (base_path, delta_path):
         params = overlay(params, params_from_numpy(load_checkpoint(path)))
     return params
+
+
+# ---------------------------------------------------------------------------
+# the optimizer state of a training-state file (mst_tpu/train/trainer.py:
+# 791-888): optax.adam(schedule)'s leaves in jax.tree_util order
+# ---------------------------------------------------------------------------
+
+def jax_leaf_order(keys):
+    """The '/'-joined paths in the order jax.tree_util flattens their nested
+    dict: each level's keys sorted. This sorts the paths' tuples of parts,
+    not the joined strings, which differ where a key holds a character
+    below '/'."""
+    return sorted(keys, key=lambda k: tuple(k.split("/")))
+
+
+def _to_jax_layout(key, arr):
+    return arr.transpose(2, 3, 1, 0) if key.endswith("weight") and \
+        arr.ndim == 4 else arr
+
+
+def adam_state_to_numpy(named, optimizer, scheduler):
+    """torch.optim.Adam's state over the trainable leaves `named` ({path:
+    parameter}) -> optax.adam's leaves: the int32 count, the first moments
+    (mu) and the second moments (nu), each in jax_leaf_order and the JAX
+    layout (conv weights HWIO), then the schedule's int32 count when the
+    LR has milestones (optax's piecewise_constant_schedule state). Both
+    counts are the scheduler's steps, the global step; a leaf that never
+    had a gradient has zero moments, as in optax."""
+    count = np.asarray(scheduler.last_epoch, np.int32)
+    moments = {"exp_avg": [], "exp_avg_sq": []}
+    for key in jax_leaf_order(named):
+        param = named[key]
+        state = optimizer.state.get(param, {})
+        for name, out in moments.items():
+            m = state.get(name)
+            arr = (np.zeros(tuple(param.shape), np.float32) if m is None
+                   else m.detach().cpu().numpy())
+            out.append(np.ascontiguousarray(_to_jax_layout(key, arr)))
+    leaves = [count, *moments["exp_avg"], *moments["exp_avg_sq"]]
+    if scheduler.milestones:
+        leaves.append(count.copy())
+    return leaves
+
+
+def adam_state_from_numpy(leaves, named, optimizer, scheduler):
+    """The inverse: optax.adam's leaves (as adam_state_to_numpy gives them)
+    -> the Adam state of every leaf of `named` (step = the count,
+    exp_avg = mu, exp_avg_sq = nu) and the scheduler's position:
+    last_epoch = the count, and the group's LR the base LR times gamma once
+    for each milestone at or below it, as MultiStepLR reaches it step by
+    step."""
+    keys = jax_leaf_order(named)
+    n = len(keys)
+    want = 1 + 2 * n + (1 if scheduler.milestones else 0)
+    if len(leaves) != want:
+        raise ValueError(f"an Adam state of {len(leaves)} leaves; "
+                         f"{n} trainable leaves with"
+                         f"{'' if scheduler.milestones else 'out'} a "
+                         f"schedule need {want}")
+    count = int(np.asarray(leaves[0]))
+    for i, key in enumerate(keys):
+        param = named[key]
+        state = {"step": torch.tensor(float(count), dtype=torch.float32)}
+        for name, arr in (("exp_avg", leaves[1 + i]),
+                          ("exp_avg_sq", leaves[1 + n + i])):
+            arr = np.asarray(arr, np.float32)
+            if key.endswith("weight") and arr.ndim == 4:
+                arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+            if tuple(arr.shape) != tuple(param.shape):
+                raise ValueError(f"'{key}': Adam moment of shape "
+                                 f"{arr.shape}, the leaf is "
+                                 f"{tuple(param.shape)}")
+            state[name] = torch.tensor(arr, device=param.device)
+        optimizer.state[param] = state
+    scheduler.last_epoch = count
+    for group, base_lr in zip(optimizer.param_groups, scheduler.base_lrs):
+        lr = base_lr
+        for m, times in sorted(scheduler.milestones.items()):
+            if m <= count:
+                lr = lr * scheduler.gamma ** times
+        group["lr"] = lr
+    scheduler._last_lr = [g["lr"] for g in optimizer.param_groups]

@@ -12,8 +12,10 @@ position levels), 'serial*'/'parallel*' (the adapters), 'mosa_<r>',
 'semantic_<k>x<k>', the Y-Net-Mod branch sets ('scene', ...,
 'scene_motion_fusion', with network='fusion'),
 'biasEncoder'/'biasGoal'/'biasTraj'/'bias', the backbone's
-'segmentation_{head,bias,bn,<layer>}', and the additive ynet_bias flag.
-The backbone ('segmentation/...') is frozen under every other strategy.
+'segmentation_{head,bias,bn,<layer>}' (their weights and biases: the
+running statistics stay out, as in the reference), and the additive
+ynet_bias flag. The backbone ('segmentation/...') is frozen under every
+other strategy.
 """
 
 import re
@@ -35,6 +37,12 @@ _FUSION_BRANCHES = {
     "motion_fusion": ("motion_stages", "fusion_stages"),
     "scene_motion": ("scene_stages", "motion_stages"),
 }
+
+
+def is_running_statistic(p: str) -> bool:
+    """A batch norm's running statistic or counter: model state that no
+    optimizer trains."""
+    return p.endswith(("/running_mean", "/running_var", "/num_batches"))
 
 
 def _is_ynet_bias(p: str) -> bool:
@@ -71,16 +79,23 @@ def _base_predicate(train_net, position, network):
         prefixes = _BIAS_PREFIXES[train_net]
         return lambda p: p.endswith("/bias") and p.startswith(prefixes)
     if train_net.startswith("segmentation"):
-        # mst_tpu's rule with its quirks (freeze.py:90-96): head, bias and
-        # bn match by substring, so 'bn' selects the encoder's bn1-bn3
-        # (their running statistics too) and not the decoder's; any other
-        # word is a decoder layer, 'decoder/blocks/<i>/<word>'
+        # mst_tpu's rule (freeze.py:90-96): head, bias and bn match by
+        # substring, so 'bn' selects the encoder's bn1-bn3 and not the
+        # decoder's; any other word is a decoder layer,
+        # 'decoder/blocks/<i>/<word>'. The running statistics are left out:
+        # the reference's are buffers its Adam never moves (trainer.py:
+        # 182-190), where mst_tpu's mask selects them (ROADMAP Queue 3 #10)
         layer = train_net.split("_")[1]
         if layer in ("head", "bias", "bn"):
-            return lambda p: p.startswith("segmentation/") and layer in p
-        pattern = re.compile(rf"decoder/blocks/\d+/{layer}")
-        return lambda p: (p.startswith("segmentation/")
-                          and pattern.search(p) is not None)
+            def match(p):
+                return layer in p
+        else:
+            pattern = re.compile(rf"decoder/blocks/\d+/{layer}")
+
+            def match(p):
+                return pattern.search(p) is not None
+        return lambda p: (p.startswith("segmentation/") and match(p)
+                          and not is_running_statistic(p))
     raise NotImplementedError(
         f"train_net={train_net!r} is not a strategy of "
         f"network={network!r}")

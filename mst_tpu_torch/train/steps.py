@@ -16,7 +16,8 @@ from typing import Any, NamedTuple
 
 import torch
 
-from mst_tpu_torch.evaluator.metrics import ade_fde_per_sample
+from mst_tpu_torch.evaluator.metrics import (ade_fde_per_sample,
+                                             ade_fde_per_sample_world)
 from mst_tpu_torch.models import ynet as ynet_lib
 from mst_tpu_torch.models.unet import unet_apply
 from mst_tpu_torch.ops.heatmap import (rasterize_dist_nhwc,
@@ -66,6 +67,10 @@ class StepConfig(NamedTuple):
     # the batch's statistics and moves state['segmentation_bn']
     segment_train_mode: bool = False
     use_features_only: bool = False  # the backbone's 16 decoder channels
+    # ETH/UCY (--eth_world_coords): the metrics in world coordinates, through
+    # the batch's per-scene 'homography' (3, 3) with the eth/hotel x/y swap
+    # folded in (the trainer's _homography_for)
+    world_coords: bool = False
 
 
 def swap_pavement_terrain(semantic_img):
@@ -229,7 +234,8 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     min-over-K 'ade', 'fde' (B,), 'best_traj' (B, pred_len, 2) raw pixels,
     and the masked sums. state is the model state, read in eval mode (the
     batch norms' running statistics). batch: 'semantic' (1 or B, H, W, C),
-    'traj' (B, obs_len + pred_len, 2) model-space pixels, 'mask' (B,).
+    'traj' (B, obs_len + pred_len, 2) model-space pixels, 'mask' (B,), and
+    with world_coords the scene's 'homography' (3, 3).
 
     The parts are exposed: eval_step.forward -> (features, waypoint
     samples (K, B, n_wp, 2)); eval_step.prepredictor -> the decode tail's
@@ -311,13 +317,24 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
         return torch.cat([decode_chunk(c)
                           for c in waypoint_samples.split(kc)])
 
-    def decode_and_score(params, features, waypoint_samples, traj, mask):
-        """K decodes + the min-over-K metrics (evaluate.py:248-291)."""
+    def decode_and_score(params, features, waypoint_samples, traj, mask,
+                         homography=None):
+        """K decodes + the min-over-K metrics (evaluate.py:248-291), in
+        world coordinates through `homography` when world_coords
+        (mst_tpu/train/steps.py:523-544), else in raw pixels."""
         trajs = decode_trajs(params, features, waypoint_samples)
         gt_future = traj[:, scfg.obs_len:]
-        ade_k, fde_k = ade_fde_per_sample(gt_future, trajs,
-                                          waypoint_samples[:, :, -1],
-                                          scfg.resize_factor)
+        if scfg.world_coords:
+            if homography is None:
+                raise ValueError("world_coords needs the batch's "
+                                 "'homography'")
+            ade_k, fde_k = ade_fde_per_sample_world(
+                gt_future, trajs, waypoint_samples[:, :, -1],
+                scfg.resize_factor, homography)
+        else:
+            ade_k, fde_k = ade_fde_per_sample(gt_future, trajs,
+                                              waypoint_samples[:, :, -1],
+                                              scfg.resize_factor)
         ade, best_idx = ade_k.min(dim=0)
         fde = fde_k.amin(dim=0)
         best_traj = trajs[best_idx, torch.arange(trajs.shape[1],
@@ -332,7 +349,8 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
         features, waypoint_samples = forward(params, state, batch,
                                              generator)
         return decode_and_score(params, features, waypoint_samples,
-                                batch["traj"], batch["mask"])
+                                batch["traj"], batch["mask"],
+                                batch.get("homography"))
 
     eval_step.forward = torch.no_grad()(forward)
     eval_step.prepredictor = prepredictor

@@ -10,9 +10,14 @@ checkpoint saved here loads in mst_tpu and in serve.Predictor.add_style.
 Experiment keeps mst_tpu's policy: the per-epoch batch shuffle, the NaN
 guard, smooth-val with its lagging snapshot window, best tracking and the
 best-weights save when not fine-tuning, save_every_n saves, the fine-tune
-early stop and the roll back to the best snapshot. Not ported: the fused
-multi-epoch program, --resume, cross-scene batching, device meshes, eth,
-and forward_test (config.check_loop_ported raises on the flags).
+early stop and the roll back to the best snapshot. Every save_every_n
+epochs it also writes the training state that --resume restores
+(save_training_state, in mst_tpu's file layout, so a run that either
+package started resumes in the other). The eth dataset reads its scenes'
+oracle.png class masks, attaches each scene's homography to its batches
+(for --eth_world_coords) and validates on the reference's cut of scenes.
+Not ported: the fused multi-epoch program, cross-scene batching, device
+meshes and forward_test (config.check_loop_ported raises on the flags).
 
 The segmentation backbone (when its file exists) turns each scene's
 image into its semantic map once a pass and a cache (_semantic_for):
@@ -43,6 +48,7 @@ import collections
 import json
 import math
 import os
+import re
 import time
 
 import numpy as np
@@ -63,8 +69,12 @@ from mst_tpu_torch.utils.profiling import ThroughputMeter
 # the metadata sidecar's keys (trainer.py:107-110)
 METADATA_KEYS = ("train_net", "position", "network", "n_fusion", "seed",
                  "lr", "n_train_batch", "ynet_bias")
-_IMAGE_FILES = {"sdd": "reference.jpg", "ind-dataset-v1.0": "reference.png"}
+_IMAGE_FILES = {"sdd": "reference.jpg", "ind-dataset-v1.0": "reference.png",
+                "eth": "oracle.png"}
 TEST_STREAM = 10_000  # test round e draws from stream TEST_STREAM + e
+# the eth/hotel homographies take (y, x): their swap (reference
+# image_utils.py:151-153) as a column permutation of the matrix
+_XY_SWAP = np.array([[0, 1, 0], [1, 0, 0], [0, 0, 1]], np.float32)
 
 
 def setup_training(model_params, params_dict, steps_per_epoch: int):
@@ -159,6 +169,7 @@ class Experiment:
         self.epoch_log = []  # one record an epoch (see train)
         self.best_epoch = None  # train's best epoch
         self.n_shrinks = 0  # eval_k_chunk steps down the shrink ladder took
+        self._homo_cache = {}  # eth: scene -> homography (_homography_for)
 
     # -- checkpoints (reference trainer.py:586-614) --------------------------
     def load_params(self, path):
@@ -187,6 +198,7 @@ class Experiment:
         'train' shuffles with rng."""
         p = self.params
         scenes = tracks.scene_ids()
+        seg_mask = self._is_eth()  # oracle.png: class ids, one-hot
         if self._images_override is not None:
             raw = {k: np.asarray(v) for k, v in self._images_override.items()
                    if k in set(scenes)}
@@ -194,32 +206,75 @@ class Experiment:
             raw = images_lib.load_images(
                 scenes, image_path,
                 _IMAGE_FILES.get(p["dataset_name"].lower(), "reference.jpg"),
-                p.get("use_raw_data", False))
+                p.get("use_raw_data", False), seg_mask)
         if augment:
             tracks, raw = images_lib.augment_data(tracks, raw)
         images = images_lib.preprocess_scene_images(
-            raw, p["resize_factor"], self.division_factor, False,
+            raw, p["resize_factor"], self.division_factor, seg_mask,
             p["n_semantic_classes"])
         return scenes_lib.make_scene_batches(
             tracks, images, p["obs_len"] + p["pred_len"],
             int(p["batch_size"]), p["resize_factor"],
             shuffle=(mode == "train"), rng=rng)
 
+    def _is_eth(self):
+        return self.params["dataset_name"].lower() == "eth"
+
+    def _homography_for(self, scene_id):
+        """The ETH/UCY scene's homography (reference trainer.py:550-557),
+        read once from <data_dir>/eth_ucy/<scene>_H.txt: the scene id
+        without its augmentation suffixes (a scene name may hold '_', as
+        uni_examples does), and for eth and hotel the x/y swap folded in
+        as a column permutation, so one matrix serves every scene
+        (mst_tpu/train/trainer.py:203-222)."""
+        scene = re.sub(r"(_rot90|_rot180|_rot270|_fliplr)+$", "", scene_id)
+        if scene not in self._homo_cache:
+            mat = np.loadtxt(os.path.join(
+                self.params.get("data_dir", "data"), "eth_ucy",
+                f"{scene}_H.txt")).astype(np.float32)
+            if scene in ("eth", "hotel"):
+                mat = mat @ _XY_SWAP
+            self._homo_cache[scene] = mat
+        return self._homo_cache[scene]
+
     def _device_batches(self, batches):
         """[(batch, its device batch)], each scene's preprocessed image
-        (1, H, W, C) uploaded once as 'image'; _with_semantic adds the
-        semantic map."""
-        images = {}
+        (1, H, W, C) uploaded once as 'image', and on eth its homography;
+        _with_semantic adds the semantic map."""
+        images, homographies = {}, {}
         out = []
         for b in batches:
             if b.scene_id not in images:
                 images[b.scene_id] = torch.tensor(b.image[None],
                                                   device=self.device)
-            out.append((b, {
-                "image": images[b.scene_id],
-                "traj": torch.tensor(b.trajectories, device=self.device),
-                "mask": torch.tensor(b.mask, device=self.device)}))
+                if self._is_eth():
+                    homographies[b.scene_id] = torch.tensor(
+                        self._homography_for(b.scene_id),
+                        device=self.device)
+            db = {"image": images[b.scene_id],
+                  "traj": torch.tensor(b.trajectories, device=self.device),
+                  "mask": torch.tensor(b.mask, device=self.device)}
+            if self._is_eth():
+                db["homography"] = homographies[b.scene_id]
+            out.append((b, db))
         return out
+
+    def _validation_cut(self, batches):
+        """On eth, the batches of the first 30 // batch_size scenes (at
+        least one): the reference breaks out of its validation once
+        batch_size * n_scenes exceeds 30 (evaluate.py:104-107;
+        mst_tpu/train/trainer.py:437-450). Elsewhere all of them."""
+        if not self._is_eth():
+            return batches
+        n_scenes = max(1, 30 // max(int(self.params["batch_size"]), 1))
+        seen, keep = [], []
+        for b in batches:
+            if b.scene_id not in seen:
+                if len(seen) == n_scenes:
+                    break
+                seen.append(b.scene_id)
+            keep.append(b)
+        return keep
 
     def _segment_in_step(self):
         """The backbone runs inside every train step when a
@@ -270,10 +325,17 @@ class Experiment:
 
     def _with_semantic(self, items, cache, raw=False):
         """items with each device batch's 'semantic' (_semantic_for)."""
-        return [(b, {"semantic": self._semantic_for(b.scene_id, db["image"],
-                                                    cache, raw),
-                     "traj": db["traj"], "mask": db["mask"]})
-                for b, db in items]
+        return [(b, self._step_batch(b, db, cache, raw)) for b, db in items]
+
+    def _step_batch(self, b, db, cache, raw=False):
+        """A step's batch: 'semantic' (_semantic_for), 'traj', 'mask', and
+        'homography' where the device batch has one."""
+        out = {"semantic": self._semantic_for(b.scene_id, db["image"], cache,
+                                              raw),
+               "traj": db["traj"], "mask": db["mask"]}
+        if "homography" in db:
+            out["homography"] = db["homography"]
+        return out
 
     # -- evaluation (reference trainer.py:295-352) ---------------------------
     def _eval_step(self, eval_k_chunk=None, for_validation=False):
@@ -390,8 +452,10 @@ class Experiment:
         """Train n_epoch epochs with per-epoch validation (TTST off) and
         mst_tpu's checkpoint policy (trainer.py:474-789) -> (val ADEs, val
         FDEs). Writes <ckpt_path>/<experiment_name>.npz at the end, plus
-        _weights.npz on each new best when not fine-tuning and __epoch_<e>
-        .npz every save_every_n epochs. Each epoch's record (the JSONL
+        _weights.npz on each new best when not fine-tuning, and every
+        save_every_n epochs __epoch_<e>.npz and the training state
+        __train_state.npz (save_training_state), which --resume restores
+        before the first epoch. Each epoch's record (the JSONL
         line, also appended to self.epoch_log) adds n_steps, the host
         seconds of its steps (ending in the epoch's one metrics read) and
         of its validation; self.prepare_seconds is the data preparation
@@ -403,8 +467,8 @@ class Experiment:
         train_items = self._device_batches(self.prepare_data(
             train_tracks, train_image_path, "train",
             augment=p.get("augment", False), rng=rng))
-        val_items = self._device_batches(
-            self.prepare_data(val_tracks, val_image_path, "val"))
+        val_items = self._device_batches(self._validation_cut(
+            self.prepare_data(val_tracks, val_image_path, "val")))
         self.prepare_seconds = time.perf_counter() - t_prep
 
         setup = setup_training(self.model_params, p, len(train_items))
@@ -444,6 +508,31 @@ class Experiment:
         meter = ThroughputMeter()
         n_batches = len(train_items)
         state = self.model_state
+
+        # --resume: the trainable leaves, Adam, the epoch, the model state,
+        # the val history, the best snapshot and smooth-val's window, then
+        # the per-epoch shuffles fast-forwarded, so the run goes on as an
+        # uninterrupted one would (trainer.py:524-553)
+        start_epoch = 0
+        train_state_path = os.path.join(
+            p["ckpt_path"], f"{experiment_name}__train_state.npz")
+        if p.get("resume") and os.path.exists(train_state_path):
+            start_epoch, extras = self.restore_training_state(
+                train_state_path, trainable, optimizer, scheduler)
+            if extras["model_state"] is not None:
+                state = extras["model_state"]
+                self.model_state = state
+            self.val_ADE = extras["val_ADE"]
+            self.val_FDE = extras["val_FDE"]
+            if extras["best_val_ade"] is not None:
+                best_val_ade = float(extras["best_val_ade"])
+            best_epoch = int(extras["best_epoch"] or 0)
+            best_snapshot = extras["best_snapshot"]
+            snapshots = collections.deque(extras["snapshots"])
+            for _ in range(start_epoch):
+                rng.shuffle(train_items)
+            print(f"Resumed training state at epoch {start_epoch} "
+                  f"from {train_state_path}")
 
         def finish_epoch(e, losses, ade_sum, fde_sum, n_sum, val_ade,
                          val_fde, snapshot, timing):
@@ -503,6 +592,13 @@ class Experiment:
                 config_lib.ensure_dir(p["ckpt_path"])
                 self.save_params(
                     f'{p["ckpt_path"]}/{experiment_name}__epoch_{e}.npz')
+                self.save_training_state(
+                    train_state_path, trainable, optimizer, scheduler, e + 1,
+                    val_history=self.val_ADE, model_state=state,
+                    val_fde_history=self.val_FDE,
+                    best_snapshot=best_snapshot, best_val_ade=best_val_ade,
+                    best_epoch=best_epoch,
+                    snapshots=snapshots if smooth_val else None)
 
             # early stop on clear overfitting (trainer.py:279-281)
             if fine_tune and self.val_ADE and \
@@ -511,7 +607,7 @@ class Experiment:
                 return True
             return False
 
-        for e in range(int(p["n_epoch"])):
+        for e in range(start_epoch, int(p["n_epoch"])):
             # from e_unfreeze the backbone runs inside the step with its
             # batch norms on the batch's statistics; their running
             # statistics start from the inline ones and adapt in
@@ -532,9 +628,7 @@ class Experiment:
             rng.shuffle(train_items)
             step_metrics = []
             for b, db in train_items:
-                db = {"semantic": self._semantic_for(
-                          b.scene_id, db["image"], seg_cache, raw),
-                      "traj": db["traj"], "mask": db["mask"]}
+                db = self._step_batch(b, db, seg_cache, raw)
                 state, m = step(self.model_params, state, optimizer,
                                 scheduler, db)
                 step_metrics.append(m)
@@ -574,6 +668,98 @@ class Experiment:
               f"({rates['traj_per_sec']:.1f} traj/s, "
               f"{rates['batches_per_sec']:.1f} scene-batches/s)")
         return self.val_ADE, self.val_FDE
+
+    # -- the training state (--resume; mst_tpu/train/trainer.py:791-888) ----
+    def save_training_state(self, path, trainable, optimizer, scheduler,
+                            epoch, val_history=None, model_state=None,
+                            val_fde_history=None, best_snapshot=None,
+                            best_val_ade=None, best_epoch=None,
+                            snapshots=None):
+        """Everything a resume needs, in mst_tpu's file, key for key: at
+        path an npz of 'trainable/<leaf>' (the trainable leaves, {path:
+        parameter}), 'opt/<i>' (optax.adam's leaves, io.adam_state_to_numpy),
+        'state/<leaf>' (the model state), 'best/<leaf>' (the best
+        snapshot) and 'snap/<i>/<leaf>' (smooth-val's window), all in the
+        JAX layout; at path + '.json' the checkpoint metadata with the
+        epoch, the val histories, has_best, n_snapshots, best_val_ade (when
+        finite) and best_epoch."""
+        snapshots = list(snapshots) if snapshots else []
+        flat = {f"trainable/{k}": v
+                for k, v in io.params_to_numpy(trainable).items()}
+        for i, leaf in enumerate(io.adam_state_to_numpy(trainable, optimizer,
+                                                        scheduler)):
+            flat[f"opt/{i}"] = leaf
+        if model_state:
+            flat.update({f"state/{k}": v for k, v in
+                         io.state_to_numpy(model_state).items()})
+        if best_snapshot is not None:
+            flat.update({f"best/{k}": v for k, v in
+                         io.params_to_numpy(best_snapshot).items()})
+        for i, snap in enumerate(snapshots):
+            flat.update({f"snap/{i}/{k}": v for k, v in
+                         io.params_to_numpy(snap).items()})
+        meta = {**{k: self.params.get(k) for k in METADATA_KEYS},
+                "epoch": epoch,
+                "val_ADE": list(map(float, val_history or [])),
+                "val_FDE": list(map(float, val_fde_history or [])),
+                "has_best": best_snapshot is not None,
+                "n_snapshots": len(snapshots)}
+        if best_val_ade is not None and np.isfinite(best_val_ade):
+            meta["best_val_ade"] = float(best_val_ade)
+        if best_epoch is not None:
+            meta["best_epoch"] = int(best_epoch)
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        np.savez(path, **flat)
+        with open(str(path) + ".json", "w") as f:
+            json.dump(meta, f, default=str)
+
+    def restore_training_state(self, path, trainable, optimizer, scheduler):
+        """The inverse, onto the trainable leaves ({path: parameter},
+        overwritten in place where the file has them), Adam's state and the
+        scheduler (io.adam_state_from_numpy) -> (epoch, extras): extras
+        holds the model state (or None), the best snapshot ({path:
+        tensor}, or None), smooth-val's window (a list of those), the val
+        histories, best_val_ade (or None) and best_epoch. A file that
+        either package wrote restores in the other."""
+        flat = io.load_checkpoint(path)
+        with open(str(path) + ".json") as f:
+            meta = json.load(f)
+
+        def part(prefix):
+            """The file's trainable leaves under prefix, as {path: tensor}
+            on the device in the port's layout (others are skipped, as
+            mst_tpu's non-strict overlay skips them)."""
+            sub = {k[len(prefix):]: v for k, v in flat.items()
+                   if k.startswith(prefix) and k[len(prefix):] in trainable}
+            return io.flatten(io.params_from_numpy(sub, self.device)) \
+                if sub else {}
+
+        with torch.no_grad():
+            for k, v in part("trainable/").items():
+                if tuple(v.shape) != tuple(trainable[k].shape):
+                    raise ValueError(
+                        f"'{k}': shape {tuple(v.shape)} in {path}, the leaf "
+                        f"is {tuple(trainable[k].shape)}")
+                trainable[k].copy_(v)
+        n_opt = sum(1 for k in flat if k.startswith("opt/"))
+        io.adam_state_from_numpy([flat[f"opt/{i}"] for i in range(n_opt)],
+                                 trainable, optimizer, scheduler)
+        extras = {"val_ADE": list(meta.get("val_ADE", [])),
+                  "val_FDE": list(meta.get("val_FDE", [])),
+                  "best_val_ade": meta.get("best_val_ade"),
+                  "best_epoch": meta.get("best_epoch", 0),
+                  "model_state": None, "best_snapshot": None,
+                  "snapshots": []}
+        state = {k[len("state/"):]: v for k, v in flat.items()
+                 if k.startswith("state/")}
+        if state:
+            extras["model_state"] = io.state_from_numpy(state, self.device)
+        if meta.get("has_best"):
+            extras["best_snapshot"] = part("best/")
+        extras["snapshots"] = [part(f"snap/{i}/")
+                               for i in range(int(meta.get("n_snapshots",
+                                                           0)))]
+        return int(meta["epoch"]), extras
 
 
 def restore_model(params, is_separated, base_ckpt, separated_ckpt=None,

@@ -391,4 +391,13 @@ def test_image_and_data_path(tmp_path):
     with pytest.raises(FileNotFoundError, match="data dir"):
         config.get_image_and_data_path(dict(params, dataset_path="nope"))
     with pytest.raises(ValueError, match="Invalid"):
-        config.get_image_and_data_path(dict(params, dataset_name="eth"))
+        config.get_image_and_data_path(dict(params, dataset_name="ucy"))
+    # eth, which mst_tpu's CLIs do not reach: <data_dir>/eth/images beside
+    # the dataset path, as inD's
+    (tmp_path / "eth" / "images").mkdir(parents=True)
+    (tmp_path / "eth" / "filter").mkdir()
+    with pytest.raises(ValueError, match="Invalid"):
+        jconfig.get_image_and_data_path(dict(params, dataset_name="eth"))
+    assert config.get_image_and_data_path(dict(params, dataset_name="eth")) \
+        == (str(tmp_path / "eth" / "images"), str(tmp_path / "eth" /
+                                                   "filter"))

@@ -148,8 +148,7 @@ def run_policy(tmp_path, monkeypatch, capsys, data, train_net, script,
         exp.train(split[train_part], split["val"], None, None, "exp")
         with open(tmp_path / side / "metrics.jsonl") as f:
             records = [json.loads(line) for line in f]
-        files = sorted(f for f in os.listdir(tmp_path / side / "ckpts")
-                       if "__train_state" not in f)
+        files = sorted(os.listdir(tmp_path / side / "ckpts"))
         out[side] = (records, capsys.readouterr().out, files)
     return port, jexp, out
 
@@ -167,7 +166,7 @@ def assert_same_policy(out, best, stop):
         assert re.search(r"Best epoch at (\d+)", text).group(1) == str(best)
     assert ("Early stop at epoch" in got_out) == \
         ("Early stop at epoch" in want_out)
-    # mst_tpu also writes a __train_state for --resume, which is not ported
+    # the same checkpoints and training-state files (--resume)
     assert got_files == want_files
 
 
@@ -191,7 +190,8 @@ def test_scratch_train_policy_matches_jax(tmp_path, monkeypatch, capsys,
                                  lr=1e-4, batch_size=8)
     assert_same_policy(out, best=1, stop=2)
     assert out["port"][2] == sorted(
-        f"exp{s}{ext}" for s in ("", "_weights", "__epoch_1")
+        f"exp{s}{ext}" for s in ("", "_weights", "__epoch_1",
+                                 "__train_state")
         for ext in (".npz", ".npz.json"))
     # augmentation makes 16 scenes of the 2, each with one batch
     assert [r["n_steps"] for r in out["port"][0]] == [16] * 3
@@ -213,7 +213,7 @@ def test_finetune_policy_matches_jax(tmp_path, monkeypatch, capsys, data,
     assert "Early stop at epoch 7" in out["port"][1]
     assert out["port"][2] == sorted(
         f"exp{s}{ext}" for s in ("", "__epoch_1", "__epoch_3", "__epoch_5",
-                                 "__epoch_7")
+                                 "__epoch_7", "__train_state")
         for ext in (".npz", ".npz.json"))
     assert_params_close(port, jexp)
     with np.load(tmp_path / "port" / "ckpts" / "exp.npz") as z:
@@ -396,9 +396,14 @@ def test_shrink_ladder_steps_down_on_oom(tmp_path, monkeypatch, data):
     ("eth", dict(dataset_name="eth")),
     ("segmentation", dict(segmentation_model_fp=__file__))])
 def test_unported_loop_flags_raise(tmp_path, flag, over):
-    """Each flag raises, naming itself; but the segmentation backbone,
-    which is ported: a backbone npz builds the model with it, and a file
-    that exists but is no backbone npz (this test file) raises."""
+    """Each flag raises, naming itself; but those since ported: the
+    segmentation backbone (a backbone npz builds the model with it, and a
+    file that exists but is no backbone npz, this test file, raises),
+    --resume and the eth dataset (an Experiment builds)."""
+    if flag in ("resume", "eth"):
+        exp = trainer.Experiment(loop_params(tmp_path, **over))
+        assert all(exp.params[k] == v for k, v in over.items())
+        return
     if flag == "segmentation":
         seg = tmp_path / "sdd_segmentation.npz"
         np.savez(seg, **io.params_to_numpy(unet.unet_init(
@@ -532,6 +537,9 @@ def test_clis_need_a_card_unless_told(workdir, monkeypatch):
 
 def test_cli_raises_on_unported_flags(workdir, monkeypatch):
     monkeypatch.chdir(workdir)
-    for flag in ("--fused", "--resume", "--remat", "--cross_scene_batching"):
+    for flag in ("--fused", "--remat", "--cross_scene_batching"):
         with pytest.raises(NotImplementedError, match=flag[2:]):
             run_train(COMMON + [flag])
+    # --resume is ported: the parser takes it into the params
+    args = config.get_parser(True).parse_args(COMMON + ["--resume"])
+    assert config.get_params(args=args)["resume"] is True

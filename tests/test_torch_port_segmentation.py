@@ -364,10 +364,12 @@ def backbone_file(tmp_path, flat):
 def test_freeze_selection_matches_jax(shallow, train_net, position,
                                       ynet_bias):
     """set_trainable on a Y-Net with a backbone marks exactly the leaves
-    mst_tpu's trainable_mask marks, key for key, with its quirks: 'bn'
-    selects the encoder's bn1-bn3 with their running statistics, a layer
-    word selects 'decoder/blocks/<i>/<word>', '_meta' never trains and
-    every other strategy leaves the backbone frozen."""
+    mst_tpu's trainable_mask marks, key for key, with its quirks ('bn'
+    selects the encoder's bn1-bn3, a layer word selects
+    'decoder/blocks/<i>/<word>', '_meta' never trains, every other strategy
+    leaves the backbone frozen), but one difference: under a
+    segmentation_* strategy the running statistics, which mst_tpu's mask
+    also selects, stay out, as in the reference (ROADMAP Queue 3 #10)."""
     flat, _, _ = shallow
     params = config.get_params("sdd_shortterm_train.yaml", dict(
         SMALL, train_net=train_net, position=position))
@@ -377,14 +379,87 @@ def test_freeze_selection_matches_jax(shallow, train_net, position,
     jtree = io.unflatten(io.params_to_numpy(tree))
     want = {k for k, v in io.flatten(jfreeze.trainable_mask(
         jtree, train_net, position, None, ynet_bias)).items() if v}
+    if train_net.startswith("segmentation"):
+        want = {k for k in want if not freeze.is_running_statistic(k)}
     leaves = freeze.set_trainable(tree, train_net, position, ynet_bias)
     got = {k for k, v in io.flatten(tree).items() if v.requires_grad}
     assert got == want and len(leaves) == len(want) > 0
     seg = {k for k in got if k.startswith("segmentation/")}
     assert not any("_meta" in k for k in got)
+    assert not any(freeze.is_running_statistic(k) for k in got)
     assert bool(seg) == train_net.startswith("segmentation")
     if train_net == "segmentation_bn":
-        assert len(seg) == 4 * 13 and all("/encoder/" in k for k in seg)
+        # 13 encoder norms' weight and bias; mst_tpu adds their 2 x 13
+        # running statistics
+        assert len(seg) == 4 * 13 - 2 * 13 and all("/encoder/" in k
+                                                   for k in seg)
+
+
+@pytest.mark.parametrize("train_net", ["segmentation_head",
+                                       "segmentation_bias",
+                                       "segmentation_bn",
+                                       "segmentation_conv1",
+                                       "segmentation_conv2"])
+def test_segmentation_mask_differs_from_mst_tpu_only_in_running_stats(
+        shallow, train_net):
+    """The leaves mst_tpu's mask adds to the port's selection are exactly
+    running statistics (ROADMAP Queue 3 #10): none for the head and the
+    biases, the encoder norms' for 'bn', the decoder norms' for a layer
+    word; the port selects nothing mst_tpu does not."""
+    flat, _, _ = shallow
+    params = config.get_params("sdd_shortterm_train.yaml", dict(
+        SMALL, train_net=train_net))
+    tree, _ = init_ynet(torch.Generator().manual_seed(0),
+                        config.ynet_config(params))
+    tree["segmentation"] = io.params_from_numpy(flat)
+    want = {k for k, v in io.flatten(jfreeze.trainable_mask(
+        io.unflatten(io.params_to_numpy(tree)), train_net)).items() if v}
+    freeze.set_trainable(tree, train_net)
+    got = {k for k, v in io.flatten(tree).items() if v.requires_grad}
+    extra = want - got
+    assert got <= want
+    assert all(k.endswith(("/running_mean", "/running_var")) for k in extra)
+    assert extra == {k for k in want if freeze.is_running_statistic(k)}
+    if train_net == "segmentation_bn":
+        assert len(extra) == 2 * 13
+        assert all("/encoder/" in k for k in extra)
+    if train_net in ("segmentation_conv1", "segmentation_conv2"):
+        assert extra and all("/decoder/blocks/" in k for k in extra)
+    if train_net in ("segmentation_head", "segmentation_bias"):
+        assert not extra
+
+
+@pytest.mark.parametrize("train_net", ["segmentation_bn",
+                                       "segmentation_conv1"])
+def test_segmentation_strategies_leave_running_stats(world, train_net):
+    """Three Adam steps of a segmentation_* strategy with one channel's
+    running_var at 1e-3 (mst_tpu's mask would step it by ~lr to 0, then
+    below, and eval BN's rsqrt would turn step 3 to NaN): every running
+    statistic stays bit-identical and the losses stay finite."""
+    params, weights, _, batch = step_inputs(world, train_net)
+    seg = weights["segmentation"]
+    key = ("encoder/bn1/running_var" if train_net == "segmentation_bn"
+           else "decoder/blocks/0/conv1/1/running_var")
+    small = io.flatten(seg)[key]
+    small[0] = 1e-3
+    before = {k: v.clone() for k, v in io.flatten(seg).items()
+              if freeze.is_running_statistic(k)}
+    assert key in before and len(before) > 2
+    setup = trainer.setup_training(weights, params, steps_per_epoch=1)
+    step = steps.make_train_step(config.ynet_config(params),
+                                 config.step_config(params,
+                                                    segment_in_step=True))
+    tbatch = {k: t(v) for k, v in batch.items()}
+    losses = []
+    for _ in range(3):
+        _, m = step(weights, {}, setup["optimizer"], setup["scheduler"],
+                    tbatch)
+        losses.append(float(m["loss"]))
+    assert np.all(np.isfinite(losses))
+    after = io.flatten(weights["segmentation"])
+    for k, v in before.items():
+        assert torch.equal(after[k], v), k
+    assert float(after[key][0]) == np.float32(1e-3)
 
 
 @pytest.mark.parametrize("features_only", [False, True])
@@ -586,9 +661,10 @@ def test_segmentation_train_steps_match_jax(world, jax_step, train_net):
     the raw scene (the backbone in the step): the top-1 metrics at 1e-5
     and the losses at LOSS_RTOL (the port's at 1e-6 of float64 on its own
     maps); the gradients of its leaves (the head; the encoder's bn1-bn3
-    with their running statistics, whose eval-mode gradient flows) within
-    1e-4 of each leaf's max; each update under the fine-tune tests' rule;
-    every other leaf untouched."""
+    weights and biases, without the running statistics that mst_tpu's
+    mask adds) within 1e-4 of each leaf's max; each update under the
+    fine-tune tests' rule; every other leaf, the running statistics
+    included, untouched."""
     params, weights, init, batch = step_inputs(world, train_net)
     setup = trainer.setup_training(weights, params, steps_per_epoch=1)
     step = steps.make_train_step(config.ynet_config(params),

@@ -239,8 +239,17 @@ def test_unported_flags_raise(tmp_path, flag, over):
     itself, instead of being dropped. use_features_only with a backbone
     is ported: the model takes the backbone's 16 decoder channels, and a
     backbone file that exists but is no backbone npz (this test file)
-    raises where it is loaded."""
+    raises where it is loaded. So are eth_world_coords on eth: the eval
+    step scores in world coordinates, and serving, which scores nothing,
+    takes the flag."""
     params = small_params(**over)
+    if flag == "eth_world_coords":
+        assert step_config(params).world_coords
+        assert not step_config(dict(params, dataset_name="sdd")).world_coords
+        assert not step_config(dict(params, eth_world_coords=False)
+                               ).world_coords
+        assert Predictor(params, device="cpu").mcfg == ynet_config(params)
+        return
     if flag == "use_features_only":
         assert ynet_config(params).n_semantic_classes == 16
         assert step_config(params).use_features_only
@@ -328,6 +337,10 @@ def test_port_imports_no_jax_and_no_mst_tpu():
     pandas and cv2 may be imported only inside a function (the pickle
     readers, load_images): the card's machine need not have them."""
     assert len(PORT_FILES) > 15
+    for new in ("native/__init__.py", "data/trajectories.py", "data/sdd.py",
+                "data/ind.py", "data/split_dataset.py",
+                "data/filter_dataset.py", "data/generate_varf.py"):
+        assert REPO / "mst_tpu_torch" / new in PORT_FILES, new
     for path in PORT_FILES:
         for name in _imports(path):
             root = name.split(".")[0]
