@@ -147,11 +147,35 @@ Phases, each fatal on failure:
      and the fused kernel on the ETH path's operands against their plain
      versions; host seconds of the build, split, epochs and resume, and
      the peak memory.
+  11. bf16, remat, cross-scene batching and forward_test (its kernel
+     checks run beside phase 3's, the rest before phase 10, while
+     torch.profiler still records every launch): both serving kernels
+     on bf16 operands against their plain versions (the fused
+     kernel at (160, 352x480, 32) x (32, 12) and Y-Net-Mod's (200,
+     320x576, 32) x (32, 30), 1e-3 px; the rows kernel on (8, 352x480),
+     1e-4 px; edge cases: ragged rows, rows off 16-byte alignment, C = 6,
+     a bf16 bias, a peaked map; each timed beside its bf16 bound; f16
+     refused); phase 5's request in bf16 beside f32 (3 requests each,
+     the same seeds: ms, the trajectories' distance, launches: rows f32
+     and fused bf16 once a request, others 0; each traced by kernel name,
+     counting cuDNN's nchwkcrs_nchw, nchwToNhwc, nhwcToNchw and FFT
+     kernels); phase 6b's fine-tune as 5 steps each in f32 (twice: the
+     card's noise), bf16 and f32 --remat (ms, losses against the f32
+     run's, peak memory, launches, the bf16 rows kernel on a step's own
+     maps, a traced step of each); phase 6c's scenes through Experiment
+     with a shallow backbone per scene and with --cross_scene_batching
+     (batch counts, the rows-weighted train loss sum at the same weights
+     within 1e-5, 2 scene maps segmented a test, one test round's
+     ADE/FDE within 15%, launches); forward_test on one scene at small
+     width, the noisy probe with its three input gradients, card against
+     CPU.
 The line before the last is the per-kernel JSON record (launches on each
 kernel's own path, train_launches on the fine-tune path, loop_launches
 on the Experiment loop's, ymod_launches on Y-Net-Mod's, serve_launches
-on the daemon's, seg_launches on the segmentation backbone's and
-res_launches over phase 10's CLI processes); the last line is
+on the daemon's, seg_launches on the segmentation backbone's,
+res_launches over phase 10's CLI processes and p11_launches over phase
+11's requests, steps and cross-scene test; the bf16 records'
+launches count phase 11's bf16 requests and steps); the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
@@ -244,8 +268,10 @@ def check_splits():
         check(fp.library_split(R, HW, blocks) == fp.fused_work(R, HW, blocks),
               f"fused_work({R}, {HW}, {blocks}) differs from the library's")
     for C in (1, 6, 32, 128):
-        check(lib.fused_predict_stage_pixels(C) == fp.stage_pixels(C),
-              f"stage_pixels({C}) differs from the library's")
+        for eb in (4, 2):
+            check(lib.fused_predict_stage_pixels(C, eb)
+                  == fp.stage_pixels(C, eb),
+                  f"stage_pixels({C}, {eb}) differs from the library's")
     for P in range(1, fp.MAX_CHANNELS + 1):
         check(lib.fused_predict_group_width(P) == fp.group_width(P)
               and lib.fused_predict_pixels_per_thread(P)
@@ -255,11 +281,13 @@ def check_splits():
     check(sr._library().softargmax_rows_cluster() == sr.CLUSTER,
           "the rows kernel's cluster size differs from CLUSTER")
     for HW in (1, 3, 5, 64, 37 * 53, 40 * 56, 352 * 480):
-        for lead in range(4):
-            want = [sr.row_split(HW, lead, sr.CLUSTER, k)
-                    for k in range(sr.CLUSTER)]
-            check(sr.library_split(HW, lead, sr.CLUSTER) == want,
-                  f"row_split({HW}, {lead}) differs from the library's")
+        for vec in (4, 8):  # f32, bf16
+            for lead in range(vec):
+                want = [sr.row_split(HW, lead, sr.CLUSTER, k, vec)
+                        for k in range(sr.CLUSTER)]
+                check(sr.library_split(HW, lead, sr.CLUSTER, vec) == want,
+                      f"row_split({HW}, {lead}, vec {vec}) differs from the "
+                      "library's")
     print("work splits: fused_work, stage_pixels, group_width, "
           "pixels_per_thread and row_split match the libraries")
 
@@ -404,6 +432,521 @@ def check_fused_kernel(torch):
             "bound_ms": rec["bound"][0], "bound_by": rec["bound"][1],
             "library_ms": None, "P30": {
                 k: times[30][k] for k in ("ms", "device_ms", "plain_ms")}}
+
+
+# ---- phase 11: bf16, remat, cross-scene batching, forward_test
+ROWS_BF16_TOL = 1e-4  # px, the rows kernel on bf16 logits vs its plain one
+FUSED_BF16_TOL = 1e-3  # px, the fused kernel on bf16 operands vs its plain one
+YMOD_FUSED_SHAPE = (200, 320, 576, 32)  # Y-Net-Mod's decode tail, P = 30
+
+
+def rows_bound(R, HW, elem_bytes):
+    return bound(R * HW * elem_bytes + R * 2 * 4, R * HW * 8)
+
+
+def fused_bound_bf16(R, H, W, C, P):
+    """bf16 x and weight, f32 bias and output: the 2C operations a logit
+    of the bf16 products (f32 accumulate) at the card's bf16 rate, its 8
+    of f32 statistics at the f32 rate, counted as f32 operations."""
+    n = R * H * W * P
+    return bound(R * H * W * C * 2 + C * P * 2 + P * 4 + R * P * 2 * 4,
+                 2 * C * n * F32_FLOP_PER_S / BF16_FLOP_PER_S + 8 * n)
+
+
+def time_kernel(torch, label, fn, plain_fn, iters, plain_iters, b):
+    """Event and device ms of fn (one kernel a call), the plain version's
+    ms, printed beside the bound b = (ms, by)."""
+    from mst_tpu_torch.probes import time_ms
+    from mst_tpu_torch.probes.serving_kernels import time_call
+
+    for _ in range(PROFILER_TRIES):
+        rec = time_call(fn, iters)
+        if rec["kernels"]:
+            break
+        print(f"{label}: the profiler recorded no kernel; again")
+    check_one_kernel(label, rec, iters)
+    rec["plain_ms"] = time_ms(plain_fn, plain_iters)
+    rec["bound_ms"], rec["bound_by"] = b
+    print_times(label, rec, b[0])
+    print(f"{label}: plain {rec['plain_ms']:.4f} ms")
+    return rec
+
+
+def check_bf16_kernels(torch):
+    """Both serving kernels on bf16 operands against their plain versions
+    (which widen the bf16 values and compute in f32): the rows kernel on
+    (8, 352x480) logits and edge cases (H*W % 8 != 0, rows off 16-byte
+    alignment, rows shorter than the cluster, a peaked map); the fused
+    kernel at the eval decode tail's (160, 352x480, 32) x (32, 12), at
+    Y-Net-Mod's (200, 320x576, 32) x (32, 30), and on edge cases (ragged,
+    an image smaller than a stage, C = 6, a view off 16-byte alignment, a
+    peaked map). Each full shape timed beside its bf16 bound. -> [rows
+    record, fused record] for the JSON line."""
+    from mst_tpu_torch.ops.kernels.fused_predict import (
+        fused_predictor_softargmax, fused_predictor_softargmax_plain)
+    from mst_tpu_torch.ops.kernels.softargmax_rows import (plain,
+                                                           softargmax2d_rows)
+    from mst_tpu_torch.probes.serving_kernels import FUSED_SHAPE, ROWS_SHAPE
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def randn(*shape, scale=1.0, offset=0):
+        """bf16 normals; with offset, a view `offset` elements into its
+        buffer (a data pointer off 16-byte alignment)."""
+        n = 1
+        for d in shape:
+            n *= d
+        buf = torch.randn(n + offset, generator=g, device="cuda") * scale
+        return buf.to(bf)[offset:].view(shape)
+
+    x = randn(*ROWS_SHAPE, scale=4.0)
+    peaked = torch.full((1, 32, 64), -30.0, device="cuda", dtype=bf)
+    peaked[0, 17, 42] = 30.0
+    unaligned = randn(5, 40, 56, scale=3.0, offset=3)
+    check(unaligned.data_ptr() % 16 != 0, "the unaligned rows are aligned")
+    err = check_cases(torch, "rows soft-argmax bf16", softargmax2d_rows,
+                      plain, [(n, (t,)) for n, t in (
+                          ("slice", x),
+                          ("H*W % 8 != 0", randn(3, 37, 53, scale=3.0)),
+                          ("rows off 16-byte alignment", unaligned),
+                          ("rows shorter than the cluster",
+                           randn(5, 3, 5, scale=3.0)),
+                          ("peaked", peaked))], ROWS_BF16_TOL)
+    e = float((softargmax2d_rows(peaked)[0]
+               - torch.tensor([42.0, 17.0], device="cuda")).abs().max())
+    check(e <= 1e-2, f"the bf16 rows kernel misses the peak by {e}")
+    R, H, W = x.shape
+    rec = time_kernel(torch, f"softargmax_rows bf16 {tuple(x.shape)}",
+                      lambda: softargmax2d_rows(x), lambda: plain(x), 200,
+                      200, rows_bound(R, H * W, 2))
+    rows = {"name": "softargmax_rows_bf16", "route": "cuda",
+            "source": "mst_tpu_torch/csrc/softargmax_rows.cu",
+            "replaces": "mst_tpu/ops/pallas/softargmax.py:63",
+            "max_abs_err": err, "library_ms": None,
+            **{k: rec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by")}}
+    del x, unaligned
+
+    def case(R, H, W, C, P, offset=0):
+        x = randn(R, H, W, C, offset=offset).relu_()
+        w = (torch.randn((C, P), generator=g, device="cuda") * 0.3).to(bf)
+        b = torch.randn((P,), generator=g, device="cuda")
+        return x, w, b
+
+    pk = torch.zeros((2, 16, 24, 8), device="cuda", dtype=bf)
+    pk[:, 7, 10, :3] = 60.0
+    unaligned = case(2, 40, 56, 32, 12, offset=1)
+    check(unaligned[0].data_ptr() % 16 != 0, "the unaligned view is aligned")
+    cases = [("ragged", case(3, 40, 56, 32, 12)),
+             ("one image smaller than a stage", case(1, 10, 20, 32, 12)),
+             ("odd channels", case(2, 24, 40, 6, 5)),
+             ("unaligned view", unaligned),
+             ("a bf16 bias", (*case(2, 24, 40, 32, 12)[:2],
+                              torch.randn(12, generator=g, device="cuda")
+                              .to(bf))),
+             ("peaked", (pk, torch.eye(8, 3, device="cuda", dtype=bf),
+                         torch.zeros(3, device="cuda")))]
+    err = check_cases(torch, "fused predictor bf16",
+                      fused_predictor_softargmax,
+                      fused_predictor_softargmax_plain, cases, FUSED_BF16_TOL)
+    got = fused_predictor_softargmax(*cases[-1][1])
+    e = float((got - torch.tensor([10.0, 7.0], device="cuda")).abs().max())
+    check(e <= 1e-2, f"the bf16 fused kernel misses the peak by {e}")
+    del cases, unaligned
+    times = {}
+    for shape, P in ((YMOD_FUSED_SHAPE, 30), (FUSED_SHAPE, 12)):
+        x, w, b = case(*shape, P)
+        err = max(err, check_cases(
+            torch, "fused predictor bf16", fused_predictor_softargmax,
+            fused_predictor_softargmax_plain,
+            [(f"full shape, P {P}", (x, w, b))], FUSED_BF16_TOL))
+        times[P] = time_kernel(
+            torch, f"fused_predict bf16 {shape} x ({shape[-1]}, {P})",
+            lambda: fused_predictor_softargmax(x, w, b),
+            lambda: fused_predictor_softargmax_plain(x, w, b), 20, 3,
+            fused_bound_bf16(*shape, P))
+        del x, w, b
+        torch.cuda.empty_cache()
+    # any other dtype raises on the card
+    for label, fn, args in (
+            ("rows", softargmax2d_rows, (peaked.half(),)),
+            ("fused", fused_predictor_softargmax,
+             (pk.half(), torch.eye(8, 3, device="cuda").half(),
+              torch.zeros(3, device="cuda")))):
+        try:
+            fn(*args)
+        except ValueError:
+            continue
+        check(False, f"the {label} kernel took f16")
+    rec = times[12]
+    fused = {"name": "fused_predict_bf16", "route": "cuda",
+             "source": "mst_tpu_torch/csrc/fused_predict.cu",
+             "replaces": "mst_tpu/ops/pallas/fused_predict.py:109",
+             "max_abs_err": err, "library_ms": None,
+             **{k: rec[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+             "ymod": {k: times[30][k] for k in ("ms", "device_ms", "plain_ms",
+                                                "bound_ms")}}
+    return [rows, fused]
+
+
+BF16_LOSS_RTOL = 2e-2  # a bf16 step's loss against the f32 step's
+BF16_STEPS = 5
+REMAT_STEP0_RTOL = 1e-6  # the first remat step's loss against the f32 one's
+REMAT_RTOL = 1e-5  # later steps', or twice the card's run-to-run noise (the
+# bilinear backward's atomics reach the weights through Adam)
+CROSS_LOSS_RTOL = 1e-5  # the rows-weighted loss sums, cross-scene vs per scene
+CROSS_ADE_RTOL = 0.15  # one test round, other draws
+PROBE_LOSS_RTOL = 1e-5  # forward_test card against CPU
+PROBE_MAP_TOL = 1e-4  # of each map's max
+PROBE_GRAD_TOL = 1e-4  # relative L2 of each input gradient (a ReLU input
+# or a max-pool's runner-up near its kink may take the other side in one
+# f32 run, which a max would see)
+# cuDNN's f32 NCHW convs on channels_last tensors, their transposes and
+# its FFT tiling, which each trace counts by name
+NCHW_KERNELS = ("nchwkcrs_nchw", "nchwToNhwc", "nhwcToNchw", "fft")
+PROFILER_TRIES = 3  # a trace that records no kernel is taken again
+
+
+def count_launches(wrappers, fn):
+    """fn() with every kernel's count set to 0 before and read after."""
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def bf16_requests(torch, wrappers, card, semantic, observed):
+    """Phase 11b: phase 5's request (sdd_shortterm_eval, TTST, mosa_2 on
+    0-4, B = 8 at 352 x 480, random weights from seed 0) in bf16 beside
+    f32, the same seeds: host ms, the trajectories' distance from the f32
+    request's, the launches (rows f32 once a request: TTST's goal point on
+    the f32 goal logits; fused bf16 once: the decode tail; others 0), and
+    each request traced by kernel name. -> launches."""
+    import numpy as np
+
+    from mst_tpu_torch.config import get_params
+    from mst_tpu_torch.serve import Predictor
+
+    params = get_params("sdd_shortterm_eval.yaml", dict(
+        use_TTST=True, train_net="mosa_2", position=POSITIONS))
+    H, W = semantic.shape[1:3]
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        pred = Predictor(dict(params, compute_dtype=dtype), seed=0)
+        pred.predict(semantic, observed, seed=0)  # first call: cuDNN's setup
+        torch.cuda.synchronize()
+        ms = []
+
+        def requests():
+            res = []
+            for seed in range(3):
+                t0 = time.perf_counter()
+                res.append(pred.predict(semantic, observed, seed=seed))
+                ms.append(1e3 * (time.perf_counter() - t0))
+            return res
+
+        res, launches = count_launches(wrappers, requests)
+        for r in res:
+            for k, a in r.items():
+                check_in_image(f"{dtype} request: {k}", a, H, W,
+                               params["resize_factor"])
+        print(f"request {dtype} ({card}): " + ", ".join(
+            f"{m:.1f}" for m in ms) + f" ms; launches {launches}")
+        out[dtype] = dict(res=res, launches=launches, ms=ms)
+        check(print_trace(torch, f"{dtype} request ({card})",
+                          lambda: pred.predict(semantic, observed, seed=9))
+              is not None, f"no trace of a {dtype} request")
+        del pred
+        torch.cuda.empty_cache()
+    want = dict.fromkeys(wrappers, 0)
+    want["softargmax_rows"] = want["fused_predict_bf16"] = 3
+    check(out["bfloat16"]["launches"] == want, "the bf16 requests launched "
+          f"{out['bfloat16']['launches']}, the code gives {want}")
+    for seed in range(3):
+        d = np.abs(out["bfloat16"]["res"][seed]["trajectories"]
+                   - out["float32"]["res"][seed]["trajectories"])
+        print(f"bf16 - f32 request, seed {seed}: trajectories max "
+              f"{d.max():.3f}, mean {d.mean():.3f} raw px")
+    return out["bfloat16"]["launches"]
+
+
+def bf16_and_remat_steps(torch, wrappers, card, rows_rec):
+    """Phase 11c: phase 6b's fine-tune (mosa_2 on 0-4, B = 8 with two
+    padded rows at 352 x 480, Adam at lr 1e-3, random weights from seed 0):
+    BF16_STEPS steps each in f32 (twice: the card's run-to-run noise), in
+    bf16 and in f32 with --remat, from the same weights: host ms, losses
+    against the f32 run's, peak memory; the launches of the bf16 and remat
+    steps (rows bf16 twice a bf16 step, rows f32 twice a remat step,
+    others 0); the rows kernel on a bf16 step's own maps (96 and 8 rows)
+    against its plain version; a traced step of each by kernel name.
+    -> launches."""
+    import numpy as np
+
+    from mst_tpu_torch.config import get_params, step_config, ynet_config
+    from mst_tpu_torch.models.ynet import init_ynet
+    from mst_tpu_torch.ops.kernels.softargmax_rows import (plain,
+                                                           softargmax2d_rows)
+    from mst_tpu_torch.probes import time_ms
+    from mst_tpu_torch.train.steps import make_train_step
+    from mst_tpu_torch.train.trainer import setup_training
+
+    params = get_params("sdd_shortterm_train.yaml", dict(
+        train_net="mosa_2", position=POSITIONS, lr=1e-3))
+    H, W, B = 352, 480, 8
+    batch = fine_tune_batch(torch, params, H, W, B)  # phase 6b's batch
+    runs, launches = {}, dict.fromkeys(wrappers, 0)
+    for label, over in (("f32", {}), ("f32 again", {}),
+                        ("bf16", dict(compute_dtype="bfloat16")),
+                        ("f32 remat", dict(remat=True))):
+        p = dict(params, **over)
+        mcfg = ynet_config(p)
+        weights, state = init_ynet(torch.Generator().manual_seed(0), mcfg,
+                                   "cuda")
+        setup = setup_training(weights, p, steps_per_epoch=1)
+        step = make_train_step(mcfg, step_config(p))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+
+        def steps():
+            nonlocal state
+            for _ in range(BF16_STEPS):
+                t0 = time.perf_counter()
+                state, m = step(weights, state, setup["optimizer"],
+                                setup["scheduler"], batch)
+                losses.append(float(m["loss"]))
+                ms.append(1e3 * (time.perf_counter() - t0))
+
+        _, n = count_launches(wrappers, steps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(np.isfinite(losses).all(), f"{label}: non-finite losses")
+        print(f"{label} steps ({card}): " + ", ".join(
+            f"{m:.1f}" for m in ms) + f" ms; losses " + ", ".join(
+            f"{v:.6f}" for v in losses) + f"; peak {peak:.2f} GiB; "
+            f"launches {n}")
+        runs[label] = dict(losses=np.array(losses), peak=peak)
+        if label in ("bf16", "f32 remat"):
+            want = dict.fromkeys(wrappers, 0)
+            want["softargmax_rows_bf16" if label == "bf16"
+                 else "softargmax_rows"] = 2 * BF16_STEPS
+            check(n == want, f"the {label} steps launched {n}, the code "
+                  f"gives {want}")
+            for k, v in n.items():
+                launches[k] += v
+        if label == "bf16":
+            with torch.no_grad():
+                _, _, goal_map, traj_map, _ = step.forward(weights, state,
+                                                           batch)
+            for name, x in (("traj", traj_map.permute(0, 3, 1, 2)
+                             .contiguous()),
+                            ("goal", goal_map[..., -1:].permute(0, 3, 1, 2)
+                             .contiguous())):
+                check(x.dtype == torch.bfloat16, "the bf16 step's maps "
+                      f"are {x.dtype}")
+                e = float((softargmax2d_rows(x) - plain(x)).abs().max())
+                R = x.shape[0] * x.shape[1]
+                b_ms, _ = rows_bound(R, H * W, 2)
+                print(f"softargmax_rows bf16 on the step's {name} maps "
+                      f"{tuple(x.shape)} ({R} rows): max |kernel - plain| "
+                      f"= {e:.3e} px (tol {ROWS_BF16_TOL}); "
+                      f"{time_ms(lambda: softargmax2d_rows(x), 50):.4f} ms,"
+                      f" plain {time_ms(lambda: plain(x), 20):.4f} ms, bound"
+                      f" {b_ms:.4f} ms")
+                check(e <= ROWS_BF16_TOL, f"the bf16 rows kernel disagrees "
+                      f"on the step's {name} maps")
+                rows_rec["max_abs_err"] = max(rows_rec["max_abs_err"], e)
+            del goal_map, traj_map, x
+        if label in ("f32", "bf16", "f32 remat"):
+            check(print_trace(torch, f"{label} step ({card})", lambda: (
+                step(weights, state, setup["optimizer"],
+                     setup["scheduler"], batch),
+                torch.cuda.synchronize())) is not None,
+                f"no trace of a {label} step")
+        del weights, setup, step
+        torch.cuda.empty_cache()
+    f32 = runs["f32"]["losses"]
+    noise = np.abs(runs["f32 again"]["losses"] - f32) / f32
+    remat = np.abs(runs["f32 remat"]["losses"] - f32) / f32
+    bf16 = np.abs(runs["bf16"]["losses"] - f32) / f32
+    print(f"losses relative to the f32 run's: second f32 run {noise.max():.3e}"
+          f", remat {', '.join(f'{v:.3e}' for v in remat)}, bf16 "
+          f"{', '.join(f'{v:.3e}' for v in bf16)}; peak GiB f32 "
+          f"{runs['f32']['peak']:.2f}, bf16 {runs['bf16']['peak']:.2f}, "
+          f"remat {runs['f32 remat']['peak']:.2f}")
+    check(remat[0] <= REMAT_STEP0_RTOL and remat.max() <= max(
+        REMAT_RTOL, 2 * noise.max()), "the remat losses leave the f32 "
+          "steps' beyond the card's noise")
+    check(bf16[0] <= BF16_LOSS_RTOL, "the bf16 step's loss is off the f32 "
+          "step's")
+    check(runs["f32 remat"]["peak"] < runs["f32"]["peak"],
+          "remat holds no less memory than the plain step")
+    return launches
+
+
+def shallow_backbone(path, n_classes=3):
+    """A backbone npz at path: the U-Net's real widths, one block a stage
+    (random weights from seed 0), so a scene segments in milliseconds."""
+    import numpy as np
+    import torch
+
+    from mst_tpu_torch import io
+    from mst_tpu_torch.models.unet import unet_init
+
+    np.savez(path, **io.params_to_numpy(unet_init(
+        torch.Generator().manual_seed(0), n_classes=n_classes,
+        layers=(1, 1, 1, 1))))
+    return path
+
+
+def cross_scene_path(torch, wrappers, card):
+    """Phase 11d: phase 6c's scenes (2 of 1408 x 1920 -> 352 x 480, 40 /
+    16 / 16 tracks, B = 8, sdd_shortterm_train.yaml's width, 3 classes)
+    through Experiment with a shallow segmentation backbone, per scene and
+    with --cross_scene_batching, from the same weights: the batch counts,
+    the rows-weighted sum of the train losses at those weights, the scene
+    maps segmented, one test round's ADE/FDE, and the test's launches
+    (fused once a test batch, others 0). -> the cross-scene test's
+    launches."""
+    import numpy as np
+
+    from mst_tpu_torch.config import step_config
+    from mst_tpu_torch.data.scenes import BucketedBatch
+    from mst_tpu_torch.train.steps import make_train_step
+    from mst_tpu_torch.train.trainer import Experiment
+
+    images, train, _, test = loop_data()
+    tmp = tempfile.mkdtemp()
+    try:
+        _, params = loop_params(tmp, ["--train_net", "train"])
+        params["segmentation_model_fp"] = shallow_backbone(
+            os.path.join(tmp, "sdd_segmentation.npz"))
+        out = {}
+        for cross in (False, True):
+            exp = Experiment(dict(params, cross_scene_batching=cross),
+                             images=images)
+            check(exp.mcfg.segmentation == "unet", "no backbone")
+            batches = exp.prepare_data(train, None, "train",
+                                       rng=np.random.default_rng(1))
+            check(all(isinstance(b, BucketedBatch) == cross
+                      for b in batches), "the wrong kind of batch")
+            step = make_train_step(exp.mcfg, step_config(exp.params))
+            cache, total = {}, 0.0
+            with torch.no_grad():
+                for b, db in exp._device_batches(batches):
+                    gl, tl, _, _, _ = step.forward(
+                        exp.model_params, exp.model_state,
+                        exp._step_batch(b, db, cache))
+                    total += float(gl + tl) * float(b.mask.sum())
+            exp.n_segmented = 0
+            t0 = time.perf_counter()
+            (ade, fde, metrics, _), launches = count_launches(
+                wrappers, lambda: exp.test(test, None))
+            test_s = time.perf_counter() - t0
+            n_test = len(exp.prepare_data(test, None, "test"))
+            print(f"{'cross-scene' if cross else 'per-scene'} ({card}): "
+                  f"{len(batches)} train and {n_test} test batches, "
+                  f"rows-weighted loss sum {total:.4f}, {exp.n_segmented} "
+                  f"scene maps segmented, test ADE {ade:.4f} FDE {fde:.4f}"
+                  f" in {test_s:.2f} s, launches {launches}")
+            want = dict.fromkeys(wrappers, 0)
+            want["fused_predict"] = n_test
+            want["softargmax_rows"] = n_test if exp.params.get(
+                "use_TTST") else 0
+            check(launches == want, f"the test launched {launches}, the "
+                  f"code gives {want}")
+            check(exp.n_segmented == 2, "the backbone ran other than once "
+                  "a scene")
+            check(sorted(metrics[0]["metaId"]) == sorted(test.meta_ids()),
+                  "the test rows differ from the test tracks")
+            out[cross] = dict(n=(len(batches), n_test), total=total,
+                              ade=ade, fde=fde, launches=launches)
+            del exp
+        a, b = out[False], out[True]
+        check(b["n"][0] <= a["n"][0] and b["n"][1] <= a["n"][1],
+              "cross-scene batching made more batches")
+        e = abs(b["total"] - a["total"]) / abs(a["total"])
+        print(f"cross-scene - per-scene: loss sum {e:.3e} relative (tol "
+              f"{CROSS_LOSS_RTOL}); ADE {b['ade'] / a['ade'] - 1:+.3%}, FDE "
+              f"{b['fde'] / a['fde'] - 1:+.3%} (other draws; tol "
+              f"{CROSS_ADE_RTOL:.0%})")
+        check(e <= CROSS_LOSS_RTOL, "the cross-scene losses differ")
+        check(abs(b["ade"] / a["ade"] - 1) <= CROSS_ADE_RTOL
+              and abs(b["fde"] / a["fde"] - 1) <= CROSS_ADE_RTOL,
+              "the cross-scene test's ADE/FDE is off the per-scene one's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out[True]["launches"]
+
+
+def forward_test_path(torch, card):
+    """Phase 11e: Experiment.forward_test on one scene of phase 6c's (352 x
+    480, its 16 test tracks' scene) at small width with mosa_2 on 0-4
+    (lora_B moved off zero), the noisy probe (noisy_std_frac 0.1 on the
+    observed and semantic maps, the same injected draws) with its three
+    input gradients, on the card against the CPU on the same weights."""
+    import numpy as np
+
+    from mst_tpu_torch import io
+    from mst_tpu_torch.models.ynet import tree_map
+    from mst_tpu_torch.train.trainer import Experiment
+
+    images, _, _, test = loop_data()
+    one = test.take(test.sceneId == test.scene_ids()[0])
+    tmp = tempfile.mkdtemp()
+    try:
+        _, params = loop_params(tmp, ["--train_net", "mosa_2", "--position",
+                                      *POSITIONS])
+        params.update(encoder_channels=[8, 8, 16, 16, 16],
+                      decoder_channels=[16, 16, 16, 8, 8])
+        card_exp = Experiment(params, images=images)
+        g = torch.Generator().manual_seed(3)
+        for k, v in io.flatten(card_exp.model_params).items():
+            if k.endswith("lora_B"):
+                v.copy_(torch.randn(v.shape, generator=g) * 0.05)
+        cpu_exp = Experiment(params, images=images, device="cpu")
+        cpu_exp.model_params = tree_map(lambda t: t.cpu(),
+                                        card_exp.model_params)
+        batches = card_exp.prepare_data(one, None, "test")
+        n = int(sum(b.mask.sum() for b in batches))
+        H, W, C = batches[0].image.shape
+        rng = np.random.default_rng(5)
+        noise = {"traj": rng.normal(size=(n, H, W, params["obs_len"])),
+                 "semantic": rng.normal(size=(1, H, W, C))}
+        inputs = ("scene", "semantic", "traj")
+        kw = dict(set_input=inputs, noisy_std_frac=0.1, noise=noise)
+        t0 = time.perf_counter()
+        got = card_exp.forward_test(one, None, input_grads=True, **kw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        want = cpu_exp.forward_test(one, None, input_grads=True, **kw)
+        maps = card_exp.forward_test(one, None, decision="map", **kw)
+        cpu_maps = cpu_exp.forward_test(one, None, decision="map", **kw)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    errs = {}
+    for name, g_, w_ in (("goal_loss", got[0], want[0]),
+                         ("traj_loss", got[1], want[1])):
+        errs[name] = abs(float(g_) - float(w_)) / abs(float(w_))
+    for name, g_, w_ in zip(("goal map", "traj map", "semantic"), maps,
+                            cpu_maps):
+        errs[name] = float((g_.cpu() - w_).abs().max() / w_.abs().max())
+    for name in inputs:
+        g_, w_ = got[3][name].cpu(), want[3][name]
+        errs[name + " grad"] = float((g_ - w_).norm() / w_.norm())
+    print(f"forward_test on one scene ({n} tracks, {H} x {W}; {card}): "
+          f"card {1e3 * card_s:.1f} ms; card against CPU: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()))
+    check(all(errs[k] <= PROBE_LOSS_RTOL for k in ("goal_loss",
+                                                   "traj_loss")),
+          "forward_test's losses on the card disagree with the CPU")
+    check(all(errs[k] <= PROBE_MAP_TOL for k in ("goal map", "traj map",
+                                                 "semantic")),
+          "forward_test's maps on the card disagree with the CPU")
+    check(all(errs[k + " grad"] <= PROBE_GRAD_TOL for k in inputs),
+          "forward_test's input gradients on the card disagree with the "
+          "CPU")
 
 
 def small_reference(torch):
@@ -679,13 +1222,17 @@ def print_trace(torch, label, fn, conv_ops=0):
     ms, wall ms), or None if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=conv_ops > 0) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(PROFILER_TRIES):  # an empty trace is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=conv_ops > 0) as prof:
+            t0 = time.perf_counter()
+            fn()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels:
         print("profiler: no device time recorded (device busy share not "
@@ -693,6 +1240,12 @@ def print_trace(torch, label, fn, conv_ops=0):
         return None
     print(f"profiler: {busy_ms:.1f} ms of kernels in a {wall_ms:.1f} ms "
           f"traced {label} (device busy {100 * busy_ms / wall_ms:.0f}%)")
+    layouts = []
+    for pat in NCHW_KERNELS:
+        hit = [e for e in kernels if pat.lower() in e.key.lower()]
+        ms = sum(e.self_device_time_total for e in hit) / 1e3
+        layouts.append(f"{pat} {ms:.2f} ms x{sum(e.count for e in hit)}")
+    print("  by name: " + ", ".join(layouts))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<4d} "
               f"{e.key[:90]}")
@@ -770,19 +1323,6 @@ def small_train_reference(torch):
                for a, c in zip(ra, rc))
 
 
-def kernel_wrappers():
-    """{kernel name: its wrapper} for all six kernels; each wrapper's
-    `launches` counts the launches of its kernel."""
-    from mst_tpu_torch.ops.kernels.fused_predict import \
-        fused_predictor_softargmax
-    from mst_tpu_torch.ops.kernels.softargmax_rows import softargmax2d_rows
-    from mst_tpu_torch.probes import chain_probe, conv_probe
-
-    return {"softargmax_rows": softargmax2d_rows,
-            "fused_predict": fused_predictor_softargmax,
-            **dict(conv_probe.KERNELS), **dict(chain_probe.KERNELS)}
-
-
 def check_rows_on_path(torch, label, step, weights, state, batch, rows_rec):
     """The rows kernel against its plain version on a train step's own
     maps, as its top-1 metrics feed it: the trajectory map (B * pred_len
@@ -810,6 +1350,22 @@ def check_rows_on_path(torch, label, step, weights, state, batch, rows_rec):
         rows_rec["max_abs_err"] = max(rows_rec["max_abs_err"], e)
 
 
+def fine_tune_batch(torch, params, H, W, B):
+    """bench.py's input draws (bench.py:47-55) on the card: a normal scene
+    map, tracks inside the image, the last two of B rows padding."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    sem = rng.normal(size=(1, H, W, params["n_semantic_classes"]))
+    total = params["obs_len"] + params["pred_len"]
+    lo, hi = 0.2 * min(H, W), 0.6 * min(H, W)
+    traj = rng.uniform(lo, hi, size=(B, total, 2))
+    mask = np.ones(B)
+    mask[-2:] = 0.0
+    return {k: torch.tensor(v, dtype=torch.float32, device="cuda")
+            for k, v in (("semantic", sem), ("traj", traj), ("mask", mask))}
+
+
 def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
     """The few-shot fine-tune path at SDD short-term width: mosa_2 on
     positions 0-4, B = 8 at 352 x 480, Adam at lr 1e-3, TRAIN_STEPS steps
@@ -823,6 +1379,7 @@ def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
     import numpy as np
 
     from mst_tpu_torch import io
+    from mst_tpu_torch.probes import kernel_wrappers
     from mst_tpu_torch.config import get_params, step_config, ynet_config
     from mst_tpu_torch.models.ynet import init_ynet
     from mst_tpu_torch.train.steps import make_train_step
@@ -832,16 +1389,8 @@ def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
         train_net="mosa_2", position=POSITIONS, lr=1e-3))
     mcfg = ynet_config(params)
     H, W, B = 352, 480, 8
-    rng = np.random.default_rng(0)  # as bench.py:47-55
-    sem = rng.normal(size=(1, H, W, params["n_semantic_classes"]))
-    total = params["obs_len"] + params["pred_len"]
-    lo, hi = 0.2 * min(H, W), 0.6 * min(H, W)
-    traj = rng.uniform(lo, hi, size=(B, total, 2))
-    mask = np.ones(B)
-    mask[-2:] = 0.0  # two padded rows
-    batch = {k: torch.tensor(v, dtype=torch.float32, device="cuda")
-             for k, v in (("semantic", sem), ("traj", traj),
-                          ("mask", mask))}
+    batch = fine_tune_batch(torch, params, H, W, B)
+    mask = batch["mask"].cpu().numpy()
     weights, state = init_ynet(torch.Generator().manual_seed(0), mcfg, "cuda")
     setup = setup_training(weights, params, steps_per_epoch=1)
     step = make_train_step(mcfg, step_config(params))
@@ -947,6 +1496,22 @@ def loop_params(tmp, flags):
     return args, get_params(args=args, overrides={"n_semantic_classes": 3})
 
 
+def loop_data():
+    """Phase 6c's scenes: 2 synthetic scenes of LOOP_SCENE_HW, their tracks
+    split 40 / 16 / 16 under np.random.seed(0) -> (images, train, val,
+    test)."""
+    import numpy as np
+
+    from mst_tpu_torch.data import splits
+    from mst_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    tracks, images = make_synthetic_dataset(
+        seed=0, n_scenes=2, n_traj=LOOP_TRACKS, img_hw=LOOP_SCENE_HW)
+    np.random.seed(0)
+    return (images, *splits.dataset_split_by_ratio(tracks, 16, 16,
+                                                   shuffle=True))
+
+
 def experiment_loop(torch, wrappers, step_ms_6b):
     """Phase 6c: the Experiment loop on the card, driven as the CLIs drive
     it, on in-memory synthetic scenes (2 scenes of 1408 x 1920, so 352 x 480
@@ -965,16 +1530,11 @@ def experiment_loop(torch, wrappers, step_ms_6b):
 
     from mst_tpu_torch.config import get_experiment_name
     from mst_tpu_torch.data import splits
-    from mst_tpu_torch.data.synthetic import make_synthetic_dataset
     from mst_tpu_torch.serve import Predictor
     from mst_tpu_torch.train.trainer import Experiment, restore_model
 
     t0 = time.perf_counter()
-    tracks, images = make_synthetic_dataset(
-        seed=0, n_scenes=2, n_traj=LOOP_TRACKS, img_hw=LOOP_SCENE_HW)
-    np.random.seed(0)
-    train, val, test = splits.dataset_split_by_ratio(tracks, 16, 16,
-                                                     shuffle=True)
+    images, train, val, test = loop_data()
     train_ft = splits.limit_samples(train, 2, LOOP_B)
     print(f"loop data: {len(train.meta_ids())} / {len(val.meta_ids())} / "
           f"{len(test.meta_ids())} tracks (fine-tune "
@@ -2418,21 +2978,21 @@ ETH_HOMOGRAPHIES = {"eth": [[0.05, 0.0, 1.0], [0.0, 0.02, -2.0],
 # `python -m <module> <args>` with the port's training-state calls wrapped:
 # the process dumps (torch.save) what it holds when it writes the state of
 # epoch <dump_epoch>, and what a restore put in place, and prints its kernel
-# launches and peak device memory as it ends.
+# launches and peak device memory as it ends. It runs cuDNN's deterministic
+# algorithms, so the card's run-to-run noise in phase 10 is zero.
 #   python -c HOOKED_CLI <dump path> <dump_epoch> <module> <args...>
 HOOKED_CLI = r'''
 import json, runpy, sys, torch
 from mst_tpu_torch import io
-from mst_tpu_torch.ops.kernels.fused_predict import fused_predictor_softargmax
-from mst_tpu_torch.ops.kernels.softargmax_rows import softargmax2d_rows
-from mst_tpu_torch.probes import chain_probe, conv_probe
+from mst_tpu_torch.probes import kernel_wrappers
 from mst_tpu_torch.train import trainer
 
 dump, dump_epoch, module = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 sys.argv = [module] + sys.argv[4:]
-wrappers = {"softargmax_rows": softargmax2d_rows,
-            "fused_predict": fused_predictor_softargmax,
-            **dict(conv_probe.KERNELS), **dict(chain_probe.KERNELS)}
+# cuDNN's deterministic algorithms: with the bilinear backward's fixed
+# order (ops/pooling.py), two runs of one recipe then end on the same bits
+torch.backends.cudnn.deterministic = True
+wrappers = kernel_wrappers()
 for fn in wrappers.values():
     fn.launches = 0
 
@@ -3017,6 +3577,7 @@ def main():
     from mst_tpu_torch.ops.kernels.fused_predict import \
         fused_predictor_softargmax
     from mst_tpu_torch.ops.kernels.softargmax_rows import softargmax2d_rows
+    from mst_tpu_torch.probes import kernel_wrappers
     from mst_tpu_torch.serve import Predictor
 
     # ---- 1. the card
@@ -3039,9 +3600,12 @@ def main():
     print_smem()
     check_splits()
 
-    # ---- 3. kernels against their plain versions
+    # ---- 3. kernels against their plain versions (and phase 11's bf16
+    # checks of the same two kernels, here where the profiler still sees
+    # every launch: late in a long process it loses kernel records)
     records = [check_rows_kernel(torch), check_fused_kernel(torch)]
-    for r in records:
+    bf16_records = check_bf16_kernels(torch)
+    for r in records + bf16_records:
         print(f"{r['name']}: {r['ms']:.4f} ms (device {r['device_ms']:.4f} "
               f"ms), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -3200,6 +3764,23 @@ def main():
                                      rows_rec, fused_rec)
     print(f"segmentation phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 11. bf16, remat, cross-scene batching, forward_test (before
+    # phase 10, whose CLI processes take minutes: its traces need a
+    # profiler that still records every kernel)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    p11 = bf16_requests(torch, wrappers, card, semantic, observed)
+    steps = bf16_and_remat_steps(torch, wrappers, card, bf16_records[0])
+    p11 = {k: p11[k] + steps[k] for k in p11}
+    cross = cross_scene_path(torch, wrappers, card)
+    forward_test_path(torch, card)
+    print(f"bf16 phase: {time.perf_counter() - t0:.1f} s")
+    for r in bf16_records:
+        r["launches"] = p11[r["name"]]
+        check(r["launches"] > 0, f"{r['name']} never ran on the bf16 path")
+    records += bf16_records
+
     # ---- 10. from raw annotations to a resumed run, and ETH
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3208,6 +3789,7 @@ def main():
     print(f"resume phase: {time.perf_counter() - t0:.1f} s")
 
     for r in records:
+        r["p11_launches"] = p11[r["name"]] + cross[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
         r["loop_launches"] = loop_launches[r["name"]]
         r["ymod_launches"] = ymod_launches[r["name"]]
@@ -3216,8 +3798,9 @@ def main():
         r["res_launches"] = res_launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "train_launches", "loop_launches", "ymod_launches",
-            "serve_launches", "seg_launches", "res_launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "serve_launches", "seg_launches", "res_launches", "p11_launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,11 @@ mst_tpu/train/trainer.py:312-351), with the JAX package's key vocabulary
 and flag surface, plus --device.
 
 Flags the port does not act on yet raise NotImplementedError at a
-non-default value instead of being dropped: the model and step flags from
-ynet_config and step_config (_check_ported), the loop's flags from the
-Experiment (check_loop_ported). --seg_cache_device_mb and
---max_scenes_per_batch size TPU-side caches and batches and are accepted
-and unused. The segmentation backbone is used when its weight file exists
+non-default value instead of being dropped: the loop's --fused and
+--mesh_shape/--mesh_axes, from the Experiment (check_loop_ported). An
+unknown --compute_dtype raises ValueError (parse_compute_dtype).
+--seg_cache_device_mb sizes a TPU-side cache and is accepted and unused.
+The segmentation backbone is used when its weight file exists
 (has_backbone).
 """
 
@@ -19,6 +19,7 @@ import os
 import pathlib
 
 import numpy as np
+import torch
 import yaml
 
 from mst_tpu_torch.models.ynet import YNetConfig
@@ -73,23 +74,28 @@ def get_parser(is_train: bool) -> argparse.ArgumentParser:
                         help="mesh axis names; not ported yet (raises)")
     parser.add_argument("--compute_dtype", default="float32",
                         choices=["float32", "bfloat16"],
-                        help="bfloat16 is not ported yet (raises)")
+                        help="the convs' dtype; bfloat16 keeps f32 master "
+                             "weights, losses, sampling and soft-argmax "
+                             "statistics")
     parser.add_argument("--metrics_jsonl", default=None, type=str,
                         help="write structured per-epoch train/val metrics"
                              " as JSON lines to this path (alongside the"
                              " reference-compatible stdout)")
     parser.add_argument("--cross_scene_batching", action="store_true",
-                        help="batches across scenes sharing a padded image"
-                             " shape; not ported yet (raises)")
+                        help="train and test batches across scenes sharing"
+                             " a padded image shape (validation and eth stay"
+                             " per scene)")
     parser.add_argument("--max_scenes_per_batch", default=8, type=int,
-                        help="sizes --cross_scene_batching's batches;"
-                             " accepted and unused")
+                        help="the most scenes a --cross_scene_batching"
+                             " group stacks: its batches carry that many"
+                             " scene maps, each row gathering its own")
     parser.add_argument("--eth_world_coords", action="store_true",
                         help="ETH/UCY metrics in world coordinates through"
                              " each scene's homography (dataset_name eth)")
     parser.add_argument("--remat", action="store_true",
-                        help="recompute the train forward in the backward;"
-                             " not ported yet (raises)")
+                        help="recompute the encoder's and the map decoders'"
+                             " activations in the train step's backward"
+                             " instead of holding them")
     parser.add_argument("--seg_cache_device_mb", default=512, type=int,
                         help="mst_tpu's ceiling on device-resident semantic"
                              " maps; accepted and unused (the port keeps"
@@ -195,31 +201,34 @@ def has_backbone(params: dict) -> bool:
     return bool(seg_fp and os.path.exists(seg_fp))
 
 
-def _check_ported(params: dict):
-    """Raise on a flag that mst_tpu acts on and the port does not yet: bf16
-    compute (trainer.py:348-349)."""
-    dtype = params.get("compute_dtype")
-    if dtype is not None and str(dtype).lower() not in ("float32", "f32"):
-        raise NotImplementedError(
-            f"compute_dtype={dtype!r}: only float32 is ported yet")
+_COMPUTE_DTYPES = {"float32": torch.float32, "f32": torch.float32,
+                   "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
+def parse_compute_dtype(name) -> torch.dtype:
+    """--compute_dtype -> torch.float32 or torch.bfloat16, as
+    mst_tpu/train/trainer.py:48-59 parses it; anything else raises."""
+    try:
+        return _COMPUTE_DTYPES[str(name).lower()]
+    except KeyError:
+        raise ValueError(f"compute_dtype={name!r}: expected one of "
+                         f"{sorted(_COMPUTE_DTYPES)}") from None
 
 
 # the Experiment loop's flags the port does not act on yet, and the value
 # that means "off"
-_LOOP_FLAGS = dict(fused=False, cross_scene_batching=False,
-                   mesh_shape=None, mesh_axes=None, remat=False)
+_LOOP_FLAGS = dict(fused=False, mesh_shape=None, mesh_axes=None)
 
 
 def check_loop_ported(params: dict):
     """Raise on a flag of mst_tpu's Experiment loop that the port does not
-    act on yet: the fused multi-epoch program, cross-scene batching, a
-    device mesh and remat. Then the model and step flags
-    (_check_ported)."""
+    act on yet: the fused multi-epoch program and a device mesh. Then an
+    unknown compute dtype."""
     for flag, off in _LOOP_FLAGS.items():
         if params.get(flag, off) not in (off, [], ()):
             raise NotImplementedError(
                 f"{flag}={params[flag]!r} is not ported yet")
-    _check_ported(params)
+    parse_compute_dtype(params.get("compute_dtype", "float32"))
 
 
 def ynet_config(params: dict) -> YNetConfig:
@@ -227,7 +236,6 @@ def ynet_config(params: dict) -> YNetConfig:
     segmentation 'unet' when the backbone's file exists, else None (the
     identity backbone); with the backbone, use_features_only feeds its 16
     decoder channels to the Y-Net in place of the classes."""
-    _check_ported(params)
     backbone = has_backbone(params)
     features_only = bool(params.get("use_features_only", False))
     return YNetConfig(
@@ -254,8 +262,8 @@ def step_config(params: dict, for_validation: bool = False,
     for_validation turns TTST off and passes use_CWS through, as the
     reference's per-epoch validation does (trainer.py:314-317). The
     backbone's step fields (segment_in_step, segment_train_mode) come as
-    overrides; use_features_only is the config's."""
-    _check_ported(params)
+    overrides; use_features_only, compute_dtype and remat are the
+    config's."""
     cws = params.get("CWS_params")
     scfg = StepConfig(
         obs_len=params["obs_len"], pred_len=params["pred_len"],
@@ -279,6 +287,9 @@ def step_config(params: dict, for_validation: bool = False,
         # (trainer.py:341-347)
         world_coords=(str(params.get("dataset_name", "")).lower() == "eth"
                       and bool(params.get("eth_world_coords", False))),
+        compute_dtype=parse_compute_dtype(params.get("compute_dtype",
+                                                     "float32")),
+        remat=bool(params.get("remat", False)),
     )
     return scfg._replace(**overrides)
 

@@ -3,16 +3,21 @@
 // Replaces the TPU kernel mst_tpu/ops/pallas/fused_predict.py:109
 // (`_fused_rows` -> `pl.pallas_call` of `_kernel`, merge
 // `unify_packed_stats`) in its unpacked form:
-//   x (R, H, W, C) f32, NHWC-contiguous  x  w (C, P)  +  b (P)
+//   x (R, H, W, C) NHWC-contiguous  x  w (C, P)  +  b (P)
 //   -> out (R, P, 2): per row and output channel p, the soft-argmax
 //      (sx, sy) / (s + eps) of the logits x[r, :, :, :] @ w[:, p] + b[p].
-// The (R, H, W, P) logits volume never reaches device memory.
+// x and w are both f32 or both bf16 (a bf16 step's activations and its
+// weight, as the TPU kernel casts the weight to the activations' dtype);
+// bf16 values are widened in registers, and the products, sums, bias and
+// statistics are f32 (the TPU kernel's f32 accumulation, :84). The
+// (R, H, W, P) logits volume never reaches device memory.
 //
-// Bound on an H100: bytes. Reading x once is R*H*W*C*4 bytes (3.46 GB at
-// the eval decode's R = 160, 352 x 480, C = 32: 1.03 ms at 3.35 TB/s); the
-// product is 2*C*P flops a pixel (21 GFLOP at P = 12, 52 at P = 30: 0.3
-// and 0.8 ms at the 67 TFLOP/s f32 rate). The design streams x at the
-// memory rate and keeps the arithmetic under it:
+// Bound on an H100: bytes. Reading x once is R*H*W*C*4 bytes in f32
+// (3.46 GB at the eval decode's R = 160, 352 x 480, C = 32: 1.03 ms at
+// 3.35 TB/s), half that in bf16 (0.52 ms); the product is 2*C*P flops a
+// pixel (21 GFLOP at P = 12, 52 at P = 30: 0.3 and 0.8 ms at the 67
+// TFLOP/s f32 rate). The design streams x at the memory rate and keeps
+// the arithmetic under it:
 //
 // - A persistent grid, one block an SM (fused_predict_blocks). The R*H*W
 //   pixels, flattened, are cut into one contiguous range a block; a
@@ -27,13 +32,16 @@
 //   index inside it.
 // - The stage in shared memory without bank conflicts. At C = 32 (every
 //   shipped config) with x 16-byte aligned (kSwz), the producer loads a
-//   stage as 2-D TMA boxes of 256 pixels x 128 bytes with the 128-byte
-//   swizzle: the 16-byte chunk j of pixel r lands at chunk j ^ (r % 8).
-//   Lane l takes pixels l + 32 i of a block of 32 kPix pixels, so at
-//   every step all lanes read the same chunk j (one broadcast weight read
-//   feeds the warp) and eight neighbouring lanes read eight different
-//   banks. Other shapes take the 1-D bulk copy of the aligned superset and
-//   scalar reads (any C, any 4-byte-aligned x). A first design rotated the
+//   stage as 2-D TMA boxes of 256 pixels x 32 channels with the swizzle
+//   of a pixel's width: in f32, 128 bytes a pixel and the 128-byte
+//   swizzle, so the 16-byte chunk j of pixel r lands at chunk j ^ (r % 8);
+//   in bf16, 64 bytes a pixel and the 64-byte swizzle, chunk j (8
+//   channels) at j ^ ((r / 2) % 4). Lane l takes pixels l + 32 i of a
+//   block of 32 kPix pixels, so at every step all lanes read the same
+//   chunk j (one broadcast weight read feeds the warp) and the eight
+//   lanes of a quarter warp read eight different 16-byte bank groups.
+//   Other shapes take the 1-D bulk copy of the aligned superset and
+//   scalar reads (any C, any element-aligned x). A first design rotated the
 //   float4 index by lane over a 1-D copy: conflict-free for x, but each
 //   warp then read 8 weight rows at once (4 wavefronts a read instead of
 //   1), and P = 30 ran at 41% of the bound.
@@ -83,7 +91,6 @@ constexpr int kStageBytes = 64 * 1024;
 // the 1-D copy's aligned superset
 constexpr int kStageAlloc = kStageBytes + 1024;
 constexpr int kBoxPixels = 256;  // TMA box: 256 pixels x 32 channels
-constexpr int kBoxBytes = kBoxPixels * 128;
 constexpr int kSwzC = 32;        // the channel count of the swizzled path
 constexpr int kMaxP = 32;
 constexpr int kMaxC = 128;
@@ -119,10 +126,33 @@ __host__ __device__ inline bool item_of(long long T, int HW, int G, int b,
   return true;
 }
 
-// Pixels a stage holds: at most 64 KB of x, in whole 128-pixel blocks (a
-// warp's pixel groups at either kPix).
-__host__ __device__ inline int stage_pixels(int C) {
-  return kStageBytes / (4 * C) / 128 * 128;
+// Pixels a stage holds: at most 64 KB of x (eb bytes an element), in whole
+// 128-pixel blocks (a warp's pixel groups at either kPix).
+__host__ __device__ inline int stage_pixels(int C, int eb) {
+  return kStageBytes / (eb * C) / 128 * 128;
+}
+
+// An element of x or w as f32: kEB = 4 is an f32, kEB = 2 a bf16 (its
+// bits, the high half of the f32 it widens to).
+template <int kEB>
+struct Elem {
+  using T = float;
+  __device__ static float widen(T v) { return v; }
+};
+
+template <>
+struct Elem<2> {
+  using T = uint16_t;
+  __device__ static float widen(T v) {
+    return __uint_as_float(static_cast<uint32_t>(v) << 16);
+  }
+};
+
+// Element e (of 8) of a 16-byte chunk of bf16.
+__device__ __forceinline__ float bf16_at(const uint4& u, int e) {
+  const int k = e >> 1;
+  const uint32_t w = k == 0 ? u.x : k == 1 ? u.y : k == 2 ? u.z : u.w;
+  return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
 }
 
 // Channel groups: P up to 12 in one, up to 24 in two, up to 32 in four (the
@@ -195,9 +225,10 @@ __device__ __forceinline__ void fma4(float (&acc)[4], float u, float4 w) {
 // acc[i] (log2 units) of pixels px + 32 i, i < kPix, of the stage xs for
 // the PC outputs whose padded weights start at wg (wstride floats a
 // 4-channel block), biases at bg. kSwz: xs holds 32 channels a pixel in the
-// 128-byte swizzle; else C channels a pixel, plain.
-template <int PC, int kPix, bool kSwz>
-__device__ __forceinline__ void dot_group(const float* xs, int px, int C,
+// swizzle of a pixel's width (128 bytes in f32, 64 in bf16); else C
+// channels a pixel, plain.
+template <int PC, int kPix, bool kSwz, int kEB>
+__device__ __forceinline__ void dot_group(const void* xs, int px, int C,
                                           const float* wg, const float* bg,
                                           float (&acc)[kPix][PC / 4][4]) {
   constexpr int wstride = 4 * PC + 4;
@@ -209,9 +240,9 @@ __device__ __forceinline__ void dot_group(const float* xs, int px, int C,
       for (int e = 0; e < 4; ++e) acc[i][q][e] = bg[4 * q + e];
     }
   }
-  if constexpr (kSwz) {
+  if constexpr (kSwz && kEB == 4) {
     // the pixels px + 32 i share px % 8, so one swizzle serves all
-    const float4* p0 = reinterpret_cast<const float4*>(xs) + px * 8;
+    const float4* p0 = static_cast<const float4*>(xs) + px * 8;
     const int sw = px & 7;
 #pragma unroll(kPix * PC <= 24 ? 2 : 1)
     for (int j = 0; j < 8; ++j) {
@@ -236,12 +267,41 @@ __device__ __forceinline__ void dot_group(const float* xs, int px, int C,
         }
       }
     }
+  } else if constexpr (kSwz) {
+    // bf16: four 16-byte chunks of 8 channels a pixel; the pixels
+    // px + 32 i share (px / 2) % 4, so one swizzle serves all
+    const uint4* p0 = static_cast<const uint4*>(xs) + px * 4;
+    const int sw = (px >> 1) & 3;
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      uint4 raw[kPix];
+#pragma unroll
+      for (int i = 0; i < kPix; ++i) raw[i] = p0[i * 32 * 4 + (j ^ sw)];
+      const float* wj = wg + 2 * j * wstride;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float u[kPix];
+#pragma unroll
+        for (int i = 0; i < kPix; ++i) u[i] = bf16_at(raw[i], c);
+        const float* wc = wj + (c >> 2) * wstride + (c & 3) * PC;
+#pragma unroll
+        for (int q = 0; q < PC / 4; ++q) {
+          const float4 w4 = *reinterpret_cast<const float4*>(wc + 4 * q);
+#pragma unroll
+          for (int i = 0; i < kPix; ++i) fma4(acc[i][q], u[i], w4);
+        }
+      }
+    }
   } else {
+    using E = Elem<kEB>;
+    const typename E::T* xe = static_cast<const typename E::T*>(xs);
 #pragma unroll 1
     for (int c = 0; c < C; ++c) {
       float u[kPix];
 #pragma unroll
-      for (int i = 0; i < kPix; ++i) u[i] = xs[(px + 32 * i) * C + c];
+      for (int i = 0; i < kPix; ++i) {
+        u[i] = E::widen(xe[(px + 32 * i) * C + c]);
+      }
       const float* wc = wg + (c >> 2) * wstride + (c & 3) * PC;
 #pragma unroll
       for (int q = 0; q < PC / 4; ++q) {
@@ -253,18 +313,19 @@ __device__ __forceinline__ void dot_group(const float* xs, int px, int C,
   }
 }
 
-// The first byte of pixel s of row `row`.
-__device__ __forceinline__ uintptr_t pixel_addr(const float* x, int row,
-                                                int HW, int C, int s) {
-  return reinterpret_cast<uintptr_t>(
-      x + (static_cast<long long>(row) * HW + s) * C);
+// The first byte of pixel s of row `row` (eb bytes an element).
+__device__ __forceinline__ uintptr_t pixel_addr(const void* x, int row,
+                                                int HW, int C, int s,
+                                                int eb) {
+  return reinterpret_cast<uintptr_t>(x) +
+         (static_cast<long long>(row) * HW + s) * C * eb;
 }
 
-template <int PC, int kPix, bool kSwz>
+template <int PC, int kPix, bool kSwz, int kEB>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_predict_kernel(const __grid_constant__ CUtensorMap xmap,
-                         const float* __restrict__ x,
-                         const float* __restrict__ w,
+                         const void* __restrict__ x,
+                         const typename Elem<kEB>::T* __restrict__ w,
                          const float* __restrict__ b,
                          float4* __restrict__ part, int* __restrict__ arrivals,
                          float* __restrict__ out, int R, int HW, int W, int C,
@@ -286,7 +347,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int p = i % PC, ci = i / PC, c = ci % (4 * cq), g = ci / (4 * cq);
     const int pg = g * PC + p;
     sw[(g * cq + c / 4) * wstride + (c % 4) * PC + p] =
-        c < C && pg < P ? w[c * P + pg] * kLog2e : 0.f;
+        c < C && pg < P ? Elem<kEB>::widen(w[c * P + pg]) * kLog2e : 0.f;
   }
   for (int i = tid; i < G * PC; i += kThreads) {
     sb[i] = i < P ? b[i] * kLog2e : 0.f;
@@ -299,7 +360,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const long long T = static_cast<long long>(R) * HW;
   const int nb = gridDim.x;
-  const int SP = stage_pixels(C);
+  const int SP = stage_pixels(C, kEB);
+  constexpr int kBoxBytes = kBoxPixels * kSwzC * kEB;
   Item it;
 
   if (warp == kConsumerWarps) {  // the producer: one thread
@@ -320,9 +382,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                                       p0 + i * kBoxPixels);
             }
           } else {
-            const uintptr_t a = pixel_addr(x, it.row, HW, C, s);
+            const uintptr_t a = pixel_addr(x, it.row, HW, C, s, kEB);
             const uintptr_t a0 = a & ~uintptr_t(15);
-            const uintptr_t a1 = (a + 4ull * n * C + 15) & ~uintptr_t(15);
+            const uintptr_t a1 =
+                (a + static_cast<uintptr_t>(kEB) * n * C + 15) &
+                ~uintptr_t(15);
             ring->acquire(use, static_cast<uint32_t>(a1 - a0));
             bulk_load(dst, a0, static_cast<uint32_t>(a1 - a0), bar);
           }
@@ -346,13 +410,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int s = it.begin; s < it.end; s += SP, ++use) {
       const int n = min(SP, it.end - s);
       ring->wait_full(use);
-      const float* xs = reinterpret_cast<const float*>(
-          smem + (use % kStages) * kStageAlloc +
-          (kSwz ? 0 : pixel_addr(x, it.row, HW, C, s) & 15));
+      const void* xs = smem + (use % kStages) * kStageAlloc +
+                       (kSwz ? 0 : pixel_addr(x, it.row, HW, C, s, kEB) & 15);
       for (int q = tg; first_of_group<kPix>(q) < n; q += TG) {
         const int px = first_of_group<kPix>(q);
         float acc[kPix][PC / 4][4];
-        dot_group<PC, kPix, kSwz>(xs, px, C, wg, bg, acc);
+        dot_group<PC, kPix, kSwz, kEB>(xs, px, C, wg, bg, acc);
         float fx[kPix], fy[kPix];
 #pragma unroll
         for (int i = 0; i < kPix; ++i) {
@@ -416,26 +479,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// x viewed as (R*HW pixels, 32 channels) f32, read in boxes of kBoxPixels
-// pixels with the 128-byte swizzle.
-int map_pixels(CUtensorMap* map, const float* x, long long pixels) {
+// x viewed as (R*HW pixels, 32 channels) of eb bytes, read in boxes of
+// kBoxPixels pixels with the swizzle of a pixel's width (128 bytes in f32,
+// 64 in bf16).
+int map_pixels(CUtensorMap* map, const void* x, long long pixels, int eb) {
   const conv_wgmma::EncodeTiled enc = conv_wgmma::encode_tiled();
   if (enc == nullptr) return conv_wgmma::kErrNoEncoder;
   const cuuint64_t dims[2] = {cuuint64_t(kSwzC), cuuint64_t(pixels)};
-  const cuuint64_t strides[1] = {cuuint64_t(kSwzC) * 4};
+  const cuuint64_t strides[1] = {cuuint64_t(kSwzC) * eb};
   const cuuint32_t box[2] = {kSwzC, kBoxPixels};
   const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                         const_cast<float*>(x), dims, strides, box, unit,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : conv_wgmma::kErrEncodeBase + static_cast<int>(r);
+  const CUresult r = enc(
+      map,
+      eb == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(x), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      eb == 4 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0
+                           : conv_wgmma::kErrEncodeBase + static_cast<int>(r);
 }
 
 struct Args {
-  const float *x, *w, *b;
+  const void *x, *w;
+  const float* b;
   float4* part;
   int* arrivals;
   float* out;
@@ -444,27 +512,39 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int PC, int kPix, bool kSwz>
+template <int PC, int kPix, bool kSwz, int kEB>
 cudaError_t launch(const CUtensorMap& map, const Args& a) {
-  const auto kernel = fused_predict_kernel<PC, kPix, kSwz>;
+  const auto kernel = fused_predict_kernel<PC, kPix, kSwz, kEB>;
   const int bytes = Layout(a.C, a.P).total;
   cudaError_t err = conv_wgmma::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<a.blocks, kThreads, bytes, a.stream>>>(
-      map, a.x, a.w, a.b, a.part, a.arrivals, a.out, a.R, a.HW, a.W, a.C,
-      a.P, a.eps);
+      map, a.x, static_cast<const typename Elem<kEB>::T*>(a.w), a.b, a.part,
+      a.arrivals, a.out, a.R, a.HW, a.W, a.C, a.P, a.eps);
   return cudaGetLastError();
 }
 
-template <bool kSwz>
+template <bool kSwz, int kEB>
 cudaError_t dispatch(const CUtensorMap& map, const Args& a) {
   const int pc = group_width(a.P);
   if (pixels_per_thread(a.P) == 2) {
-    return pc == 4   ? launch<4, 2, kSwz>(map, a)
-           : pc == 8 ? launch<8, 2, kSwz>(map, a)
-                     : launch<12, 2, kSwz>(map, a);
+    return pc == 4   ? launch<4, 2, kSwz, kEB>(map, a)
+           : pc == 8 ? launch<8, 2, kSwz, kEB>(map, a)
+                     : launch<12, 2, kSwz, kEB>(map, a);
   }
-  return launch<8, 4, kSwz>(map, a);
+  return launch<8, 4, kSwz, kEB>(map, a);
+}
+
+template <int kEB>
+int run(const Args& a) {
+  CUtensorMap map = {};
+  if (a.C == kSwzC && reinterpret_cast<uintptr_t>(a.x) % 16 == 0) {
+    const int err =
+        map_pixels(&map, a.x, static_cast<long long>(a.R) * a.HW, kEB);
+    if (err != 0) return err;
+    return static_cast<int>(dispatch<true, kEB>(map, a));
+  }
+  return static_cast<int>(dispatch<false, kEB>(map, a));
 }
 
 }  // namespace
@@ -496,7 +576,9 @@ int fused_predict_items(int R, int HW, int blocks, int block, int* out,
   return k;
 }
 
-int fused_predict_stage_pixels(int C) { return stage_pixels(C); }
+int fused_predict_stage_pixels(int C, int elem_bytes) {
+  return stage_pixels(C, elem_bytes);
+}
 
 int fused_predict_group_width(int P) { return group_width(P); }
 
@@ -505,29 +587,24 @@ int fused_predict_pixels_per_thread(int P) { return pixels_per_thread(P); }
 // Dynamic shared memory a block asks for.
 int fused_predict_smem_bytes(int C, int P) { return Layout(C, P).total; }
 
-// x (R, HW, C), w (C, P), b (P), f32; part: scratch of (R + blocks - 1) *
-// P * 4 floats; arrivals: R ints, 0 on entry and left 0; out (R, P, 2).
+// x (R, HW, C) and w (C, P), both f32 (elem_bytes 4) or both bf16
+// (elem_bytes 2), b (P) f32; part: scratch of (R + blocks - 1) * P * 4
+// floats; arrivals: R ints, 0 on entry and left 0; out (R, P, 2) f32.
 // Returns the cudaError_t of the launch (0 = success; 999: no
 // cuTensorMapEncodeTiled; 1000 + CUresult: a refused tensor map).
-int fused_predict_launch(const float* x, const float* w, const float* b,
+int fused_predict_launch(const void* x, const void* w, const float* b,
                          float* part, int* arrivals, float* out, int R,
-                         int HW, int W, int C, int P, int blocks, float eps,
-                         void* stream_ptr) {
+                         int HW, int W, int C, int P, int elem_bytes,
+                         int blocks, float eps, void* stream_ptr) {
   const long long pixels = static_cast<long long>(R) * HW;
   if (P < 1 || P > kMaxP || C < 1 || C > kMaxC || blocks < 1 ||
-      pixels >= (1LL << 31)) {
+      (elem_bytes != 4 && elem_bytes != 2) || pixels >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a = {x, w, b, reinterpret_cast<float4*>(part), arrivals, out,
                   R, HW, W, C, P, blocks, eps,
                   static_cast<cudaStream_t>(stream_ptr)};
-  CUtensorMap map = {};
-  if (C == kSwzC && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-    const int err = map_pixels(&map, x, pixels);
-    if (err != 0) return err;
-    return static_cast<int>(dispatch<true>(map, a));
-  }
-  return static_cast<int>(dispatch<false>(map, a));
+  return elem_bytes == 4 ? run<4>(a) : run<2>(a);
 }
 
 }  // extern "C"

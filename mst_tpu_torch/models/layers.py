@@ -5,6 +5,13 @@ Activations keep the JAX package's NHWC layout at every function edge; a
 contiguous NHWC tensor viewed as NCHW is exactly PyTorch's channels_last
 memory format, so the permutes below are free and the convs run
 channels_last. Weights are OIHW, PyTorch's own layout.
+
+A conv takes its input and weight in one dtype (f32, or bf16 under the
+steps' compute dtype) and raises TypeError otherwise, as
+lax.conv_general_dilated does. A batch norm follows JAX's promotion: in
+eval mode a bf16 x against f32 running statistics comes out f32 (so the
+conv after it raises, where mst_tpu's does); in train mode it stays in
+x's dtype and the running statistics in theirs.
 """
 
 import math
@@ -13,9 +20,17 @@ import torch
 import torch.nn.functional as F
 
 
+def check_same_dtype(x, weight):
+    """Raise as lax.conv_general_dilated does on operands of two dtypes."""
+    if x.dtype != weight.dtype:
+        raise TypeError(f"a conv requires its input and weight to have the "
+                        f"same dtype, got {x.dtype} and {weight.dtype}")
+
+
 def conv2d(x, weight, bias=None):
     """SAME-padded stride-1 conv: x (N, H, W, Ci), weight (Co, Ci, k, k)
     -> (N, H, W, Co)."""
+    check_same_dtype(x, weight)
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding="same")
     return y.permute(0, 2, 3, 1)
 
@@ -41,17 +56,24 @@ def batchnorm_apply(params, state, x, train, momentum=0.1, eps=1e-5):
     returns running statistics moved to 0.9 old + 0.1 batch, with the
     unbiased variance; the state given is not modified. Eval normalises
     with the running statistics and returns the state as it is."""
+    stat_dtype = state["running_mean"].dtype
     if not train:
-        y = F.batch_norm(x.permute(0, 3, 1, 2), state["running_mean"],
-                         state["running_var"], params["weight"],
-                         params["bias"], False, momentum, eps)
+        # JAX promotes (x - mean) to the wider of the two dtypes
+        dtype = torch.promote_types(x.dtype, stat_dtype)
+        y = F.batch_norm(x.permute(0, 3, 1, 2).to(dtype),
+                         state["running_mean"].to(dtype),
+                         state["running_var"].to(dtype),
+                         params["weight"].to(dtype), params["bias"].to(dtype),
+                         False, momentum, eps)
         return y.permute(0, 2, 3, 1), state
     # F.batch_norm updates the running statistics it is given in place
-    # (outside autograd), so it gets copies: the new state
+    # (outside autograd), so it gets copies: the new state. It takes a bf16
+    # x with weights of the statistics' dtype, and keeps x's dtype.
     mean = state["running_mean"].detach().clone()
     var = state["running_var"].detach().clone()
-    y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var, params["weight"],
-                     params["bias"], True, momentum, eps)
+    y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var,
+                     params["weight"].to(stat_dtype),
+                     params["bias"].to(stat_dtype), True, momentum, eps)
     return y.permute(0, 2, 3, 1), {
         "running_mean": mean, "running_var": var,
         "num_batches": state["num_batches"] + 1}

@@ -18,7 +18,9 @@ softmax), so an npz of either package loads key for key through
 io.params_from_numpy; convs are OIHW. The batch norms keep their running
 statistics inline; bn_state overrides them once e_unfreeze adapts them.
 Inside, activations are NCHW views of channels_last memory, and the convs
-are cuDNN's (f32, TF32 off: mst_tpu_torch.resolve_device).
+are cuDNN's (f32, TF32 off: mst_tpu_torch.resolve_device; bf16 on a bf16
+step's compute copy, where the batch norms promote as models/layers.py
+says).
 """
 
 import math
@@ -27,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from mst_tpu_torch import io
+from mst_tpu_torch.models.layers import check_same_dtype
 
 RESNET101_LAYERS = (3, 4, 23, 3)
 DECODER_CHANNELS = (256, 128, 64, 32, 16)
@@ -100,6 +103,7 @@ def unet_init(generator, n_classes=6, layers=RESNET101_LAYERS,
 def conv(p, x, stride=1):
     """A conv of the tree on NCHW x, padded k // 2 on every side (the
     torchvision/smp padding, also at stride 2)."""
+    check_same_dtype(x, p["weight"])
     k = p["weight"].shape[-1]
     return F.conv2d(x, p["weight"], p.get("bias"), stride, k // 2)
 
@@ -133,8 +137,8 @@ def make_bn(bn_state=None, train=False, eps=1e-5, momentum=0.1):
                                  scale[:, None, None])
         mean = stats["running_mean"].detach().clone()
         var = stats["running_var"].detach().clone()
-        y = F.batch_norm(x, mean, var, p["weight"], p["bias"], True,
-                         momentum, eps)
+        y = F.batch_norm(x, mean, var, p["weight"].to(mean.dtype),
+                         p["bias"].to(mean.dtype), True, momentum, eps)
         updates[path] = {"running_mean": mean, "running_var": var}
         return y
 

@@ -452,6 +452,13 @@ def pred_goal(params, features):
     return _decoder_apply(params["goal_decoder"], features)
 
 
+def pred_traj(params, features_with_waypoints):
+    """(B, H, W, pred_len) trajectory logits of the trajectory decoder on
+    each feature map concatenated with its waypoint map (the unshared
+    form, which Experiment.forward_test runs)."""
+    return _decoder_apply(params["traj_decoder"], features_with_waypoints)
+
+
 def make_shared_pred_traj(params, features, n_wp: int):
     """K-sample trajectory decoding with the encoder terms hoisted.
 

@@ -5,15 +5,20 @@ Replaces the TPU kernel mst_tpu/ops/pallas/fused_predict.py (`_fused_rows`
 -> `pl.pallas_call` of `_kernel`), in its unpacked form: pre-predictor
 activations x (R, H, W, C) times the predictor's (C, P) weight plus bias,
 then the soft-argmax of each of the P logit maps -> (R, P, 2). The kernel
-never writes the (R, H, W, P) logits to device memory.
+never writes the (R, H, W, P) logits to device memory. x and the weight
+are f32, or bf16 in a bf16 step (the TPU wrapper casts the weight to the
+activations' dtype, fused_predict.py:158); the products, sums, bias and
+statistics are f32 either way.
 
 Bound on an H100: bytes, reading x once (3.46 GB at the eval decode's
-R = 160, 352 x 480, C = 32: 1.03 ms at 3.35 TB/s); the 2*C*P flops a pixel
-stay under the f32 rate at P = 12. The kernel streams x through a ring of
-TMA (C = 32) or bulk copies in a persistent grid and merges each row's
-blocks in the same launch; the design notes are in the source. `fused_work`, `stage_pixels`,
-`group_width` and `pixels_per_thread` mirror its work split, and `fused_split_reference` runs
-that split with the kernel's merge arithmetic on the CPU.
+R = 160, 352 x 480, C = 32 in f32: 1.03 ms at 3.35 TB/s; 1.73 GB, 0.52
+ms, in bf16); the 2*C*P flops a pixel stay under the f32 rate at P = 12.
+The kernel streams x through a ring of TMA (C = 32) or bulk copies in a
+persistent grid and merges each row's blocks in the same launch; the
+design notes are in the source. `fused_work`, `stage_pixels`,
+`group_width` and `pixels_per_thread` mirror its work split, and
+`fused_split_reference` runs that split with the kernel's merge
+arithmetic on the CPU.
 """
 
 import ctypes
@@ -32,10 +37,15 @@ CONSUMER_THREADS = 256
 WARP = 32
 
 
+DTYPES = (torch.float32, torch.bfloat16)  # x and weight, one of these
+
+
 def fused_predictor_softargmax_plain(x, weight, bias, eps: float = 1e-6):
     """The plain version: x (R, H, W, C) @ weight (C, P) + bias (P), then
-    softargmax2d_nhwc -> (R, P, 2)."""
-    logits = torch.einsum("rhwc,cp->rhwp", x, weight) + bias
+    softargmax2d_nhwc -> (R, P, 2), in f32 from the operands' widened
+    values."""
+    logits = torch.einsum("rhwc,cp->rhwp", x.float(), weight.float()) \
+        + bias.float()
     return softargmax2d_nhwc(logits, eps)
 
 
@@ -71,10 +81,10 @@ def block_of(q, T, blocks):
     return ((q + 1) * blocks + T - 1) // T - 1
 
 
-def stage_pixels(C):
-    """Pixels a ring stage holds: at most 64 KB of x, in whole 128-pixel
-    blocks."""
-    return STAGE_BYTES // (4 * C) // 128 * 128
+def stage_pixels(C, elem_bytes=4):
+    """Pixels a ring stage holds: at most 64 KB of x (elem_bytes an
+    element), in whole 128-pixel blocks."""
+    return STAGE_BYTES // (elem_bytes * C) // 128 * 128
 
 
 def groups(P):
@@ -105,15 +115,16 @@ def stage_groups(n, kpix):
 
 
 def fused_split_reference(x, weight, bias, blocks, eps: float = 1e-6):
-    """The kernel's reduction on the CPU: the same blocks, items, stages,
-    pixel groups and threads, pushed and merged in the kernel's order with
-    its log2-unit arithmetic (online_stats) -> (R, P, 2)."""
+    """The kernel's reduction on the CPU: the same blocks, items, stages
+    (of x's element size), pixel groups and threads, pushed and merged in
+    the kernel's order with its log2-unit arithmetic (online_stats) ->
+    (R, P, 2)."""
     R, H, W, C = x.shape
     P = weight.shape[1]
     HW, T = H * W, R * H * W
     TG = CONSUMER_THREADS // groups(P)  # threads of one channel group
     kpix = pixels_per_thread(P)
-    SP = stage_pixels(C)
+    SP = stage_pixels(C, x.element_size())
     xf = x.reshape(R, HW, C).float()
     w2, b2 = weight.float() * ost.LOG2E, bias.float() * ost.LOG2E
     slots = {}
@@ -181,12 +192,12 @@ def _library():
     fn = lib.fused_predict_launch
     if fn.argtypes is None:
         i32 = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [i32] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [i32] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = i32
         lib.fused_predict_items.argtypes = [i32] * 4 + [ctypes.c_void_p, i32]
         for name, n in (("fused_predict_blocks", 2),
-                        ("fused_predict_stage_pixels", 1),
+                        ("fused_predict_stage_pixels", 2),
                         ("fused_predict_group_width", 1),
                         ("fused_predict_pixels_per_thread", 1),
                         ("fused_predict_smem_bytes", 2)):
@@ -209,12 +220,14 @@ def library_split(R, HW, blocks):
 
 
 def fused_predictor_softargmax(x, weight, bias, eps: float = 1e-6):
-    """(R, H, W, C) activations, (C, P) weight, (P,) bias -> (R, P, 2).
+    """(R, H, W, C) activations, (C, P) weight, (P,) bias -> (R, P, 2) f32.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the
-    kernel, which needs f32 everywhere, x contiguous in NHWC order (the
-    NHWC view of a channels_last NCHW tensor), P <= 32 and C <= 128;
-    anything else raises.
+    kernel, which needs x and the weight both f32 or both bf16, x
+    contiguous in NHWC order (the NHWC view of a channels_last NCHW
+    tensor), P <= 32 and C <= 128; an f32 bias, or a bf16 one, which is
+    widened here; anything else raises. `launches` counts the f32
+    kernel's launches, `launches_bf16` the bf16 kernel's.
     """
     if x.device.type == "cpu":
         return fused_predictor_softargmax_plain(x, weight, bias, eps)
@@ -225,15 +238,22 @@ def fused_predictor_softargmax(x, weight, bias, eps: float = 1e-6):
         raise ValueError(
             "fused_predictor_softargmax needs x (R, H, W, C) contiguous in "
             f"NHWC order; got shape {tuple(x.shape)}, strides {x.stride()}")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"fused_predictor_softargmax: x is {x.dtype}; the "
+                         "kernel takes f32 or bf16")
+    if bias.dtype == torch.bfloat16:
+        bias = bias.float()
     R, H, W, C = x.shape
     P = weight.shape[-1]
-    for name, t, shape in (("x", x, (R, H, W, C)), ("weight", weight, (C, P)),
-                           ("bias", bias, (P,))):
-        if (t.device != x.device or t.dtype != torch.float32
+    for name, t, shape, dtype in (
+            ("x", x, (R, H, W, C), x.dtype),
+            ("weight", weight, (C, P), x.dtype),
+            ("bias", bias, (P,), torch.float32)):
+        if (t.device != x.device or t.dtype != dtype
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(
                 f"fused_predictor_softargmax: {name} must be a contiguous "
-                f"f32 tensor of shape {shape} on {x.device}; got "
+                f"{dtype} tensor of shape {shape} on {x.device}; got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if not 1 <= P <= MAX_CHANNELS or not 1 <= C <= MAX_IN_CHANNELS:
         raise ValueError(f"fused_predictor_softargmax: P={P}, C={C}; the "
@@ -251,14 +271,18 @@ def fused_predictor_softargmax(x, weight, bias, eps: float = 1e-6):
         err = launch(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                      part.data_ptr(),
                      _arrivals(x.device, stream, R).data_ptr(),
-                     out.data_ptr(), R, HW, W, C, P, blocks, float(eps),
-                     stream)
+                     out.data_ptr(), R, HW, W, C, P, x.element_size(),
+                     blocks, float(eps), stream)
     if err != 0:
         raise RuntimeError(f"fused_predict kernel launch failed: error {err}"
                            " (a cudaError_t; 999: no cuTensorMapEncodeTiled;"
                            " 1000 + CUresult: a refused tensor map)")
-    fused_predictor_softargmax.launches += 1
+    if x.dtype == torch.bfloat16:
+        fused_predictor_softargmax.launches_bf16 += 1
+    else:
+        fused_predictor_softargmax.launches += 1
     return out
 
 
 fused_predictor_softargmax.launches = 0
+fused_predictor_softargmax.launches_bf16 = 0

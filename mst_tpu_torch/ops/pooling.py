@@ -3,6 +3,7 @@ mst_tpu/ops/pooling.py): nn.MaxPool2d(2, 2), the AvgPool2d(2**i) waypoint
 pyramid and F.interpolate(scale_factor=2, bilinear, align_corners=False),
 run on the channels_last view."""
 
+import torch
 import torch.nn.functional as F
 
 
@@ -35,5 +36,36 @@ def avg_pool_pyramid(x, n_levels: int):
 
 def upsample_bilinear_2x(x):
     """(N, H, W, C) -> (N, 2H, 2W, C), half-pixel centres."""
-    return _nhwc(F.interpolate(_nchw(x), scale_factor=2, mode="bilinear",
-                               align_corners=False))
+    return _Upsample2x.apply(x)
+
+
+class _Upsample2x(torch.autograd.Function):
+    """F.interpolate's x2 bilinear forward with a backward that sums in a
+    fixed order: F.interpolate's own backward scatters with atomicAdd on
+    CUDA, so two identical train steps there differ in their last bits,
+    as XLA's do not."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _nhwc(F.interpolate(_nchw(x), scale_factor=2,
+                                   mode="bilinear", align_corners=False))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _adjoint_2x(_adjoint_2x(g, 1), 2)
+
+
+def _adjoint_2x(g, dim):
+    """The adjoint along dim of the x2 half-pixel stencil out[2i] =
+    0.75 x[i] + 0.25 x[max(i-1, 0)], out[2i+1] = 0.75 x[i] +
+    0.25 x[min(i+1, n-1)]: (.., 2n, ..) -> (.., n, ..)."""
+    n = g.shape[dim] // 2
+    pairs = g.unflatten(dim, (n, 2))
+    even, odd = pairs.select(dim + 1, 0), pairs.select(dim + 1, 1)
+    zero = torch.zeros_like(even.narrow(dim, 0, 1))
+    gx = 0.75 * (even + odd) + 0.25 * (
+        torch.cat([even.narrow(dim, 1, n - 1), zero], dim)
+        + torch.cat([zero, odd.narrow(dim, 0, n - 1)], dim))
+    gx.narrow(dim, 0, 1).add_(even.narrow(dim, 0, 1), alpha=0.25)
+    gx.narrow(dim, n - 1, 1).add_(odd.narrow(dim, n - 1, 1), alpha=0.25)
+    return gx

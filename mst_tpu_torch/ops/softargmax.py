@@ -14,15 +14,20 @@ import torch
 
 def softargmax2d_auto(logits_hw_last, eps: float = 1e-6):
     """softargmax2d through ops/kernels/softargmax_rows.py: the CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    kernel for a CUDA tensor (f32 or bf16 logits), the plain version for a
+    CPU tensor."""
     from mst_tpu_torch.ops.kernels.softargmax_rows import softargmax2d_rows
 
     return softargmax2d_rows(logits_hw_last, eps)
 
 
 def softargmax2d(logits_hw_last, eps: float = 1e-6):
-    """(..., H, W) logits -> (..., 2) expected (x, y) pixel coordinates."""
+    """(..., H, W) logits -> (..., 2) expected (x, y) pixel coordinates;
+    bf16 logits are widened to f32 first, as mst_tpu's rows wrapper widens
+    them (mst_tpu/ops/pallas/softargmax.py:100)."""
     x = logits_hw_last
+    if x.dtype == torch.bfloat16:
+        x = x.float()
     H, W = x.shape[-2], x.shape[-1]
     flat = x.reshape(*x.shape[:-2], H * W)
     exp_x = torch.exp(flat - flat.amax(dim=-1, keepdim=True))

@@ -33,6 +33,38 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+class Bf16Count:
+    """The launches of a wrapper's bf16 kernel (its launches_bf16), read
+    and set as a wrapper's launches are."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.launches_bf16
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches_bf16 = n
+
+
+def kernel_wrappers():
+    """{kernel name: its wrapper} for all six kernels, and the two
+    serving kernels' bf16 instantiations (Bf16Count); each one's
+    `launches` counts the launches of its kernel."""
+    from mst_tpu_torch.ops.kernels.fused_predict import \
+        fused_predictor_softargmax
+    from mst_tpu_torch.ops.kernels.softargmax_rows import softargmax2d_rows
+    from mst_tpu_torch.probes import chain_probe, conv_probe
+
+    return {"softargmax_rows": softargmax2d_rows,
+            "fused_predict": fused_predictor_softargmax,
+            **dict(conv_probe.KERNELS), **dict(chain_probe.KERNELS),
+            "softargmax_rows_bf16": Bf16Count(softargmax2d_rows),
+            "fused_predict_bf16": Bf16Count(fused_predictor_softargmax)}
+
+
 def max_abs_diff(a, b):
     return float((a.to(torch.float32) - b.to(torch.float32)).abs().max())
 

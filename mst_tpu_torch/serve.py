@@ -117,7 +117,9 @@ class Predictor:
         the whole model (see _load_base); state: optional npz of the model
         state (every leaf of it, as a model directory's state.npz);
         device: 'cuda' (the default, which must exist) or 'cpu';
-        step_overrides: StepConfig fields, e.g. eval_k_chunk=5."""
+        step_overrides: StepConfig fields, e.g. eval_k_chunk=5. The
+        config's compute_dtype (float32 or bfloat16) sets the convs'
+        dtype; the weights and the state stay as loaded (f32)."""
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # the card by its index, which other threads (the daemon's
@@ -270,7 +272,8 @@ def export_model(experiment, out_dir, height, width, batch_size,
       eval_k_chunk: overrides the config's K-chunking of the decode.
 
     Returns the manifest dict: mst_tpu's fields (format FORMAT, and
-    `platforms` the device type exported for), and `config`.
+    `platforms` the device type exported for; `compute_dtype` the config's,
+    which LoadedModel serves in), and `config`.
     """
     p = experiment.params
     div = experiment.division_factor
@@ -341,6 +344,8 @@ class LoadedModel(Predictor):
                 f"{FORMAT!r}: export it with mst_tpu_torch.serve")
         files = manifest["files"]
         config = dict(manifest["config"])
+        # the manifest's field, as mst_tpu's LoadedModel serves it
+        config["compute_dtype"] = manifest["compute_dtype"]
         with np.load(d / files["params"]) as z:
             has_backbone = any(k.startswith("segmentation/")
                                for k in z.files)

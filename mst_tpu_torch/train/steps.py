@@ -1,5 +1,5 @@
 """Train, eval and predict steps (counterpart of mst_tpu/train/steps.py:51-104,
-179-315, 322-772; reference utils/train_epoch.py:44-126 and
+106-315, 322-772; reference utils/train_epoch.py:44-126 and
 utils/evaluate.py:37-315).
 
 PyTorch runs eagerly, so a step is a plain function. Eval: forward with
@@ -10,11 +10,33 @@ BCE, backward into the trainable leaves and an optimizer step (see
 make_train_step). The decode is always the unpacked math; the JAX
 package's space-to-depth packing is a TPU layout and has no counterpart.
 Random draws come from one torch.Generator on the step's device.
+
+Mixed precision (StepConfig.compute_dtype = torch.bfloat16) follows
+mst_tpu's explicit casts, not torch.autocast (whose per-op lists would
+round at other places than the reference): each step runs on a compute
+copy of the parameters (_compute_params: every floating leaf cast, so the
+gradients flow back into the f32 leaves that Adam holds with its f32
+moments; integer leaves and the model state stay as they are), and
+_prepare_inputs casts the scene map, the observed maps and the waypoint
+pyramids. f32 stays where mst_tpu keeps it: the rasterizers (cast after),
+the logits before BCE, the goal logits before the sigmoid, sampling, TTST
+and CWS, and every soft-argmax's statistics. Where a bf16 activation
+meets an f32 batch-norm statistic (a serial adapter, or the backbone with
+adapted statistics, in eval mode), the result is f32 as JAX promotes it,
+and the next conv raises as lax.conv_general_dilated does. Two places
+differ from mst_tpu's bf16 rounding by design: the decode tail's fused
+kernel takes the bf16 activations and weight and sums in f32
+(mst_tpu's fused Pallas kernel does the same; its default unpacked path
+rounds the logits to bf16 first), and a serial adapter's train-mode batch
+norm takes its batch statistics in f32 (F.batch_norm), where mst_tpu
+rounds them to bf16.
 """
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mst_tpu_torch.evaluator.metrics import (ade_fde_per_sample,
                                              ade_fde_per_sample_world)
@@ -71,6 +93,12 @@ class StepConfig(NamedTuple):
     # the batch's per-scene 'homography' (3, 3) with the eth/hotel x/y swap
     # folded in (the trainer's _homography_for)
     world_coords: bool = False
+    # the convs' dtype: torch.float32 or torch.bfloat16 (see the module
+    # docstring for what stays f32)
+    compute_dtype: Any = torch.float32
+    # recompute the encoder's and the two map decoders' activations in the
+    # train step's backward instead of holding them (--remat)
+    remat: bool = False
 
 
 def swap_pavement_terrain(semantic_img):
@@ -81,13 +109,30 @@ def swap_pavement_terrain(semantic_img):
     return semantic_img[..., perm]
 
 
+def _compute_params(params, scfg):
+    """The parameter tree in the compute dtype: every floating leaf cast
+    (a differentiable copy), integer leaves as they are
+    (mst_tpu/train/steps.py:106-122). f32 is the identity: the tree
+    itself."""
+    if scfg.compute_dtype == torch.float32:
+        return params
+    return ynet_lib.tree_map(
+        lambda t: t.to(scfg.compute_dtype) if t.is_floating_point() else t,
+        params)
+
+
 def _prepare_inputs(mcfg, scfg, params, semantic, traj, train=False,
-                    seg_bn_state=None):
-    """semantic (1 or B, H, W, C) + traj (B, T, 2) -> (semantic through
-    the semantic adapter, swapped if asked, broadcast to B; observed
-    distance maps (B, H, W, obs_len); the backbone's batch-norm updates)
-    (mst_tpu/train/steps.py:125-175). With segment_in_step, semantic is
-    the preprocessed image and the backbone runs here first, with the
+                    seg_bn_state=None, scene_idx=None):
+    """semantic (N, H, W, C) with N 1, B or S, and traj (B, T, 2) ->
+    (semantic through the semantic adapter, swapped if asked, as B maps;
+    observed distance maps (B, H, W, obs_len); the backbone's batch-norm
+    updates)
+    (mst_tpu/train/steps.py:125-175), both maps in the compute dtype;
+    params must be the compute copy (_compute_params). scene_idx (B,)
+    marks a cross-scene batch: semantic is a stack of S scene maps and row
+    b takes map scene_idx[b], gathered after the backbone and the adapter
+    ran once on the S maps. With segment_in_step, semantic is the
+    preprocessed image and the backbone runs here first, with the
     statistics of seg_bn_state where given; differentiably (the
     segmentation_* strategies train its leaves), and in a train step past
     e_unfreeze (segment_train_mode) on the batch's statistics, whose
@@ -95,7 +140,7 @@ def _prepare_inputs(mcfg, scfg, params, semantic, traj, train=False,
     through its embedding on the embed network."""
     B = traj.shape[0]
     H, W = semantic.shape[-3], semantic.shape[-2]
-    semantic = semantic.to(torch.float32)
+    semantic = semantic.to(scfg.compute_dtype)
     seg_updates = {}
     if scfg.segment_in_step and "segmentation" in params:
         if scfg.segment_train_mode and train:
@@ -109,10 +154,13 @@ def _prepare_inputs(mcfg, scfg, params, semantic, traj, train=False,
     semantic = ynet_lib.adapt_semantic(params, mcfg, semantic)
     if scfg.swap_semantic:
         semantic = swap_pavement_terrain(semantic)
-    if semantic.shape[0] != B:
+    if scene_idx is not None:
+        semantic = semantic[scene_idx]
+    elif semantic.shape[0] != B:
         semantic = semantic.expand(B, *semantic.shape[1:])
     observed_map = rasterize_dist_nhwc(traj[:, :scfg.obs_len], H, W,
-                                       scfg.template_size)
+                                       scfg.template_size).to(
+                                           scfg.compute_dtype)
     if mcfg.network == "embed":
         semantic = ynet_lib.scene_embedding(params, semantic)
         observed_map = ynet_lib.motion_embedding(params, observed_map)
@@ -135,46 +183,67 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     replaces the JAX
     signature's functional (trainable, frozen, state, opt_state)
     threading. batch: 'semantic' (1 or B, H, W, C), 'traj' (B, obs_len +
-    pred_len, 2) model-space pixels, 'mask' (B,). metrics: 'loss',
-    'goal_loss', 'traj_loss' (each x loss_scale), and the masked top-1
-    'ade_sum', 'fde_sum' and 'n', as 0-d tensors detached from the
+    pred_len, 2) model-space pixels, 'mask' (B,), and for a cross-scene
+    batch 'scene_idx' (B,) into a (S, H, W, C) 'semantic'. metrics:
+    'loss', 'goal_loss', 'traj_loss' (each x loss_scale), and the masked
+    top-1 'ade_sum', 'fde_sum' and 'n', as 0-d tensors detached from the
     graph.
 
-    The trajectory decoder runs in the split form on the ground-truth
-    waypoint pyramid; its logits are the 1x1 predictor as an einsum plus
-    the bias (BCE needs them, so the fused kernel has no place here). The
-    metrics' soft-argmax runs on contiguous (B, P, H, W) copies of the
-    detached maps through softargmax2d_auto: two rows-kernel launches a
-    step on the card, the plain version on the CPU.
+    The forward runs on the compute copy of the parameters
+    (_compute_params); BCE takes the logits in f32. The trajectory
+    decoder runs in the split form on the ground-truth waypoint pyramid;
+    its logits are the 1x1 predictor as an einsum plus the bias (BCE
+    needs them, so the fused kernel has no place here). With remat, the
+    encoder and the two map decoders run under torch.utils.checkpoint
+    (non-reentrant), as jax.checkpoint wraps them
+    (mst_tpu/train/steps.py:260-264): their inner activations are
+    recomputed in the backward. The metrics' soft-argmax runs on
+    contiguous (B, P, H, W) copies of the detached compute-dtype maps
+    through softargmax2d_auto: two rows-kernel launches a step on the
+    card, the plain version on the CPU.
     """
     waypoints = list(scfg.waypoints)
     n_levels = len(mcfg.encoder_channels) + 1
+    dtype = scfg.compute_dtype
+
+    def encode(params, state, semantic, observed_map):
+        return ynet_lib.pred_features(params, state, mcfg, semantic,
+                                      observed_map, train=True)
+
+    def decode_maps(params, features, wp_pyramid):
+        goal_map = ynet_lib.pred_goal(params, features)
+        x, w, b = ynet_lib.make_shared_pred_traj(
+            params, features, len(waypoints))(wp_pyramid)
+        return goal_map, torch.einsum("bhwc,cp->bhwp", x, w) + b
+
+    if scfg.remat:
+        encode = functools.partial(checkpoint, encode, use_reentrant=False)
+        decode_maps = functools.partial(checkpoint, decode_maps,
+                                        use_reentrant=False)
 
     def forward(params, state, batch):
         """-> (goal_loss, traj_loss, goal logits, traj logits, new state);
-        the maps are (B, H, W, pred_len)."""
+        the maps are (B, H, W, pred_len) in the compute dtype."""
+        params = _compute_params(params, scfg)
         traj, mask = batch["traj"], batch["mask"]
         H, W = batch["semantic"].shape[-3], batch["semantic"].shape[-2]
         semantic, observed_map, seg_updates = _prepare_inputs(
             mcfg, scfg, params, batch["semantic"], traj, train=True,
-            seg_bn_state=state.get("segmentation_bn"))
+            seg_bn_state=state.get("segmentation_bn"),
+            scene_idx=batch.get("scene_idx"))
         gt_future = traj[:, scfg.obs_len:]
         gt_future_map = rasterize_gaussian_nhwc(gt_future, H, W,
                                                 scfg.kernlen, scfg.nsig)
         gt_waypoint_map = rasterize_dist_nhwc(gt_future[:, waypoints], H, W,
                                               scfg.template_size)
-        wp_pyramid = avg_pool_pyramid(gt_waypoint_map, n_levels)
-        features, new_state = ynet_lib.pred_features(
-            params, state, mcfg, semantic, observed_map, train=True)
+        wp_pyramid = avg_pool_pyramid(gt_waypoint_map.to(dtype), n_levels)
+        features, new_state = encode(params, state, semantic, observed_map)
         if seg_updates:
             new_state = {**new_state, "segmentation_bn": seg_updates}
-        goal_map = ynet_lib.pred_goal(params, features)
-        x, w, b = ynet_lib.make_shared_pred_traj(
-            params, features, len(waypoints))(wp_pyramid)
-        traj_map = torch.einsum("bhwc,cp->bhwp", x, w) + b
-        goal_loss = bce_with_logits(goal_map, gt_future_map,
+        goal_map, traj_map = decode_maps(params, features, wp_pyramid)
+        goal_loss = bce_with_logits(goal_map.float(), gt_future_map,
                                     mask) * scfg.loss_scale
-        traj_loss = bce_with_logits(traj_map, gt_future_map,
+        traj_loss = bce_with_logits(traj_map.float(), gt_future_map,
                                     mask) * scfg.loss_scale
         return goal_loss, traj_loss, goal_map, traj_map, new_state
 
@@ -234,8 +303,9 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     min-over-K 'ade', 'fde' (B,), 'best_traj' (B, pred_len, 2) raw pixels,
     and the masked sums. state is the model state, read in eval mode (the
     batch norms' running statistics). batch: 'semantic' (1 or B, H, W, C),
-    'traj' (B, obs_len + pred_len, 2) model-space pixels, 'mask' (B,), and
-    with world_coords the scene's 'homography' (3, 3).
+    'traj' (B, obs_len + pred_len, 2) model-space pixels, 'mask' (B,),
+    with world_coords the scene's 'homography' (3, 3), and for a
+    cross-scene batch 'scene_idx' (B,) into a (S, H, W, C) 'semantic'.
 
     The parts are exposed: eval_step.forward -> (features, waypoint
     samples (K, B, n_wp, 2)); eval_step.prepredictor -> the decode tail's
@@ -247,13 +317,17 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     waypoints = list(scfg.waypoints)
 
     def forward(params, state, batch, generator):
+        params = _compute_params(params, scfg)
         traj = batch["traj"]
         semantic, observed_map, _ = _prepare_inputs(
             mcfg, scfg, params, batch["semantic"], traj,
-            seg_bn_state=state.get("segmentation_bn"))
+            seg_bn_state=state.get("segmentation_bn"),
+            scene_idx=batch.get("scene_idx"))
         features, _ = ynet_lib.pred_features(params, state, mcfg, semantic,
                                              observed_map)
-        pred_goal_map = ynet_lib.pred_goal(params, features)  # (B,H,W,pred)
+        # the goal logits in f32: sigmoid, sampling, TTST and CWS stay f32
+        pred_goal_map = ynet_lib.pred_goal(
+            params, features).float()  # (B, H, W, pred)
         pred_waypoint_map = pred_goal_map[..., waypoints]  # (B,H,W,n_wp)
         pred_wp_sigmoid = torch.sigmoid(pred_waypoint_map / scfg.temperature)
         # (B, n_wp, H, W) for the samplers
@@ -284,16 +358,18 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     def prepredictor(params, features):
         """-> inputs(chunk): waypoint samples (Kc, B, n_wp, 2) -> the
         trajectory decoder's 1x1 predictor input (Kc*B, H, W, C) with its
-        (C, pred_len) weight and (pred_len,) bias, the encoder terms
-        hoisted once for all chunks."""
+        (C, pred_len) weight and (pred_len,) bias, all in the compute
+        dtype, the encoder terms hoisted once for all chunks."""
         H, W = features[0].shape[1], features[0].shape[2]
-        decode = ynet_lib.make_shared_pred_traj(params, features, n_wp)
+        decode = ynet_lib.make_shared_pred_traj(
+            _compute_params(params, scfg), features, n_wp)
 
         def inputs(chunk):
             Kc, B = chunk.shape[0], chunk.shape[1]
             flat = chunk.reshape(Kc * B, n_wp, 2)
             wmap = rasterize_dist_nhwc(flat, H, W, scfg.template_size)
-            return decode(avg_pool_pyramid(wmap, len(features)))
+            return decode(avg_pool_pyramid(wmap.to(scfg.compute_dtype),
+                                           len(features)))
         return inputs
 
     def decode_trajs(params, features, waypoint_samples):

@@ -16,8 +16,14 @@ epochs it also writes the training state that --resume restores
 package started resumes in the other). The eth dataset reads its scenes'
 oracle.png class masks, attaches each scene's homography to its batches
 (for --eth_world_coords) and validates on the reference's cut of scenes.
-Not ported: the fused multi-epoch program, cross-scene batching, device
-meshes and forward_test (config.check_loop_ported raises on the flags).
+With --cross_scene_batching the train and test batches fill across the
+scenes that share a padded image shape (data/scenes.py
+make_bucketed_batches; validation and eth stay per scene), and each
+group's stack of scene maps is uploaded and segmented once. forward_test
+is the single-scene probe forward with optional input noise and input
+gradients. --compute_dtype and --remat reach the steps through
+config.step_config. Not ported: the fused multi-epoch program and device
+meshes (config.check_loop_ported raises on their flags).
 
 The segmentation backbone (when its file exists) turns each scene's
 image into its semantic map once a pass and a cache (_semantic_for):
@@ -60,9 +66,13 @@ from mst_tpu_torch.data import images as images_lib
 from mst_tpu_torch.data import scenes as scenes_lib
 from mst_tpu_torch.evaluator.logs import MetricsLogger
 from mst_tpu_torch.models import segmentation as seg_lib
+from mst_tpu_torch.models import ynet as ynet_lib
 from mst_tpu_torch.models.unet import extract_bn_stats
-from mst_tpu_torch.models.ynet import init_ynet
+from mst_tpu_torch.ops.heatmap import (rasterize_dist_nhwc,
+                                       rasterize_gaussian_nhwc)
+from mst_tpu_torch.ops.pooling import avg_pool_pyramid
 from mst_tpu_torch.train import freeze
+from mst_tpu_torch.train.losses import bce_with_logits
 from mst_tpu_torch.train.steps import make_eval_step, make_train_step
 from mst_tpu_torch.utils.profiling import ThroughputMeter
 
@@ -72,6 +82,7 @@ METADATA_KEYS = ("train_net", "position", "network", "n_fusion", "seed",
 _IMAGE_FILES = {"sdd": "reference.jpg", "ind-dataset-v1.0": "reference.png",
                 "eth": "oracle.png"}
 TEST_STREAM = 10_000  # test round e draws from stream TEST_STREAM + e
+FORWARD_TEST_STREAM = 777  # forward_test's noise, when none is injected
 # the eth/hotel homographies take (y, x): their swap (reference
 # image_utils.py:151-153) as a column permutation of the matrix
 _XY_SWAP = np.array([[0, 1, 0], [1, 0, 0], [0, 0, 1]], np.float32)
@@ -158,7 +169,7 @@ class Experiment:
         self.division_factor = 2 ** len(self.params["encoder_channels"])
         self.seed = int(self.params.get("seed", 1))
         self._images_override = images
-        self.model_params, self.model_state = init_ynet(
+        self.model_params, self.model_state = ynet_lib.init_ynet(
             torch.Generator().manual_seed(self.seed), self.mcfg, self.device)
         if self.mcfg.segmentation:
             self.model_params["segmentation"] = seg_lib.load_params(
@@ -191,11 +202,15 @@ class Experiment:
                                               pretrained_path, tuned_path)
 
     # -- data ---------------------------------------------------------------
-    def prepare_data(self, tracks, image_path, mode, augment=False, rng=None):
+    def prepare_data(self, tracks, image_path, mode, augment=False, rng=None,
+                     allow_bucketed=True):
         """A track table and its scenes' images -> SceneBatches
         (trainer.py:122-179): load the images (or take them from `images`),
         optionally augment, resize, pad and normalise, then batch per scene;
-        'train' shuffles with rng."""
+        'train' shuffles with rng. With --cross_scene_batching, 'train' and
+        'test' give BucketedBatches instead, except on eth (its homography
+        is a scene's) or when allow_bucketed is False (trainer.py:
+        160-176)."""
         p = self.params
         scenes = tracks.scene_ids()
         seg_mask = self._is_eth()  # oracle.png: class ids, one-hot
@@ -212,6 +227,13 @@ class Experiment:
         images = images_lib.preprocess_scene_images(
             raw, p["resize_factor"], self.division_factor, seg_mask,
             p["n_semantic_classes"])
+        if (allow_bucketed and mode in ("train", "test")
+                and p.get("cross_scene_batching") and not seg_mask):
+            return scenes_lib.make_bucketed_batches(
+                tracks, images, p["obs_len"] + p["pred_len"],
+                int(p["batch_size"]), p["resize_factor"],
+                shuffle=(mode == "train"), rng=rng,
+                max_scenes_per_batch=int(p.get("max_scenes_per_batch", 8)))
         return scenes_lib.make_scene_batches(
             tracks, images, p["obs_len"] + p["pred_len"],
             int(p["batch_size"]), p["resize_factor"],
@@ -239,14 +261,17 @@ class Experiment:
 
     def _device_batches(self, batches):
         """[(batch, its device batch)], each scene's preprocessed image
-        (1, H, W, C) uploaded once as 'image', and on eth its homography;
-        _with_semantic adds the semantic map."""
+        (1, H, W, C), or a cross-scene group's stack (S, H, W, C), uploaded
+        once as 'image', with a cross-scene batch's 'scene_idx' and on eth
+        the scene's homography; _with_semantic adds the semantic map."""
         images, homographies = {}, {}
         out = []
         for b in batches:
+            bucketed = isinstance(b, scenes_lib.BucketedBatch)
             if b.scene_id not in images:
-                images[b.scene_id] = torch.tensor(b.image[None],
-                                                  device=self.device)
+                images[b.scene_id] = torch.tensor(
+                    b.image if bucketed else b.image[None],
+                    device=self.device)
                 if self._is_eth():
                     homographies[b.scene_id] = torch.tensor(
                         self._homography_for(b.scene_id),
@@ -254,6 +279,9 @@ class Experiment:
             db = {"image": images[b.scene_id],
                   "traj": torch.tensor(b.trajectories, device=self.device),
                   "mask": torch.tensor(b.mask, device=self.device)}
+            if bucketed:
+                db["scene_idx"] = torch.tensor(b.scene_idx, dtype=torch.long,
+                                               device=self.device)
             if self._is_eth():
                 db["homography"] = homographies[b.scene_id]
             out.append((b, db))
@@ -298,7 +326,10 @@ class Experiment:
         backbone then runs in the step), else cache[scene_id], made on a
         miss by the backbone (with the state's adapted 'segmentation_bn'
         statistics once e_unfreeze has made them), or the image for the
-        identity backbone (trainer.py:229-290)."""
+        identity backbone (trainer.py:229-290). A cross-scene group's
+        scene_id is its scene-ids tuple and its image the (S, H, W, C)
+        stack, so the stack segments once; n_segmented counts scene
+        maps."""
         if raw:
             return image
         if scene_id not in cache:
@@ -308,7 +339,7 @@ class Experiment:
                         self.model_params["segmentation"], image,
                         self.mcfg.use_features_only,
                         bn_state=self.model_state.get("segmentation_bn"))
-                self.n_segmented += 1
+                self.n_segmented += image.shape[0]
                 source = "segmentation backbone output"
             else:
                 sem = image
@@ -329,12 +360,13 @@ class Experiment:
 
     def _step_batch(self, b, db, cache, raw=False):
         """A step's batch: 'semantic' (_semantic_for), 'traj', 'mask', and
-        'homography' where the device batch has one."""
+        'scene_idx' and 'homography' where the device batch has them."""
         out = {"semantic": self._semantic_for(b.scene_id, db["image"], cache,
                                               raw),
                "traj": db["traj"], "mask": db["mask"]}
-        if "homography" in db:
-            out["homography"] = db["homography"]
+        for key in ("scene_idx", "homography"):
+            if key in db:
+                out[key] = db[key]
         return out
 
     # -- evaluation (reference trainer.py:295-352) ---------------------------
@@ -373,7 +405,8 @@ class Experiment:
         own generator (eval_seed(seed, stream, i)); on
         torch.cuda.OutOfMemoryError the batch is retried, with the same
         draws, one rung down the shrink ladder. The metrics rows are numpy
-        columns metaId, sceneId, ade, fde."""
+        columns metaId, sceneId (each row's own in a cross-scene batch),
+        ade, fde."""
         ade_sum = fde_sum = n_sum = 0.0
         rows = {"metaId": [], "sceneId": [], "ade": [], "fde": []}
         trajs = ({"prediction": [], "metaId": [], "groundtruth": []}
@@ -399,8 +432,12 @@ class Experiment:
             fde_sum += fde.sum()
             n_sum += m.sum()
             rows["metaId"].append(batch.meta_ids[m])
-            rows["sceneId"].append(np.full(int(m.sum()), batch.scene_id,
-                                           object))
+            if isinstance(batch, scenes_lib.BucketedBatch):
+                rows["sceneId"].append(np.asarray(
+                    batch.scene_ids, object)[batch.scene_idx][m])
+            else:
+                rows["sceneId"].append(np.full(int(m.sum()), batch.scene_id,
+                                               object))
             rows["ade"].append(ade)
             rows["fde"].append(fde)
             if collect_preds:
@@ -445,6 +482,111 @@ class Experiment:
         print(f"\nAverage performance (by {p.get('n_round', 1)}): "
               f"\nTest ADE: {avg_ade} \nTest FDE: {avg_fde}")
         return avg_ade, avg_fde, list_metrics, list_trajs
+
+    # -- probe forward (trainer.py:1063-1183) -------------------------------
+    def forward_test(self, tracks, image_path, set_input=(),
+                     noisy_std_frac=None, decision="loss", input_grads=False,
+                     noise=None, generator=None):
+        """The single-scene probe forward in eval mode, with optional input
+        noise (mst_tpu's Experiment.forward_test; reference
+        trainer.py:354-516).
+
+        All of the scene's trajectories go through the model at once, on
+        the scene's per-scene batches (cross-scene batching never applies);
+        more than one scene raises. With noisy_std_frac, each input named
+        in set_input ('traj': the observed distance maps; 'semantic': the
+        semantic map after the semantic adapter) gets noisy_std_frac x its
+        value range times standard normal noise: noise['traj'] /
+        noise['semantic'] where given (tensors of the input's shape), else
+        drawn from `generator` (else a generator on the device seeded from
+        the experiment's seed and stream FORWARD_TEST_STREAM), 'traj'
+        first. The trajectory decoder reads the predicted goal map's
+        waypoint pyramid. decision 'loss' -> (goal_loss, traj_loss,
+        semantic), 'map' -> (goal logits, trajectory logits, semantic), the
+        maps (B, H, W, pred_len), semantic the (1, H, W, C) post-adapter
+        map without noise; with input_grads a dict of d(goal_loss +
+        traj_loss)/d(input) for each input named in set_input ('scene': the
+        preprocessed image before the backbone) follows, through one
+        torch.autograd.grad."""
+        if decision not in ("loss", "map"):
+            raise ValueError(f"No support for decision={decision}")
+        p = self.params
+        batches = self.prepare_data(tracks, image_path, "test",
+                                    allow_bucketed=False)
+        scene_ids = {b.scene_id for b in batches}
+        if len(scene_ids) != 1:
+            raise ValueError(f"Received {len(scene_ids)} scenes, expected 1")
+        dev = self.device
+        traj = torch.tensor(np.concatenate(
+            [b.trajectories[b.mask.astype(bool)] for b in batches]),
+            device=dev)
+        scene_img = torch.tensor(batches[0].image[None], device=dev)
+        H, W = scene_img.shape[1:3]
+        scfg = config_lib.step_config(p)
+        observed_map = rasterize_dist_nhwc(traj[:, :scfg.obs_len], H, W,
+                                           scfg.template_size)
+        gt_map = rasterize_gaussian_nhwc(traj[:, scfg.obs_len:], H, W,
+                                         scfg.kernlen, scfg.nsig)
+        noise = dict(noise or {})
+        noisy = set(set_input) if noisy_std_frac is not None else set()
+        if noisy and generator is None:
+            generator = torch.Generator(device=dev).manual_seed(
+                eval_seed(self.seed, FORWARD_TEST_STREAM, 0))
+
+        def draw(name, shape):
+            z = noise.get(name)
+            if z is None:
+                z = torch.randn(shape, generator=generator, device=dev)
+            elif not isinstance(z, torch.Tensor):  # a copy: z may be
+                z = torch.from_numpy(np.array(z, np.float32))  # read-only
+            return z.to(device=dev, dtype=torch.float32)
+
+        if "traj" in noisy:
+            observed_map = observed_map + noisy_std_frac * (
+                observed_map.max() - observed_map.min()) * draw(
+                    "traj", observed_map.shape)
+        sem_noise = (draw("semantic", (1, H, W, self.mcfg.n_semantic_classes))
+                     if "semantic" in noisy else None)
+        want = set(set_input) if input_grads else set()
+        with torch.enable_grad() if want else torch.no_grad():
+            scene = scene_img.requires_grad_("scene" in want)
+            semantic_in = ynet_lib.adapt_semantic(
+                self.model_params, self.mcfg, seg_lib.apply(
+                    self.model_params.get("segmentation"), scene,
+                    self.mcfg.use_features_only,
+                    bn_state=self.model_state.get("segmentation_bn")))
+            if "semantic" in want and not semantic_in.requires_grad:
+                semantic_in = semantic_in.detach().requires_grad_()
+            obs_map = observed_map.requires_grad_("traj" in want)
+            semantic = semantic_in
+            if sem_noise is not None:
+                semantic = semantic + noisy_std_frac * (
+                    semantic.max() - semantic.min()) * sem_noise
+            features, _ = ynet_lib.pred_features(
+                self.model_params, self.model_state, self.mcfg,
+                semantic.expand(traj.shape[0], *semantic.shape[1:]),
+                obs_map)
+            goal_map = ynet_lib.pred_goal(self.model_params, features)
+            goal_loss = bce_with_logits(goal_map, gt_map) * p["loss_scale"]
+            pyramid = avg_pool_pyramid(goal_map[..., list(scfg.waypoints)],
+                                       len(features))
+            traj_map = ynet_lib.pred_traj(self.model_params, [
+                torch.cat([f, w], dim=-1) for f, w in zip(features, pyramid)])
+            traj_loss = bce_with_logits(traj_map, gt_map) * p["loss_scale"]
+            grads = {}
+            if want:
+                inputs = {"scene": scene, "semantic": semantic_in,
+                          "traj": obs_map}
+                names = [n for n in inputs if n in want]
+                grads = dict(zip(names, torch.autograd.grad(
+                    goal_loss + traj_loss, [inputs[n] for n in names])))
+        if decision == "loss":
+            out = (goal_loss.detach(), traj_loss.detach(),
+                   semantic_in.detach())
+        else:
+            out = (goal_map.detach(), traj_map.detach(),
+                   semantic_in.detach())
+        return out + (grads,) if input_grads else out
 
     # -- train (reference trainer.py:80-293) --------------------------------
     def train(self, train_tracks, val_tracks, train_image_path,

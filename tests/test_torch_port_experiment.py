@@ -399,10 +399,12 @@ def test_unported_loop_flags_raise(tmp_path, flag, over):
     """Each flag raises, naming itself; but those since ported: the
     segmentation backbone (a backbone npz builds the model with it, and a
     file that exists but is no backbone npz, this test file, raises),
-    --resume and the eth dataset (an Experiment builds)."""
-    if flag in ("resume", "eth"):
+    --resume, the eth dataset, --cross_scene_batching and --remat (an
+    Experiment builds; remat reaches its step config)."""
+    if flag in ("resume", "eth", "cross_scene_batching", "remat"):
         exp = trainer.Experiment(loop_params(tmp_path, **over))
         assert all(exp.params[k] == v for k, v in over.items())
+        assert config.step_config(exp.params).remat == (flag == "remat")
         return
     if flag == "segmentation":
         seg = tmp_path / "sdd_segmentation.npz"
@@ -435,9 +437,10 @@ def test_networks_and_adapters_accepted(tmp_path, over):
 
 
 def test_accepted_flags(tmp_path):
-    """--seg_cache_device_mb and --max_scenes_per_batch are accepted and
-    unused; a segmentation file that does not exist means the identity
-    backbone."""
+    """--seg_cache_device_mb (accepted and unused) and
+    --max_scenes_per_batch (it sizes --cross_scene_batching's groups)
+    build an Experiment; a segmentation file that does not exist means the
+    identity backbone."""
     exp = trainer.Experiment(loop_params(
         tmp_path, seg_cache_device_mb=1, max_scenes_per_batch=2,
         segmentation_model_fp=str(tmp_path / "missing.npz")))
@@ -537,9 +540,15 @@ def test_clis_need_a_card_unless_told(workdir, monkeypatch):
 
 def test_cli_raises_on_unported_flags(workdir, monkeypatch):
     monkeypatch.chdir(workdir)
-    for flag in ("--fused", "--remat", "--cross_scene_batching"):
+    for flag in ("--fused",):
         with pytest.raises(NotImplementedError, match=flag[2:]):
             run_train(COMMON + [flag])
-    # --resume is ported: the parser takes it into the params
-    args = config.get_parser(True).parse_args(COMMON + ["--resume"])
-    assert config.get_params(args=args)["resume"] is True
+    # --resume, --remat and --cross_scene_batching are ported: the parser
+    # takes them into the params, and --compute_dtype bfloat16 too
+    args = config.get_parser(True).parse_args(
+        COMMON + ["--resume", "--remat", "--cross_scene_batching",
+                  "--compute_dtype", "bfloat16"])
+    params = config.get_params(args=args)
+    assert params["resume"] is params["remat"] is True
+    assert params["cross_scene_batching"] is True
+    assert config.step_config(params).compute_dtype == torch.bfloat16

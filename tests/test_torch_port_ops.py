@@ -131,6 +131,20 @@ def test_pooling(rng, op):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL)
 
 
+@pytest.mark.parametrize("shape", [(2, 32, 48, 3), (1, 1, 3, 2)])
+def test_upsample_backward_matches_jax(rng, shape):
+    """upsample_bilinear_2x's fixed-order backward (no atomics on the
+    card) against jax.vjp of mst_tpu's resize, a size-1 side included."""
+    N, H, W, C = shape
+    x = rng.normal(size=shape).astype(np.float32)
+    g = rng.normal(size=(N, 2 * H, 2 * W, C)).astype(np.float32)
+    _, vjp = jax.vjp(jpooling.upsample_bilinear_2x, jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = t(x).requires_grad_(True)
+    pooling.upsample_bilinear_2x(xt).backward(t(g))
+    np.testing.assert_allclose(xt.grad.numpy(), want, atol=TOL)
+
+
 def test_min_ade_fde(rng):
     gt = rng.uniform(0, 100, size=(4, 12, 2)).astype(np.float32)
     trajs = rng.uniform(0, 100, size=(5, 4, 12, 2)).astype(np.float32)

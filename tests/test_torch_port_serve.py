@@ -241,8 +241,16 @@ def test_unported_flags_raise(tmp_path, flag, over):
     backbone file that exists but is no backbone npz (this test file)
     raises where it is loaded. So are eth_world_coords on eth: the eval
     step scores in world coordinates, and serving, which scores nothing,
-    takes the flag."""
+    takes the flag. And compute_dtype bfloat16: the step config and a
+    Predictor carry it, and a dtype mst_tpu does not name raises."""
     params = small_params(**over)
+    if flag == "compute_dtype":
+        assert step_config(params).compute_dtype == torch.bfloat16
+        assert Predictor(params, device="cpu").scfg.compute_dtype == \
+            torch.bfloat16
+        with pytest.raises(ValueError, match=flag):
+            step_config(dict(params, compute_dtype="float16"))
+        return
     if flag == "eth_world_coords":
         assert step_config(params).world_coords
         assert not step_config(dict(params, dataset_name="sdd")).world_coords
