@@ -169,18 +169,44 @@ Phases, each fatal on failure:
      ADE/FDE within 15%, launches); forward_test on one scene at small
      width, the noisy probe with its three input gradients, card against
      CPU.
+  12. --fused and the grid (fused_and_grid_path; after phase 11, before
+     phase 10), on phase 6c's scenes at sdd_shortterm_train.yaml's width
+     (mosa_2 on 0-4, B = 8 at 352 x 480, random weights from a seed),
+     cuDNN deterministic: 12a trains the same 4 epochs (chunks of 2,
+     smooth-val) through the loop and through --fused, in f32 and in
+     bf16, and holds the fused run to the loop bit for bit (losses, val
+     ADE/FDE, best epoch, weights); the replays run under
+     torch.cuda.set_sync_debug_mode("error"); capture seconds, replays,
+     launches a replay and a chunk, the fused run's launches against the
+     code's (warm-up + replays), seconds an epoch of both, peak memory,
+     a traced 2-epoch chunk; the rows kernel captured on a step's own
+     maps, replayed on two fillings against its plain version. 12b runs
+     `python -m mst_tpu_torch.grid`'s run_grid on the same scenes as
+     files (2 seeds x 2 lrs, 3 epochs, 2 runs a program: a full-width
+     run's epoch peaks at ~17 GiB) and holds each run to its own
+     train-CLI run: the best epoch, the val history (1e-5 relative) and
+     the saved weights (GRID_STEP_TOL of the learning rate), beside two
+     loop runs on cuDNN's default algorithms; the same grid split by a
+     forced memory error (MST_GRID_FORCE_OOM_ABOVE 1, MST_GRID_CHUNK_CAP
+     1) at the same bars; fused_predict through its vmap rule (2 x 160
+     rows, shared and own weights) and the rows kernel (2 x 96 rows)
+     against one call a run; the grid's seconds against the loop runs',
+     its peak memory and launches.
 The line before the last is the per-kernel JSON record (launches on each
 kernel's own path, train_launches on the fine-tune path, loop_launches
 on the Experiment loop's, ymod_launches on Y-Net-Mod's, serve_launches
 on the daemon's, seg_launches on the segmentation backbone's,
-res_launches over phase 10's CLI processes and p11_launches over phase
-11's requests, steps and cross-scene test; the bf16 records'
+res_launches over phase 10's CLI processes, p11_launches over phase
+11's requests, steps and cross-scene test, and p12_launches over phase
+12's fused runs (eager warm-up + replays) and grid; the bf16 records'
 launches count phase 11's bf16 requests and steps); the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
 
+import contextlib
 import ctypes
+import io as io_text
 import json
 import os
 import re
@@ -715,7 +741,7 @@ def bf16_and_remat_steps(torch, wrappers, card, rows_rec):
             for _ in range(BF16_STEPS):
                 t0 = time.perf_counter()
                 state, m = step(weights, state, setup["optimizer"],
-                                setup["scheduler"], batch)
+                                batch)
                 losses.append(float(m["loss"]))
                 ms.append(1e3 * (time.perf_counter() - t0))
 
@@ -761,7 +787,7 @@ def bf16_and_remat_steps(torch, wrappers, card, rows_rec):
         if label in ("f32", "bf16", "f32 remat"):
             check(print_trace(torch, f"{label} step ({card})", lambda: (
                 step(weights, state, setup["optimizer"],
-                     setup["scheduler"], batch),
+                     batch),
                 torch.cuda.synchronize())) is not None,
                 f"no trace of a {label} step")
         del weights, setup, step
@@ -1314,7 +1340,7 @@ def small_train_reference(torch):
         losses[dev] = []
         for _ in range(3):
             state, m = step(weights, state, setup["optimizer"],
-                            setup["scheduler"], b)
+                            b)
             losses[dev].append([float(m[k]) for k in LOSS_KEYS])
     for i, (a, c) in enumerate(zip(losses["cuda"], losses["cpu"])):
         print(f"small-width step {i}: card {a}, cpu {c}")
@@ -1413,7 +1439,7 @@ def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         state, m = step(weights, state, setup["optimizer"],
-                        setup["scheduler"], batch)
+                        batch)
         torch.cuda.synchronize()
         dt = 1e3 * (time.perf_counter() - t0)
         step_ms.append(dt)
@@ -1447,7 +1473,7 @@ def fine_tune_path(torch, pred, semantic, observed, base_out, rows_rec):
                        rows_rec)
 
     def one_step():
-        step(weights, state, setup["optimizer"], setup["scheduler"], batch)
+        step(weights, state, setup["optimizer"], batch)
         torch.cuda.synchronize()
 
     print_trace(torch, "fine-tune step", one_step, conv_ops=8)
@@ -1738,7 +1764,7 @@ def small_variant_reference(torch):
             losses = []
             for _ in range(3):
                 state, m = step(weights, state, setup["optimizer"],
-                                setup["scheduler"], b)
+                                b)
                 losses.append([float(m[k]) for k in LOSS_KEYS])
             runs[dev] = (weights, state, b, losses)
         (_, s_gpu, b_gpu, l_gpu), (w_cpu, s_cpu, b_cpu, l_cpu) = \
@@ -1844,7 +1870,7 @@ def ynet_mod_path(torch, wrappers, card, rows_rec):
     for i in range(YMOD_STEPS):
         t0 = time.perf_counter()
         state, m = step(weights, state, setup["optimizer"],
-                        setup["scheduler"], batch)
+                        batch)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         vals = {k: float(v) for k, v in m.items()}
@@ -1907,7 +1933,7 @@ def ynet_mod_path(torch, wrappers, card, rows_rec):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB serving")
 
     def one_step():
-        step(weights, state, setup["optimizer"], setup["scheduler"], batch)
+        step(weights, state, setup["optimizer"], batch)
         torch.cuda.synchronize()
 
     print_trace(torch, "Y-Net-Mod step", one_step, conv_ops=8)
@@ -2555,7 +2581,7 @@ def small_segmentation_reference(torch):
                 losses = []
                 for _ in range(3):
                     state, m = step(weights, state, setup["optimizer"],
-                                    setup["scheduler"], b)
+                                    b)
                     losses.append([float(m[k]) for k in LOSS_KEYS])
                 runs[dev] = (weights, state, b, losses)
             (_, s_gpu, b_gpu, l_gpu), (w_cpu, s_cpu, b_cpu, l_cpu) = \
@@ -2823,7 +2849,7 @@ def segmentation_path(torch, wrappers, card, rows_rec, fused_rec):
         for i in range(SEG_STEPS):
             t = time.perf_counter()
             state, m = step(head.model_params, state, setup["optimizer"],
-                            setup["scheduler"], batch)
+                            batch)
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t))
             vals = {k: float(v) for k, v in m.items()}
@@ -2923,7 +2949,7 @@ def segmentation_path(torch, wrappers, card, rows_rec, fused_rec):
                            head.model_params, {}, batch, rows_rec)
         print_trace(torch, "segmentation_head step", lambda: (
             step(head.model_params, state, setup["optimizer"],
-                 setup["scheduler"], batch), torch.cuda.synchronize()),
+                 batch), torch.cuda.synchronize()),
             conv_ops=6)
         err = check_path_tail(torch, model, scene, observed, seed=0)
         fused_rec["max_abs_err"] = max(fused_rec["max_abs_err"], err)
@@ -3001,13 +3027,13 @@ def cpu(d):
     return {k: v.detach().cpu().clone() for k, v in d.items()}
 
 
-def held(trainable, optimizer, scheduler, state, val_ade, val_fde, best,
+def held(trainable, optimizer, state, val_ade, val_fde, best,
          snapshots, best_val_ade, best_epoch):
     return {"trainable": cpu(trainable),
             "adam": {k: cpu(optimizer.state.get(p, {}))
                      for k, p in trainable.items()},
-            "lr": [g["lr"] for g in optimizer.param_groups],
-            "last_epoch": scheduler.last_epoch,
+            "lr": float(optimizer.lr()),
+            "count": int(optimizer.count),
             "state": cpu(io.flatten(state or {})),
             "val_ADE": [float(a) for a in val_ade],
             "val_FDE": [float(a) for a in val_fde],
@@ -3022,23 +3048,23 @@ save = trainer.Experiment.save_training_state
 restore = trainer.Experiment.restore_training_state
 
 
-def save_hook(self, path, trainable, optimizer, scheduler, epoch,
+def save_hook(self, path, trainable, optimizer, epoch,
               val_history=None, model_state=None, val_fde_history=None,
               best_snapshot=None, best_val_ade=None, best_epoch=None,
               snapshots=None):
-    save(self, path, trainable, optimizer, scheduler, epoch, val_history,
+    save(self, path, trainable, optimizer, epoch, val_history,
          model_state, val_fde_history, best_snapshot, best_val_ade,
          best_epoch, snapshots)
     if epoch == dump_epoch:
-        torch.save(held(trainable, optimizer, scheduler, model_state,
+        torch.save(held(trainable, optimizer, model_state,
                         val_history or [], val_fde_history or [],
                         best_snapshot, snapshots, best_val_ade, best_epoch),
                    dump + ".saved")
 
 
-def restore_hook(self, path, trainable, optimizer, scheduler):
-    epoch, x = restore(self, path, trainable, optimizer, scheduler)
-    torch.save(held(trainable, optimizer, scheduler, x["model_state"],
+def restore_hook(self, path, trainable, optimizer):
+    epoch, x = restore(self, path, trainable, optimizer)
+    torch.save(held(trainable, optimizer, x["model_state"],
                     x["val_ADE"], x["val_FDE"], x["best_snapshot"],
                     x["snapshots"], x["best_val_ade"], x["best_epoch"]),
                dump + ".restored")
@@ -3387,8 +3413,8 @@ def raw_to_resumed(torch, wrappers, card, rows_rec, fused_rec):
         assert_same_held(saved, restored)
         n_adam = sum(len(v) for v in saved["adam"].values())
         print(f"restore: {len(saved['trainable'])} leaves, {n_adam} Adam "
-              f"tensors (step, exp_avg, exp_avg_sq), LR {saved['lr']} at "
-              f"scheduler step {saved['last_epoch']}, {len(saved['state'])}"
+              f"tensors (exp_avg, exp_avg_sq), LR {saved['lr']} at "
+              f"step {saved['count']}, {len(saved['state'])}"
               f" state leaves, val history {saved['val_ADE']}, best "
               f"{'none' if saved['best'] is None else 'a snapshot'}, "
               f"{len(saved['snapshots'])} smooth-val snapshot(s): equal bit "
@@ -3554,6 +3580,453 @@ def raw_to_resumed(torch, wrappers, card, rows_rec, fused_rec):
     for k in ("softargmax_rows", "fused_predict"):
         check(res[k] > 0, f"{k} never ran on phase 10's path")
     return res
+
+
+
+# ---------------------------------------------------------------------------
+# phase 12: --fused as CUDA graphs, the grid under torch.func.vmap
+# ---------------------------------------------------------------------------
+
+P12_EPOCHS = 4  # 12a: chunks of 2 (save_every_n 2)
+GRID_EPOCHS = 3
+GRID_SEEDS = ("1", "2")
+GRID_LRS = ("3e-3", "1e-3")
+# 12b's bars, a grid run against its own loop run. The vmapped convs take
+# the runs' LoRA-merged weights batched (grouped convs, other cuDNN
+# algorithms), so bits differ, and Adam divides each update by
+# sqrt(nu) + eps: where a gradient is near eps its update moves with the
+# gradient's last bits. So the saved weights are held in units of the
+# learning rate (a hundredth of one Adam step an element; lora_B starts
+# at 0 and is only a few steps large), beside two loop runs on cuDNN's
+# default algorithms; the val histories to 1e-5 relative, the best
+# epochs equal
+GRID_STEP_TOL = 1e-2
+GRID_VAL_RTOL = 1e-5
+
+
+def run_loop_or_fused(torch, wrappers, params, images, train, val, base,
+                      name):
+    """One fine-tune through Experiment.train from `base` -> (Experiment,
+    host seconds, {kernel: launches}, peak GiB)."""
+    from mst_tpu_torch.train.trainer import Experiment
+
+    exp = Experiment(params, images=images)
+    exp.load_params(base)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    exp.train(train, val, None, None, name)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: w.launches for k, w in wrappers.items()}
+    return exp, wall, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def run_distance(torch, a, b):
+    """Two Experiments' runs -> (bit-equal, {what: max distance}): the
+    epochs' losses and val ADE/FDE (relative), the best epochs, and the
+    final leaves (over each leaf's max)."""
+    import numpy as np
+
+    from mst_tpu_torch import io
+
+    def rel(x, y):
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        return float((np.abs(x - y) / np.maximum(np.abs(y), 1e-12)).max())
+
+    la = [r["loss"] for r in a.epoch_log]
+    lb = [r["loss"] for r in b.epoch_log]
+    wa, wb = io.flatten(a.model_params), io.flatten(b.model_params)
+    dist = {"loss": rel(la, lb), "val_ade": rel(a.val_ADE, b.val_ADE),
+            "val_fde": rel(a.val_FDE, b.val_FDE),
+            "best_epoch": abs(a.best_epoch - b.best_epoch),
+            "weights": max(float((wa[k] - wb[k]).detach().abs().max())
+                           / max(float(wb[k].detach().abs().max()), 1e-12)
+                           for k in wb)}
+    bit = (la == lb and a.val_ADE == b.val_ADE and a.val_FDE == b.val_FDE
+           and a.best_epoch == b.best_epoch
+           and all(torch.equal(wa[k], wb[k]) for k in wb))
+    return bit, dist
+
+
+def rows_in_replay(torch, exp):
+    """The rows kernel captured in a CUDA graph on a train step's own maps
+    (the fused run's weights and first packed batch), replayed on two
+    fillings of its input, each against the plain version -> max px."""
+    from mst_tpu_torch.config import step_config
+    from mst_tpu_torch.ops.kernels import launches
+    from mst_tpu_torch.ops.kernels.softargmax_rows import softargmax2d_rows
+    from mst_tpu_torch.ops.softargmax import softargmax2d
+    from mst_tpu_torch.train import fused as fused_lib
+    from mst_tpu_torch.train.steps import make_train_step
+
+    runner = exp.fused_runner
+    batch = fused_lib.index_batch(
+        runner.train_data,
+        torch.zeros(1, dtype=torch.long, device=runner.device))
+    with torch.no_grad():
+        _, _, goal_map, traj_map, _ = make_train_step(
+            exp.mcfg, step_config(exp.params)).forward(
+                exp.model_params, exp.model_state, batch)
+    maps = traj_map.permute(0, 3, 1, 2).contiguous()
+    x = maps.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        softargmax2d_rows(x)  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = launches.Graph()
+    out = graph.capture(lambda: softargmax2d_rows(x), stream)
+    err = 0.0
+    for fill in (maps, goal_map[..., -1:].permute(0, 3, 1, 2).expand_as(
+            maps) * 0.5 + maps * 0.5):
+        x.copy_(fill)
+        graph.replay()
+        torch.cuda.synchronize()
+        err = max(err, float((out - softargmax2d(x)).abs().max()))
+    check(graph.per_replay == {(softargmax2d_rows, "launches"): 1},
+          f"the captured rows graph holds {graph.per_replay}")
+    return err, tuple(maps.shape)
+
+
+def fused_loop_pair(torch, wrappers, card, images, train, val, base, tmp,
+                    dtype):
+    """12a in one compute dtype: the same 4-epoch fine-tune through the
+    loop and through --fused -> (loop exp, fused exp, fused launches)."""
+    import numpy as np
+
+    from mst_tpu_torch.train import fused as fused_lib
+
+    _, params = loop_params(tmp, [
+        "--train_net", "mosa_2", "--position", *POSITIONS, "--fine_tune",
+        "--n_train_batch", "2", "--n_epoch", str(P12_EPOCHS), "--lr",
+        "3e-3", "--smooth_val", "--window_size", "3", "--compute_dtype",
+        dtype])
+    params["save_every_n"] = 2
+    loop, loop_s, loop_l, loop_gib = run_loop_or_fused(
+        torch, wrappers, params, images, train, val, base, f"loop_{dtype}")
+    fused_lib.REPLAY_SYNC_DEBUG = "error"  # no sync inside the replays
+    try:
+        fused, fused_s, fused_l, fused_gib = run_loop_or_fused(
+            torch, wrappers, dict(params, fused=True), images, train, val,
+            base, f"fused_{dtype}")
+    finally:
+        fused_lib.REPLAY_SYNC_DEBUG = 0
+    runner = fused.fused_runner
+    check(runner is not None and runner.graph is not None,
+          f"{dtype}: --fused did not run as a CUDA graph")
+    bit, dist = run_distance(torch, fused, loop)
+    print(f"12a {dtype}: fused against loop over {P12_EPOCHS} epochs: "
+          f"bit-equal {bit}; distances {dist}; best epochs "
+          f"{fused.best_epoch} / {loop.best_epoch}; the replays ran under "
+          f"sync debug 'error'")
+    check(bit, f"{dtype}: --fused differs from the loop: {dist}")
+    n_train, n_val = runner.n_train, len(runner.val_batches)
+    suffix = "_bf16" if dtype == "bfloat16" else ""
+    per_replay = {f"{fn.__name__}.{name}": n
+                  for (fn, name), n in runner.graph.per_replay.items()}
+    per_chunk = {k: 2 * n for k, n in per_replay.items()}
+    want = dict.fromkeys(wrappers, 0)
+    want["softargmax_rows" + suffix] = 2 + 2 * n_train * P12_EPOCHS
+    want["fused_predict" + suffix] = 1 + n_val * P12_EPOCHS
+    print(f"12a {dtype}: {runner.replays} replays of one captured epoch "
+          f"({n_train} steps, {n_val} validation batches), capture "
+          f"{runner.capture_seconds:.2f} s; launches a replay {per_replay}, "
+          f"a 2-epoch chunk {per_chunk}; the fused "
+          f"run's launches (warm-up + replays) {fused_l}")
+    check(fused_l == want, f"{dtype}: the fused run launched {fused_l}, "
+          f"the code gives {want}")
+    loop_ep = [r["steps_seconds"] + r["val_seconds"] for r in loop.epoch_log]
+    fused_ep = [r["epoch_seconds"] for r in fused.epoch_log]
+    print(f"12a {dtype} seconds an epoch: loop "
+          f"{[f'{s:.3f}' for s in loop_ep]} (train() {loop_s:.2f} s), fused "
+          f"{[f'{s:.3f}' for s in fused_ep]} (train() {fused_s:.2f} s, the "
+          f"first chunk's with the capture); steady: loop "
+          f"{np.mean(loop_ep[1:]):.3f}, fused {np.mean(fused_ep[2:]):.3f}; "
+          f"peak {loop_gib:.2f} / {fused_gib:.2f} GiB; {card}")
+    # one more chunk of the captured epoch, traced
+    perms = np.stack([np.arange(n_train)] * 2)
+    print_trace(torch, f"fused {dtype} 2-epoch chunk", lambda: runner(
+        fused.model_params, fused.model_state, perms,
+        range(P12_EPOCHS, P12_EPOCHS + 2)))
+    return loop, fused, fused_l
+
+
+def write_grid_world(root, images, train, val, test):
+    """Phase 6c's scenes as files for the grid's CLI flow: reference.jpg
+    under <root>/data/sdd/raw/annotations/synth/video<i>, the splits as
+    pickled DataFrames under data/sdd/synth, and grid.yaml
+    (sdd_shortterm_train.yaml with the identity backbone's 3 classes and
+    this data_dir) -> the config's path."""
+    import cv2
+    import dataclasses
+
+    import numpy as np
+    import pandas as pd
+    import yaml
+
+    from mst_tpu_torch.config import CONFIG_DIR
+
+    for scene, im in images.items():
+        name, idx = scene.split("_")
+        d = os.path.join(root, "data/sdd/raw/annotations", name, f"video{idx}")
+        os.makedirs(d)
+        cv2.imwrite(os.path.join(d, "reference.jpg"),
+                    (np.asarray(im) * 255).astype(np.uint8))
+    ddir = os.path.join(root, "data/sdd/synth")
+    os.makedirs(ddir)
+    for split, t in (("train", train), ("val", val), ("test", test)):
+        pd.DataFrame(dataclasses.asdict(t)).to_pickle(
+            os.path.join(ddir, f"{split}.pkl"))
+    with open(os.path.join(CONFIG_DIR, "sdd_shortterm_train.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(n_semantic_classes=3, data_dir=os.path.join(root, "data"))
+    path = os.path.join(root, "grid.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def grid_path(torch, wrappers, card, images, train, val, test, tmp):
+    """12b: a 2 seeds x 2 lrs grid of mosa_2 fine-tunes (3 epochs) through
+    python -m mst_tpu_torch.grid's run_grid, each run against its own loop
+    run (the train CLI's flow); the same grid split by a forced memory
+    error; the kernels through their vmap rules -> grid launches."""
+    import numpy as np
+
+    from mst_tpu_torch import grid
+    from mst_tpu_torch.config import (get_experiment_name,
+                                      get_image_and_data_path, get_params,
+                                      get_parser)
+    from mst_tpu_torch.data.splits import prepare_dataset
+    from mst_tpu_torch.train.trainer import Experiment
+    from mst_tpu_torch.utils.seeding import set_random_seeds
+
+    root = os.path.join(tmp, "grid")
+    cfg = write_grid_world(root, images, train, val, test)
+    base = os.path.join(root, "base.npz")
+    Experiment(get_params(cfg, {"seed": 0})).save_params(base)
+    common = ["--config_filename", cfg, "--batch_size", str(LOOP_B),
+              "--dataset_path", "synth", "--load_data", "predefined",
+              "--fine_tune", "--train_net", "mosa_2", "--position",
+              *POSITIONS, "--pretrained_ckpt", base, "--n_epoch",
+              str(GRID_EPOCHS), "--n_train_batch", "2", "--smooth_val",
+              "--window_size", "1"]
+    # a full-width epoch of one run peaks at ~17 GiB (the K = 20 decode of
+    # its validation batches), so 2 runs a program fit the card's 80 GB and
+    # 4 do not
+    grid_flags = ["--runs_per_program", "2"]
+
+    def sweep(tag, env):
+        args = grid.get_parser().parse_args(common + grid_flags + [
+            "--seeds", *GRID_SEEDS, "--lrs", *GRID_LRS, "--ckpt_path",
+            os.path.join(root, tag), "--log_dir", os.path.join(root,
+                                                              tag + "_logs")])
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for w in wrappers.values():
+                w.launches = 0
+            buf = io_text.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                summary = grid.run_grid(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        launches = {k: w.launches for k, w in wrappers.items()}
+        text = buf.getvalue()
+        for line in text.splitlines():
+            if line.startswith("[grid]"):
+                print(f"12b {tag}: {line}")
+        return summary, wall, launches, text, dict(
+            grid.run_grid.stats,
+            peak=torch.cuda.max_memory_allocated() / 2**30)
+
+    summary, wall, launches, _, stats = sweep("grid", {})
+    print(f"12b grid: {len(summary)} runs x {GRID_EPOCHS} epochs in "
+          f"{wall:.2f} s (sweep {stats['sweep_seconds']:.2f} s, "
+          f"{stats['replays']} replays, capture "
+          f"{stats['capture_seconds']:.2f} s), peak {stats['peak']:.2f} GiB, "
+          f"launches {launches}; {card}")
+
+    def loop_run(seed, lr, ckpt):
+        """The train CLI's flow for (seed, lr) in this process -> (its
+        Experiment, test ADE, FDE, train() seconds, saved npz path)."""
+        args = get_parser(True).parse_args(common + [
+            "--seed", str(seed), "--lr", str(lr), "--ckpt_path",
+            os.path.join(root, ckpt)])
+        set_random_seeds(args.seed)
+        params = get_params(args=args)
+        image_path, data_path = get_image_and_data_path(params)
+        tr, va, te = prepare_dataset(
+            data_path, args.load_data, args.batch_size, args.n_train_batch,
+            args.train_files, args.val_files, args.val_split,
+            args.test_splits, args.shuffle, args.share_val_test, "train",
+            False)
+        name = get_experiment_name(args, tr.meta_ids().shape[0])
+        with contextlib.redirect_stdout(io_text.StringIO()):
+            exp = Experiment(params)
+            exp.load_params(base)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            exp.train(tr, va, image_path, image_path, name)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            set_random_seeds(args.seed)
+            ade, fde, _, _ = exp.test(te, image_path)
+        return exp, ade, fde, wall, os.path.join(root, ckpt, name + ".npz")
+
+    def step_distance(a, b, lr):
+        """Two saved npz files' largest leaf difference, in learning
+        rates."""
+        with np.load(a) as x, np.load(b) as y:
+            return max(float(np.abs(x[k] - y[k]).max()) for k in y.files) / lr
+
+    # each run's own loop run (cuDNN deterministic, as the grid)
+    loop_s = 0.0
+    for s in summary:
+        exp, ade, fde, run_s, path = loop_run(s["seed"], s["lr"], "loop")
+        loop_s += run_s
+        check(os.path.basename(path) == s["name"] + ".npz",
+              f"the loop run saved {path}, the grid {s['name']}")
+        werr = step_distance(os.path.join(root, "grid", s["name"] + ".npz"),
+                             path, s["lr"])
+        verr = max(abs(a - b) / abs(b) for a, b in zip(
+            s["val_ADE"] + s["val_FDE"], exp.val_ADE + exp.val_FDE))
+        terr = max(abs(s["ade"] - ade) / ade, abs(s["fde"] - fde) / fde)
+        print(f"12b seed {s['seed']} lr {s['lr']}: best epoch "
+              f"{s['best_epoch']} / loop {exp.best_epoch}; val history "
+              f"{verr:.2e} relative, saved weights {werr:.2e} lr, test "
+              f"ADE/FDE {terr:.2e} relative (loop {ade:.4f} / {fde:.4f})")
+        check(s["best_epoch"] == exp.best_epoch
+              and len(s["val_ADE"]) == len(exp.val_ADE)
+              and verr <= GRID_VAL_RTOL and werr <= GRID_STEP_TOL,
+              f"grid run {s['name']} differs from its loop run")
+    print(f"12b: the grid's sweep {stats['sweep_seconds']:.2f} s (capture "
+          f"{stats['capture_seconds']:.2f} s of it) against the 4 loop runs' "
+          f"train() {loop_s:.2f} s")
+    # the card's own noise: the first run's loop again on cuDNN's default
+    # (non-deterministic) algorithms
+    torch.backends.cudnn.deterministic = False
+    try:
+        s = summary[0]
+        _, _, _, _, path = loop_run(s["seed"], s["lr"], "loop_default")
+    finally:
+        torch.backends.cudnn.deterministic = True
+    print(f"12b: two loop runs of seed {s['seed']} lr {s['lr']} "
+          f"(deterministic, default cuDNN algorithms) differ by "
+          f"{step_distance(path, os.path.join(root, 'loop', os.path.basename(path)), s['lr']):.2e} lr")
+
+    # the same grid, each 2-run program split by a forced memory error
+    # after its first chunk
+    split, split_wall, _, text, _ = sweep("split", {
+        "MST_GRID_FORCE_OOM_ABOVE": "1", "MST_GRID_CHUNK_CAP": "1"})
+    check("splitting the group" in text, "the forced split did not happen")
+    worst = 0.0
+    for a, b in zip(summary, split):
+        werr = step_distance(os.path.join(root, "split", b["name"] + ".npz"),
+                             os.path.join(root, "grid", a["name"] + ".npz"),
+                             a["lr"])
+        verr = max(abs(x - y) / abs(y) for x, y in zip(
+            b["val_ADE"] + b["val_FDE"], a["val_ADE"] + a["val_FDE"]))
+        worst = max(worst, werr, verr)
+        check(a["best_epoch"] == b["best_epoch"] and verr <= GRID_VAL_RTOL
+              and werr <= GRID_STEP_TOL,
+              f"the split sweep's {b['name']} differs from the unsplit one")
+    print(f"12b split sweep ({split_wall:.2f} s): equal to the unsplit "
+          f"sweep within {worst:.2e} (weights in lr, val relative; 0 is "
+          f"bit-equal)")
+    return launches
+
+
+def vmap_rules(torch):
+    """Both kernels through their vmap rules over 2 runs, against one call
+    a run: fused_predict at the eval decode tail's shape with one shared
+    weight (folded into R) and with each run's own (one launch a run), the
+    rows kernel on a step's maps -> max px."""
+    from mst_tpu_torch.ops.kernels.fused_predict import \
+        fused_predictor_softargmax as fused
+    from mst_tpu_torch.ops.kernels.softargmax_rows import softargmax2d_rows
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    R, H, W, C, P = 160, 352, 480, 32, 12
+    x = torch.randn((2, R, H, W, C), device="cuda", generator=g)
+    w = torch.randn((2, C, P), device="cuda", generator=g) * 0.2
+    b = torch.randn((2, P), device="cuda", generator=g)
+    shared = torch.func.vmap(fused, in_dims=(0, None, None))(x, w[0], b[0])
+    own = torch.func.vmap(fused, in_dims=(0, 0, 0))(x, w, b)
+    err_shared = max(float((shared[r] - fused(x[r], w[0], b[0])).abs().max())
+                     for r in range(2))
+    err_own = max(float((own[r] - fused(x[r], w[r], b[r])).abs().max())
+                  for r in range(2))
+    del x
+    maps = torch.randn((2, 8, 12, H, W), device="cuda", generator=g) * 3
+    rows = torch.func.vmap(softargmax2d_rows)(maps)
+    err_rows = max(float((rows[r] - softargmax2d_rows(maps[r])).abs().max())
+                   for r in range(2))
+    print(f"12b vmap rules against one call a run: fused_predict shared "
+          f"weight (2 x {R} rows folded) {err_shared:.2e} px, own weights "
+          f"{err_own:.2e} px, rows (2 x 96 rows) {err_rows:.2e} px")
+    check(err_shared <= FUSED_TOL and err_own == 0.0
+          and err_rows <= ROWS_TOL,
+          "a kernel's vmap rule differs from its per-run calls")
+    return max(err_shared, err_own), err_rows
+
+
+def fused_and_grid_path(torch, wrappers, card, rows_rec, fused_rec):
+    """Phase 12 -> {kernel: launches} over 12a's fused runs and 12b's
+    grid."""
+    from mst_tpu_torch.data import splits
+    from mst_tpu_torch.train.trainer import Experiment
+
+    images, train, val, test = loop_data()
+    train_ft = splits.limit_samples(train, 2, LOOP_B)  # as phase 6c's
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp()
+    total = dict.fromkeys(wrappers, 0)
+    try:
+        _, scratch = loop_params(tmp, ["--train_net", "train"])
+        base = os.path.join(tmp, "base.npz")
+        Experiment(scratch, images=images).save_params(base)
+        for dtype in ("float32", "bfloat16"):
+            _, fused, launches = fused_loop_pair(
+                torch, wrappers, card, images, train_ft, val, base, tmp,
+                dtype)
+            total = {k: total[k] + launches[k] for k in total}
+            if dtype == "float32":
+                err, shape = rows_in_replay(torch, fused)
+                print(f"12a: the rows kernel in a replay on a step's maps "
+                      f"{shape} against its plain version: {err:.2e} px")
+                check(err <= ROWS_TOL, "the rows kernel in a replay "
+                      "disagrees with its plain version")
+                rows_rec["max_abs_err"] = max(rows_rec["max_abs_err"], err)
+            del fused
+            torch.cuda.empty_cache()
+        launches = grid_path(torch, wrappers, card, images, train_ft, val,
+                             test, tmp)
+        total = {k: total[k] + launches[k] for k in total}
+        err_fused, err_rows = vmap_rules(torch)
+        fused_rec["max_abs_err"] = max(fused_rec["max_abs_err"], err_fused)
+        rows_rec["max_abs_err"] = max(rows_rec["max_abs_err"], err_rows)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 12 launches: {total}")
+    for name in ("softargmax_rows", "fused_predict", "softargmax_rows_bf16",
+                 "fused_predict_bf16"):
+        check(total[name] > 0, f"{name} never ran in phase 12")
+    return total
 
 
 def main():
@@ -3781,6 +4254,14 @@ def main():
         check(r["launches"] > 0, f"{r['name']} never ran on the bf16 path")
     records += bf16_records
 
+    # ---- 12. --fused as CUDA graphs and the grid under vmap (before phase
+    # 10 too: its traces need a profiler that records every kernel)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p12 = fused_and_grid_path(torch, kernel_wrappers(), card, rows_rec,
+                              fused_rec)
+    print(f"fused and grid phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- 10. from raw annotations to a resumed run, and ETH
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3790,6 +4271,7 @@ def main():
 
     for r in records:
         r["p11_launches"] = p11[r["name"]] + cross[r["name"]]
+        r["p12_launches"] = p12[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
         r["loop_launches"] = loop_launches[r["name"]]
         r["ymod_launches"] = ymod_launches[r["name"]]
@@ -3799,6 +4281,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "train_launches", "loop_launches", "ymod_launches",
             "serve_launches", "seg_launches", "res_launches", "p11_launches",
+            "p12_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

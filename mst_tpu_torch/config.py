@@ -5,7 +5,7 @@ mst_tpu/train/trainer.py:312-351), with the JAX package's key vocabulary
 and flag surface, plus --device.
 
 Flags the port does not act on yet raise NotImplementedError at a
-non-default value instead of being dropped: the loop's --fused and
+non-default value instead of being dropped: the loop's
 --mesh_shape/--mesh_axes, from the Experiment (check_loop_ported). An
 unknown --compute_dtype raises ValueError (parse_compute_dtype).
 --seg_cache_device_mb sizes a TPU-side cache and is accepted and unused.
@@ -123,8 +123,14 @@ def get_parser(is_train: bool) -> argparse.ArgumentParser:
         parser.add_argument("--train_files", default=None, type=str,
                             nargs="+")
         parser.add_argument("--fused", action="store_true",
-                            help="the fused multi-epoch program; not ported"
-                                 " yet (raises)")
+                            help="run the epoch loop in chunks of epochs,"
+                                 " each epoch (train steps + validation)"
+                                 " a CUDA-graph replay, one host read a"
+                                 " chunk (eager on the CPU); falls back to"
+                                 " the loop, saying why, when ineligible"
+                                 " (several scene shapes, cross-scene"
+                                 " batches, in-step segmentation,"
+                                 " e_unfreeze, an empty split)")
     return parser
 
 
@@ -217,13 +223,12 @@ def parse_compute_dtype(name) -> torch.dtype:
 
 # the Experiment loop's flags the port does not act on yet, and the value
 # that means "off"
-_LOOP_FLAGS = dict(fused=False, mesh_shape=None, mesh_axes=None)
+_LOOP_FLAGS = dict(mesh_shape=None, mesh_axes=None)
 
 
 def check_loop_ported(params: dict):
     """Raise on a flag of mst_tpu's Experiment loop that the port does not
-    act on yet: the fused multi-epoch program and a device mesh. Then an
-    unknown compute dtype."""
+    act on yet: a device mesh. Then an unknown compute dtype."""
     for flag, off in _LOOP_FLAGS.items():
         if params.get(flag, off) not in (off, [], ()):
             raise NotImplementedError(

@@ -142,15 +142,16 @@ def _to_jax_layout(key, arr):
         arr.ndim == 4 else arr
 
 
-def adam_state_to_numpy(named, optimizer, scheduler):
-    """torch.optim.Adam's state over the trainable leaves `named` ({path:
-    parameter}) -> optax.adam's leaves: the int32 count, the first moments
-    (mu) and the second moments (nu), each in jax_leaf_order and the JAX
-    layout (conv weights HWIO), then the schedule's int32 count when the
-    LR has milestones (optax's piecewise_constant_schedule state). Both
-    counts are the scheduler's steps, the global step; a leaf that never
-    had a gradient has zero moments, as in optax."""
-    count = np.asarray(scheduler.last_epoch, np.int32)
+def adam_state_to_numpy(named, optimizer):
+    """The port's optimizer state (train/optim.Adam; SGD has no moments)
+    over the trainable leaves `named` ({path: parameter}) -> optax.adam's
+    leaves: the int32 count, the first moments (mu) and the second
+    moments (nu), each in jax_leaf_order and the JAX layout (conv weights
+    HWIO), then the schedule's int32 count when the LR has milestones
+    (optax's piecewise_constant_schedule state). Both counts are the
+    optimizer's `count`, the global step; a leaf without moments writes
+    zeros, as optax has them for a leaf that never had a gradient."""
+    count = np.asarray(int(optimizer.count), np.int32)
     moments = {"exp_avg": [], "exp_avg_sq": []}
     for key in jax_leaf_order(named):
         param = named[key]
@@ -161,46 +162,37 @@ def adam_state_to_numpy(named, optimizer, scheduler):
                    else m.detach().cpu().numpy())
             out.append(np.ascontiguousarray(_to_jax_layout(key, arr)))
     leaves = [count, *moments["exp_avg"], *moments["exp_avg_sq"]]
-    if scheduler.milestones:
+    if optimizer.milestones:
         leaves.append(count.copy())
     return leaves
 
 
-def adam_state_from_numpy(leaves, named, optimizer, scheduler):
+def adam_state_from_numpy(leaves, named, optimizer):
     """The inverse: optax.adam's leaves (as adam_state_to_numpy gives them)
-    -> the Adam state of every leaf of `named` (step = the count,
-    exp_avg = mu, exp_avg_sq = nu) and the scheduler's position:
-    last_epoch = the count, and the group's LR the base LR times gamma once
-    for each milestone at or below it, as MultiStepLR reaches it step by
-    step."""
+    copied into the optimizer's own buffers (the count, and exp_avg = mu,
+    exp_avg_sq = nu of every leaf of `named` where it keeps moments), so
+    the learning rate follows from the count."""
     keys = jax_leaf_order(named)
     n = len(keys)
-    want = 1 + 2 * n + (1 if scheduler.milestones else 0)
+    want = 1 + 2 * n + (1 if optimizer.milestones else 0)
     if len(leaves) != want:
         raise ValueError(f"an Adam state of {len(leaves)} leaves; "
                          f"{n} trainable leaves with"
-                         f"{'' if scheduler.milestones else 'out'} a "
+                         f"{'' if optimizer.milestones else 'out'} a "
                          f"schedule need {want}")
-    count = int(np.asarray(leaves[0]))
-    for i, key in enumerate(keys):
-        param = named[key]
-        state = {"step": torch.tensor(float(count), dtype=torch.float32)}
-        for name, arr in (("exp_avg", leaves[1 + i]),
-                          ("exp_avg_sq", leaves[1 + n + i])):
-            arr = np.asarray(arr, np.float32)
-            if key.endswith("weight") and arr.ndim == 4:
-                arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
-            if tuple(arr.shape) != tuple(param.shape):
-                raise ValueError(f"'{key}': Adam moment of shape "
-                                 f"{arr.shape}, the leaf is "
-                                 f"{tuple(param.shape)}")
-            state[name] = torch.tensor(arr, device=param.device)
-        optimizer.state[param] = state
-    scheduler.last_epoch = count
-    for group, base_lr in zip(optimizer.param_groups, scheduler.base_lrs):
-        lr = base_lr
-        for m, times in sorted(scheduler.milestones.items()):
-            if m <= count:
-                lr = lr * scheduler.gamma ** times
-        group["lr"] = lr
-    scheduler._last_lr = [g["lr"] for g in optimizer.param_groups]
+    with torch.no_grad():
+        optimizer.count.fill_(int(np.asarray(leaves[0])))
+        for i, key in enumerate(keys):
+            param = named[key]
+            state = optimizer.state.get(param)
+            for name, arr in (("exp_avg", leaves[1 + i]),
+                              ("exp_avg_sq", leaves[1 + n + i])):
+                arr = np.asarray(arr, np.float32)
+                if key.endswith("weight") and arr.ndim == 4:
+                    arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+                if tuple(arr.shape) != tuple(param.shape):
+                    raise ValueError(f"'{key}': Adam moment of shape "
+                                     f"{arr.shape}, the leaf is "
+                                     f"{tuple(param.shape)}")
+                if state is not None:
+                    state[name].copy_(torch.from_numpy(arr))

@@ -26,7 +26,7 @@ import threading
 
 import torch
 
-from mst_tpu_torch.ops.kernels import _build
+from mst_tpu_torch.ops.kernels import _build, launches
 from mst_tpu_torch.ops.kernels import online_stats as ost
 from mst_tpu_torch.ops.softargmax import softargmax2d_nhwc
 
@@ -175,13 +175,23 @@ _ARRIVALS_LOCK = threading.Lock()
 def _arrivals(device, stream, R):
     """The kernel's per-row arrival counters for calls on `stream` (a
     cudaStream_t as an int): zeroed once, on that stream, and grown when R
-    grows; each call's last block of a row sets its counter back to 0. The
-    calls of one stream run in order and share the buffer; calls on two
-    streams may overlap, so each stream has its own."""
+    grows; each call's last block of a row sets its counter back to 0, so
+    they are zero again after every call and every replay of a captured
+    one. The calls of one stream run in order and share the buffer; calls
+    on two streams may overlap, so each stream has its own. A stream that
+    captures a CUDA graph must have its buffer before the capture (a call
+    outside it, as the warm-up of train/fused.py makes): the zeroing would
+    otherwise become part of the graph, from its private pool."""
     key = (device, stream)
     with _ARRIVALS_LOCK:
         buf = _ARRIVALS.get(key)
         if buf is None or buf.numel() < R:
+            if torch.device(device).type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "fused_predictor_softargmax: no arrival counters for "
+                    f"{R} rows on the capturing stream; call it once on "
+                    "that stream before capturing")
             buf = torch.zeros(max(R, 256), dtype=torch.int32, device=device)
             _ARRIVALS[key] = buf
     return buf
@@ -222,18 +232,34 @@ def library_split(R, HW, blocks):
 def fused_predictor_softargmax(x, weight, bias, eps: float = 1e-6):
     """(R, H, W, C) activations, (C, P) weight, (P,) bias -> (R, P, 2) f32.
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the
-    kernel, which needs x and the weight both f32 or both bf16, x
-    contiguous in NHWC order (the NHWC view of a channels_last NCHW
-    tensor), P <= 32 and C <= 128; an f32 bias, or a bf16 one, which is
-    widened here; anything else raises. `launches` counts the f32
-    kernel's launches, `launches_bf16` the bf16 kernel's.
+    The custom op mst_tpu_torch::fused_predictor_softargmax: a CPU tensor
+    takes the plain version. A CUDA tensor launches the kernel, which
+    needs x and the weight both f32 or both bf16, x contiguous in NHWC
+    order (the NHWC view of a channels_last NCHW tensor), P <= 32 and
+    C <= 128; an f32 bias, or a bf16 one, which is widened here; anything
+    else raises. Under torch.func.vmap the runs fold into R when the
+    weight and bias are shared (one launch), and launch once a run when
+    they are the runs' own; under CUDA-graph capture the launch is
+    recorded and counts once each replay (ops/kernels/launches.py).
+    `launches` counts the f32 kernel's launches, `launches_bf16` the bf16
+    kernel's. A tensor of another device raises (the op's fake serves
+    tracing, not callers).
     """
-    if x.device.type == "cpu":
-        return fused_predictor_softargmax_plain(x, weight, bias, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(
             f"fused_predictor_softargmax: unsupported device {x.device}")
+    return _fused_op(x, weight, bias, eps)
+
+
+@torch.library.custom_op("mst_tpu_torch::fused_predictor_softargmax",
+                         mutates_args=(), device_types="cpu")
+def _fused_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    return fused_predictor_softargmax_plain(x, weight, bias, eps)
+
+
+@_fused_op.register_kernel("cuda")
+def _fused_cuda(x, weight, bias, eps):
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(
             "fused_predictor_softargmax needs x (R, H, W, C) contiguous in "
@@ -277,11 +303,34 @@ def fused_predictor_softargmax(x, weight, bias, eps: float = 1e-6):
         raise RuntimeError(f"fused_predict kernel launch failed: error {err}"
                            " (a cudaError_t; 999: no cuTensorMapEncodeTiled;"
                            " 1000 + CUresult: a refused tensor map)")
-    if x.dtype == torch.bfloat16:
-        fused_predictor_softargmax.launches_bf16 += 1
-    else:
-        fused_predictor_softargmax.launches += 1
+    launches.count(fused_predictor_softargmax, "launches_bf16"
+                   if x.dtype == torch.bfloat16 else "launches")
     return out
+
+
+@_fused_op.register_fake
+def _fused_fake(x, weight, bias, eps):
+    return x.new_empty((x.shape[0], weight.shape[-1], 2),
+                       dtype=torch.float32)
+
+
+@_fused_op.register_vmap
+def _fused_vmap(info, in_dims, x, weight, bias, eps):
+    """Runs of a shared weight and bias fold into R (one launch); runs
+    with their own weight or bias launch once each."""
+    n = info.batch_size
+    xd, wd, bd = in_dims[:3]
+    x = (x.movedim(xd, 0) if xd is not None
+         else x.expand(n, *x.shape)).contiguous()
+    if wd is None and bd is None:
+        out = _fused_op(x.reshape(-1, *x.shape[2:]), weight, bias, eps)
+        return out.reshape(n, x.shape[1], *out.shape[1:]), 0
+    weight = (weight.movedim(wd, 0) if wd is not None
+              else weight.expand(n, *weight.shape)).contiguous()
+    bias = (bias.movedim(bd, 0) if bd is not None
+            else bias.expand(n, *bias.shape)).contiguous()
+    return torch.stack([_fused_op(x[r], weight[r], bias[r], eps)
+                        for r in range(n)]), 0
 
 
 fused_predictor_softargmax.launches = 0

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from mst_tpu_torch.ops.kernels import _build
+from mst_tpu_torch.ops.kernels import _build, launches
 from mst_tpu_torch.ops.kernels import online_stats as ost
 from mst_tpu_torch.ops.softargmax import softargmax2d as plain
 
@@ -134,16 +134,29 @@ def library_split(HW, lead, cluster, vec=4):
 def softargmax2d_rows(logits_hw_last, eps: float = 1e-6):
     """(..., H, W) f32 or bf16 logits -> (..., 2) f32 expected (x, y).
 
-    A CPU tensor takes the plain version (bf16 widened first). A CUDA
-    tensor launches the CUDA kernel, which needs f32 or bf16 in a
-    contiguous layout, and raises otherwise. `launches` counts the f32
-    kernel's launches, `launches_bf16` the bf16 kernel's.
+    The custom op mst_tpu_torch::softargmax2d_rows: a CPU tensor takes the
+    plain version (bf16 widened first). A CUDA tensor launches the CUDA
+    kernel, which needs f32 or bf16 in a contiguous layout, and raises
+    otherwise. Under torch.func.vmap the runs fold into the rows (one
+    launch); under CUDA-graph capture the launch is recorded and counts
+    once each replay (ops/kernels/launches.py). `launches` counts the f32
+    kernel's launches, `launches_bf16` the bf16 kernel's. A tensor of
+    another device raises (the op's fake serves tracing, not callers).
     """
-    x = logits_hw_last
-    if x.device.type == "cpu":
-        return plain(x, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"softargmax2d_rows: unsupported device {x.device}")
+    if logits_hw_last.device.type not in ("cpu", "cuda"):
+        raise ValueError("softargmax2d_rows: unsupported device "
+                         f"{logits_hw_last.device}")
+    return _rows_op(logits_hw_last, eps)
+
+
+@torch.library.custom_op("mst_tpu_torch::softargmax2d_rows",
+                         mutates_args=(), device_types="cpu")
+def _rows_op(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return plain(x, eps)
+
+
+@_rows_op.register_kernel("cuda")
+def _rows_cuda(x, eps):
     if x.dtype not in DTYPES or not x.is_contiguous() or x.dim() < 2:
         raise ValueError("softargmax2d_rows needs a contiguous f32 or bf16 "
                          f"tensor of (..., H, W); got {x.dtype}, shape "
@@ -159,11 +172,23 @@ def softargmax2d_rows(logits_hw_last, eps: float = 1e-6):
     if err != 0:
         raise RuntimeError(f"softargmax_rows kernel launch failed: "
                            f"cudaError_t {err}")
-    if x.dtype == torch.bfloat16:
-        softargmax2d_rows.launches_bf16 += 1
-    else:
-        softargmax2d_rows.launches += 1
+    launches.count(softargmax2d_rows, "launches_bf16"
+                   if x.dtype == torch.bfloat16 else "launches")
     return out.reshape(*x.shape[:-2], 2)
+
+
+@_rows_op.register_fake
+def _rows_fake(x, eps):
+    return x.new_empty((*x.shape[:-2], 2), dtype=torch.float32)
+
+
+@_rows_op.register_vmap
+def _rows_vmap(info, in_dims, x, eps):
+    """The runs are more rows: one call on the batched tensor, contiguous
+    with the run axis first."""
+    if in_dims[0] is None:
+        return _rows_op(x, eps), None
+    return _rows_op(x.movedim(in_dims[0], 0).contiguous(), eps), 0
 
 
 softargmax2d_rows.launches = 0

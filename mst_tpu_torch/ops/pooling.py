@@ -43,12 +43,20 @@ class _Upsample2x(torch.autograd.Function):
     """F.interpolate's x2 bilinear forward with a backward that sums in a
     fixed order: F.interpolate's own backward scatters with atomicAdd on
     CUDA, so two identical train steps there differ in their last bits,
-    as XLA's do not."""
+    as XLA's do not. It keeps nothing for its backward, and torch.func
+    transforms (the grid's grad under vmap) run it through
+    setup_context and a generated vmap rule."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(x):
         return _nhwc(F.interpolate(_nchw(x), scale_factor=2,
                                    mode="bilinear", align_corners=False))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, g):

@@ -5,10 +5,46 @@ With replacement: inverse-CDF sampling, one cumsum and
 torch.searchsorted(right=True), which skips zero-weight bins even on exact
 ties. Without replacement: Gumbel top-k, the exact sequential-multinomial
 distribution. The noise comes from a torch.Generator, or is passed in
-(`u=`, `gumbel=`) so a test can feed both packages the same draws.
+(`u=`, `gumbel=`) so a test can feed both packages the same draws, or
+comes from a `Draws` in place of the generator: noise drawn ahead, as a
+CUDA graph's replay (train/fused.py) and the grid's vmapped runs need it.
 """
 
 import torch
+
+
+class Draws:
+    """The exponential draws of the samplers without replacement, made
+    ahead: given `tensors`, each draw takes the next one (of the shape the
+    generator would have filled); given a `generator`, each draw comes
+    from it and is kept in `drawn`, so the same shapes can be drawn ahead
+    from the same seeds, bit for bit (the same kernel fills the same
+    shape)."""
+
+    def __init__(self, tensors=None, generator=None):
+        self.tensors = None if tensors is None else list(tensors)
+        self.generator = generator
+        self.drawn = []
+
+    def exponential(self, like):
+        if self.tensors is None:
+            t = torch.empty_like(like).exponential_(generator=self.generator)
+            self.drawn.append(t)
+            return t
+        t = self.tensors[len(self.drawn)]
+        if tuple(t.shape) != tuple(like.shape):
+            raise ValueError(f"drawn noise of shape {tuple(t.shape)} where "
+                             f"the sampler draws {tuple(like.shape)}")
+        self.drawn.append(t)
+        return t
+
+
+def exponential(like, generator=None):
+    """Standard exponential noise of like's shape and dtype, from a
+    torch.Generator or a Draws."""
+    if isinstance(generator, Draws):
+        return generator.exponential(like)
+    return torch.empty_like(like).exponential_(generator=generator)
 
 
 def sample_heatmap(prob_map, num_samples: int, rel_threshold=None,
@@ -47,8 +83,7 @@ def sample_heatmap(prob_map, num_samples: int, rel_threshold=None,
             logp = torch.where(below, torch.full_like(logp, -torch.inf), logp)
         if gumbel is None:
             # -log(E) with E ~ Exp(1) is a standard Gumbel draw
-            gumbel = -torch.empty_like(logp).exponential_(
-                generator=generator).log()
+            gumbel = -exponential(logp, generator).log()
         gumbel = gumbel.to(device=flat.device, dtype=logp.dtype)
         idx = torch.topk(logp + gumbel, num_samples, dim=1).indices
 

@@ -58,7 +58,7 @@ def run(params, batch):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, _ = step(weights, state, setup["optimizer"],
-                        setup["scheduler"], batch)
+                        batch)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     return {k: v.detach().clone() for k, v in

@@ -38,6 +38,7 @@ from typing import Any, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from mst_tpu_torch import io
 from mst_tpu_torch.evaluator.metrics import (ade_fde_per_sample,
                                              ade_fde_per_sample_world)
 from mst_tpu_torch.models import ynet as ynet_lib
@@ -106,7 +107,14 @@ def swap_pavement_terrain(semantic_img):
     mst_tpu/data/images.py:90-94; reference image_utils.py:165-173)."""
     perm = list(range(semantic_img.shape[-1]))
     perm[1], perm[2] = perm[2], perm[1]
-    return semantic_img[..., perm]
+    return take(semantic_img, perm, -1)
+
+
+def take(x, indices, dim):
+    """x's entries `indices` (a list of ints) along dim, as x[..., indices]
+    gives them, from views: indexing with a list would upload the list,
+    which a CUDA graph cannot capture."""
+    return torch.stack([x.select(dim, i) for i in indices], dim)
 
 
 def _compute_params(params, scfg):
@@ -170,11 +178,14 @@ def _prepare_inputs(mcfg, scfg, params, semantic, traj, train=False,
 def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     """The few-shot fine-tune step (mst_tpu make_train_step, unpacked).
 
-    train_step(params, state, optimizer, scheduler, batch) -> (new state,
-    metrics). params is the nested tree; its trainable leaves have
-    requires_grad and are the optimizer's parameters
-    (freeze.set_trainable), and the step updates them in place: zero the
-    gradients, backward, optimizer.step(), scheduler.step(). state is the
+    train_step(params, state, optimizer, batch) -> (new state, metrics).
+    params is the nested tree; its trainable leaves have requires_grad and
+    are the optimizer's parameters (freeze.set_trainable; an optim.Adam or
+    optim.SGD, whose learning rate follows its device-side count), and
+    the step updates them in place: zero the gradients in place,
+    backward, optimizer.step(). No host value is read, and every buffer
+    the step writes exists after its first call, so train/fused.py
+    captures it in a CUDA graph. state is the
     model state (init_ynet's); the encoder runs in train mode, so the
     batch norms normalise with the batch's statistics and the new state
     holds their moved running statistics; with segment_in_step the
@@ -234,7 +245,8 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
         gt_future = traj[:, scfg.obs_len:]
         gt_future_map = rasterize_gaussian_nhwc(gt_future, H, W,
                                                 scfg.kernlen, scfg.nsig)
-        gt_waypoint_map = rasterize_dist_nhwc(gt_future[:, waypoints], H, W,
+        gt_waypoint_map = rasterize_dist_nhwc(take(gt_future, waypoints, 1),
+                                              H, W,
                                               scfg.template_size)
         wp_pyramid = avg_pool_pyramid(gt_waypoint_map.to(dtype), n_levels)
         features, new_state = encode(params, state, semantic, observed_map)
@@ -262,21 +274,43 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
         return {"ade_sum": (ade * mask).sum(), "fde_sum": (fde * mask).sum(),
                 "n": mask.sum()}
 
-    def train_step(params, state, optimizer, scheduler, batch):
-        optimizer.zero_grad(set_to_none=True)
+    def train_step(params, state, optimizer, batch):
+        optimizer.zero_grad()
         goal_loss, traj_loss, goal_map, traj_map, new_state = forward(
             params, state, batch)
         loss = goal_loss + traj_loss
         loss.backward()
         optimizer.step()
-        scheduler.step()
         metrics = top1_metrics(goal_map, traj_map, batch["traj"],
                                batch["mask"])
         return new_state, {"loss": loss.detach(),
                            "goal_loss": goal_loss.detach(),
                            "traj_loss": traj_loss.detach(), **metrics}
 
+    def loss_and_maps(trainable, frozen, state, batch):
+        goal_loss, traj_loss, goal_map, traj_map, new_state = forward(
+            io.unflatten({**frozen, **trainable}), state, batch)
+        return goal_loss + traj_loss, (goal_loss, traj_loss, goal_map,
+                                       traj_map, new_state)
+
+    def functional_step(trainable, frozen, state, opt_state, update, batch):
+        """The same step with parameters in and out, for torch.func.vmap
+        (the grid): trainable and frozen are {path: tensor} of the tree's
+        leaves, update an optim.Functional's update ->
+        (trainable, state, opt_state, metrics); the gradients come from
+        torch.func.grad_and_value."""
+        grads, (loss, (goal_loss, traj_loss, goal_map, traj_map,
+                       new_state)) = torch.func.grad_and_value(
+            loss_and_maps, has_aux=True)(trainable, frozen, state, batch)
+        trainable, opt_state = update(trainable, grads, opt_state)
+        metrics = top1_metrics(goal_map, traj_map, batch["traj"],
+                               batch["mask"])
+        return trainable, new_state, opt_state, {
+            "loss": loss, "goal_loss": goal_loss, "traj_loss": traj_loss,
+            **metrics}
+
     train_step.forward = forward
+    train_step.functional = functional_step
     return train_step
 
 
@@ -328,7 +362,7 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
         # the goal logits in f32: sigmoid, sampling, TTST and CWS stay f32
         pred_goal_map = ynet_lib.pred_goal(
             params, features).float()  # (B, H, W, pred)
-        pred_waypoint_map = pred_goal_map[..., waypoints]  # (B,H,W,n_wp)
+        pred_waypoint_map = take(pred_goal_map, waypoints, -1)  # (B,H,W,n_wp)
         pred_wp_sigmoid = torch.sigmoid(pred_waypoint_map / scfg.temperature)
         # (B, n_wp, H, W) for the samplers
         wp_sigmoid_hw = pred_wp_sigmoid.permute(0, 3, 1, 2)
@@ -477,9 +511,8 @@ def cws_gaussian_prior(mean, dist, sigma_factor, ratio, rot, H, W):
     cr, sr = torch.cos(radians), torch.sin(radians)
     R = torch.stack([torch.stack([cr, sr], -1),
                      torch.stack([-sr, cr], -1)], -2)  # (..., 2, 2)
-    if rot:
-        rot90 = torch.tensor([[0.0, -1.0], [1.0, 0.0]], device=dev)
-        R = torch.einsum("ij,...jl->...il", rot90, R)
+    if rot:  # [[0, -1], [1, 0]] @ R, with no host-made constant
+        R = torch.stack([-R[..., 1, :], R[..., 0, :]], -2)
     dist_norm = torch.sqrt((dist ** 2).sum(-1)) + 5.0
     conv = torch.zeros(R.shape, device=dev)
     conv[..., 0, 0] = (dist_norm / sigma_factor / ratio) ** 2

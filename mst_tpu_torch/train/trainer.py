@@ -22,8 +22,11 @@ make_bucketed_batches; validation and eth stay per scene), and each
 group's stack of scene maps is uploaded and segmented once. forward_test
 is the single-scene probe forward with optional input noise and input
 gradients. --compute_dtype and --remat reach the steps through
-config.step_config. Not ported: the fused multi-epoch program and device
-meshes (config.check_loop_ported raises on their flags).
+config.step_config. With --fused, an eligible run trains in chunks of
+epochs replayed as CUDA graphs on the card (train/fused.py), through the
+same per-epoch bookkeeping; an ineligible one falls back to the loop with
+mst_tpu's printed reason. Not ported: device meshes
+(config.check_loop_ported raises on their flags).
 
 The segmentation backbone (when its file exists) turns each scene's
 image into its semantic map once a pass and a cache (_semantic_for):
@@ -71,7 +74,8 @@ from mst_tpu_torch.models.unet import extract_bn_stats
 from mst_tpu_torch.ops.heatmap import (rasterize_dist_nhwc,
                                        rasterize_gaussian_nhwc)
 from mst_tpu_torch.ops.pooling import avg_pool_pyramid
-from mst_tpu_torch.train import freeze
+from mst_tpu_torch.train import freeze, optim
+from mst_tpu_torch.train import fused as fused_lib
 from mst_tpu_torch.train.losses import bce_with_logits
 from mst_tpu_torch.train.steps import make_eval_step, make_train_step
 from mst_tpu_torch.utils.profiling import ThroughputMeter
@@ -96,11 +100,12 @@ def setup_training(model_params, params_dict, steps_per_epoch: int):
     the LR is multiplied by lr_decay_ratio (default 0.1) from optimizer
     step m * steps_per_epoch on, for each distinct milestone m (optax's
     piecewise_constant_schedule takes a dict, so a repeated milestone
-    decays once; MultiStepLR would decay twice). Otherwise the LR is
-    constant. Step the scheduler once an optimizer step. On a CUDA device
-    the f32 path is pinned (resolve_device).
+    decays once). Otherwise the LR is constant. The optimizer
+    (optim.Adam) keeps its step count and LR on the device and steps its
+    schedule itself. On a CUDA device the f32 path is pinned
+    (resolve_device).
 
-    -> dict of trainable (the leaves), n_trainable, optimizer, scheduler.
+    -> dict of trainable (the leaves), n_trainable, optimizer.
     """
     leaf = next(iter(io.flatten(model_params).values()))
     resolve_device(leaf.device)
@@ -108,17 +113,16 @@ def setup_training(model_params, params_dict, steps_per_epoch: int):
         model_params, params_dict.get("train_net", "train"),
         params_dict.get("position", ()), params_dict.get("ynet_bias", False),
         params_dict.get("network"))
-    optimizer = torch.optim.Adam(trainable, lr=float(params_dict["lr"]))
     milestones = []
     if params_dict.get("fine_tune") and params_dict.get("steps"):
         spe = max(int(steps_per_epoch), 1)
-        milestones = sorted({int(m) * spe for m in params_dict["steps"]})
-    scheduler = torch.optim.lr_scheduler.MultiStepLR(
-        optimizer, milestones=milestones,
-        gamma=float(params_dict.get("lr_decay_ratio", 0.1)))
+        milestones = [int(m) * spe for m in params_dict["steps"]]
+    optimizer = optim.Adam(
+        trainable, float(params_dict["lr"]), milestones,
+        float(params_dict.get("lr_decay_ratio", 0.1)), device=leaf.device)
     return dict(trainable=trainable,
                 n_trainable=sum(p.numel() for p in trainable),
-                optimizer=optimizer, scheduler=scheduler)
+                optimizer=optimizer)
 
 
 def save_params(path, model_params, params_dict):
@@ -151,6 +155,19 @@ def eval_seed(seed: int, stream: int, i: int) -> int:
     64-bit word numpy's SeedSequence derives from (seed, stream, i)."""
     return int(np.random.SeedSequence([seed, stream, i]).generate_state(
         1, np.uint64)[0])
+
+
+def masked_means(batch_rows):
+    """[(mask, ade, fde) numpy rows of each eval batch] -> (ADE, FDE) over
+    the masked rows, summed batch by batch: the validation of the loop and
+    of --fused reduce their rows here, the same way."""
+    ade_sum = fde_sum = n_sum = 0.0
+    for mask, ade, fde in batch_rows:
+        m = mask.astype(bool)
+        ade_sum += ade[m].sum()
+        fde_sum += fde[m].sum()
+        n_sum += m.sum()
+    return ade_sum / max(n_sum, 1), fde_sum / max(n_sum, 1)
 
 
 class Experiment:
@@ -407,7 +424,7 @@ class Experiment:
         draws, one rung down the shrink ladder. The metrics rows are numpy
         columns metaId, sceneId (each row's own in a cross-scene batch),
         ade, fde."""
-        ade_sum = fde_sum = n_sum = 0.0
+        batch_rows = []
         rows = {"metaId": [], "sceneId": [], "ade": [], "fde": []}
         trajs = ({"prediction": [], "metaId": [], "groundtruth": []}
                  if collect_preds else None)
@@ -426,11 +443,9 @@ class Experiment:
                     eval_step = shrink()
                     if eval_step is None:
                         raise
+            batch_rows.append((mask, ade, fde))
             m = mask.astype(bool)
             ade, fde = ade[m], fde[m]
-            ade_sum += ade.sum()
-            fde_sum += fde.sum()
-            n_sum += m.sum()
             rows["metaId"].append(batch.meta_ids[m])
             if isinstance(batch, scenes_lib.BucketedBatch):
                 rows["sceneId"].append(np.asarray(
@@ -448,8 +463,7 @@ class Experiment:
                     batch.trajectories[m] / self.params["resize_factor"])
         metrics = {k: np.concatenate(v) if v else np.zeros(0)
                    for k, v in rows.items()}
-        return (ade_sum / max(n_sum, 1), fde_sum / max(n_sum, 1), metrics,
-                trajs)
+        return masked_means(batch_rows) + (metrics, trajs)
 
     def test(self, tracks, image_path, return_preds=False, batches=None):
         """Multi-round stochastic eval (trainer.py:1019-1060): n_round
@@ -589,6 +603,80 @@ class Experiment:
         return out + (grads,) if input_grads else out
 
     # -- train (reference trainer.py:80-293) --------------------------------
+    def _setup_training(self, train_tracks, val_tracks, train_image_path,
+                        val_image_path, rng):
+        """The run's setup that train() and the grid (mst_tpu_torch.grid)
+        share (mst_tpu's Experiment._setup_training): the train batches
+        (shuffled and augmented with rng) and the validation cut on the
+        device, the freeze split and Adam -> dict of train_items and
+        val_items ([(batch, device batch)]), optimizer and trainable
+        ({path: leaf}). self.prepare_seconds is the data preparation and
+        upload."""
+        p = self.params
+        t_prep = time.perf_counter()
+        train_items = self._device_batches(self.prepare_data(
+            train_tracks, train_image_path, "train",
+            augment=p.get("augment", False), rng=rng))
+        val_items = self._device_batches(self._validation_cut(
+            self.prepare_data(val_tracks, val_image_path, "val")))
+        self.prepare_seconds = time.perf_counter() - t_prep
+        setup = setup_training(self.model_params, p, len(train_items))
+        print(f"The number of trainable parameters: "
+              f"{setup['n_trainable']:d}")
+        trainable = {k: v for k, v in io.flatten(self.model_params).items()
+                     if v.requires_grad}
+        return dict(train_items=train_items, val_items=val_items,
+                    optimizer=setup["optimizer"], trainable=trainable)
+
+    def _fused_pack(self, train_items, val_items):
+        """mst_tpu's eligibility gates and packing for --fused
+        (trainer.py:375-395) -> (train pack, val pack, None), or (None,
+        None, reason): the run is one program only when the backbone stays
+        out of the step (no segmentation_* strategy, no e_unfreeze) and
+        both splits are non-empty per-scene batches of one (H, W)."""
+        if self._segment_in_step():
+            return None, None, "segmentation runs inside the train step"
+        if self._e_unfreeze() is not None:
+            return None, None, "e_unfreeze switches programs mid-training"
+        images = {b.scene_id: db["image"] for b, db in train_items + val_items}
+        cache = {}
+
+        def semantic(b):
+            return self._semantic_for(b.scene_id, images[b.scene_id],
+                                      cache).cpu().numpy()
+
+        hom = self._homography_for if self._is_eth() else None
+        tr = fused_lib.pack_batches([b for b, _ in train_items], semantic,
+                                    hom)
+        va = fused_lib.pack_batches([b for b, _ in val_items], semantic, hom)
+        if tr is None or va is None:
+            return None, None, ("scene batches span multiple (H, W) shape "
+                                "buckets, are cross-scene bucketed, or a "
+                                "split is empty")
+        return tr, va, None
+
+    def _make_fused(self, train_items, val_items, optimizer, trainable):
+        """The --fused chunk runner (train/fused.FusedEpochs) and its chunk
+        size, or (None, None, reason) when the run is not eligible
+        (_fused_pack)."""
+        tr, va, why = self._fused_pack(train_items, val_items)
+        if tr is None:
+            return None, None, why
+        p = self.params
+        runner = fused_lib.FusedEpochs(
+            self.mcfg, config_lib.step_config(p),
+            config_lib.step_config(p, for_validation=True), optimizer,
+            lambda e, i: eval_seed(self.seed, e, i),
+            fused_lib.stage_data(*tr, self.device),
+            fused_lib.stage_data(*va, self.device), trainable)
+        save_every_n = int(p.get("save_every_n", 10))
+        chunk = fused_lib.chunk_size(save_every_n)
+        if chunk < min(save_every_n, fused_lib.MAX_CHUNK) and chunk <= 2:
+            print(f"--fused: save_every_n={save_every_n} has no divisor <= "
+                  f"{fused_lib.MAX_CHUNK}; running {chunk}-epoch chunks — "
+                  f"pick a rounder save_every_n to fuse more epochs")
+        return runner, chunk, None
+
     def train(self, train_tracks, val_tracks, train_image_path,
               val_image_path, experiment_name):
         """Train n_epoch epochs with per-epoch validation (TTST off) and
@@ -604,21 +692,11 @@ class Experiment:
         and upload before the first epoch."""
         p = self.params
         t0 = time.time()
-        t_prep = time.perf_counter()
         rng = np.random.default_rng(self.seed)
-        train_items = self._device_batches(self.prepare_data(
-            train_tracks, train_image_path, "train",
-            augment=p.get("augment", False), rng=rng))
-        val_items = self._device_batches(self._validation_cut(
-            self.prepare_data(val_tracks, val_image_path, "val")))
-        self.prepare_seconds = time.perf_counter() - t_prep
-
-        setup = setup_training(self.model_params, p, len(train_items))
-        print(f"The number of trainable parameters: "
-              f"{setup['n_trainable']:d}")
-        optimizer, scheduler = setup["optimizer"], setup["scheduler"]
-        trainable = {k: v for k, v in io.flatten(self.model_params).items()
-                     if v.requires_grad}
+        setup = self._setup_training(train_tracks, val_tracks,
+                                     train_image_path, val_image_path, rng)
+        train_items, val_items = setup["train_items"], setup["val_items"]
+        optimizer, trainable = setup["optimizer"], setup["trainable"]
         fine_tune = bool(p.get("fine_tune", False))
         segment_in_step = self._segment_in_step()
         train_step = make_train_step(self.mcfg, config_lib.step_config(
@@ -660,7 +738,7 @@ class Experiment:
             p["ckpt_path"], f"{experiment_name}__train_state.npz")
         if p.get("resume") and os.path.exists(train_state_path):
             start_epoch, extras = self.restore_training_state(
-                train_state_path, trainable, optimizer, scheduler)
+                train_state_path, trainable, optimizer)
             if extras["model_state"] is not None:
                 state = extras["model_state"]
                 self.model_state = state
@@ -735,7 +813,7 @@ class Experiment:
                 self.save_params(
                     f'{p["ckpt_path"]}/{experiment_name}__epoch_{e}.npz')
                 self.save_training_state(
-                    train_state_path, trainable, optimizer, scheduler, e + 1,
+                    train_state_path, trainable, optimizer, e + 1,
                     val_history=self.val_ADE, model_state=state,
                     val_fde_history=self.val_FDE,
                     best_snapshot=best_snapshot, best_val_ade=best_val_ade,
@@ -749,7 +827,52 @@ class Experiment:
                 return True
             return False
 
-        for e in range(start_epoch, int(p["n_epoch"])):
+        def fused_chunk(e0, c):
+            """Epochs e0..e0 + c - 1 through the fused runner, then each
+            through finish_epoch with its leaves and state in place (for
+            its saves, and the roll back to the stop epoch) -> True to
+            stop training."""
+            nonlocal state
+            perms = np.empty((c, n_batches), np.int64)
+            for j in range(c):
+                # the loop's per-epoch shuffle, as positions in the pack
+                rng.shuffle(train_items)
+                perms[j] = [packed[id(b)] for b, _ in train_items]
+            t_chunk = time.perf_counter()
+            state, ys = fused_runner(self.model_params, state, perms,
+                                     range(e0, e0 + c))
+            timing = dict(n_steps=n_batches, epoch_seconds=(
+                time.perf_counter() - t_chunk) / c)
+            for j in range(c):
+                stats, state = ys["stats"][j], ys["state"][j]
+                with torch.no_grad():
+                    for k, v in ys["snapshot"][j].items():
+                        trainable[k].copy_(v)
+                self.model_state = state
+                if finish_epoch(e0 + j, stats[:, 0], float(sum(stats[:, 1])),
+                                float(sum(stats[:, 2])),
+                                float(sum(stats[:, 3])),
+                                *masked_means(ys["val"][j]),
+                                ys["snapshot"][j], timing):
+                    return True
+            return False
+
+        # --fused: chunks of epochs as CUDA-graph replays with one host read
+        # a chunk (train/fused.py), through the same finish_epoch
+        fused_runner = None
+        if p.get("fused"):
+            fused_runner, chunk, why = self._make_fused(
+                train_items, val_items, optimizer, trainable)
+            if fused_runner is None:
+                print(f"--fused unavailable ({why}); using the epoch loop")
+        self.fused_runner = fused_runner
+        n_epoch = int(p["n_epoch"])
+        if fused_runner is not None:
+            packed = {id(b): k for k, (b, _) in enumerate(train_items)}
+            for e0 in range(start_epoch, n_epoch, chunk):
+                if fused_chunk(e0, min(chunk, n_epoch - e0)):
+                    break
+        for e in range(start_epoch, n_epoch) if fused_runner is None else ():
             # from e_unfreeze the backbone runs inside the step with its
             # batch norms on the batch's statistics; their running
             # statistics start from the inline ones and adapt in
@@ -771,8 +894,7 @@ class Experiment:
             step_metrics = []
             for b, db in train_items:
                 db = self._step_batch(b, db, seg_cache, raw)
-                state, m = step(self.model_params, state, optimizer,
-                                scheduler, db)
+                state, m = step(self.model_params, state, optimizer, db)
                 step_metrics.append(m)
                 # the metrics stay on the device: one host read an epoch,
                 # and a NaN check every 100 steps (trainer.py:742-759)
@@ -812,8 +934,8 @@ class Experiment:
         return self.val_ADE, self.val_FDE
 
     # -- the training state (--resume; mst_tpu/train/trainer.py:791-888) ----
-    def save_training_state(self, path, trainable, optimizer, scheduler,
-                            epoch, val_history=None, model_state=None,
+    def save_training_state(self, path, trainable, optimizer, epoch,
+                            val_history=None, model_state=None,
                             val_fde_history=None, best_snapshot=None,
                             best_val_ade=None, best_epoch=None,
                             snapshots=None):
@@ -828,8 +950,8 @@ class Experiment:
         snapshots = list(snapshots) if snapshots else []
         flat = {f"trainable/{k}": v
                 for k, v in io.params_to_numpy(trainable).items()}
-        for i, leaf in enumerate(io.adam_state_to_numpy(trainable, optimizer,
-                                                        scheduler)):
+        for i, leaf in enumerate(io.adam_state_to_numpy(trainable,
+                                                        optimizer)):
             flat[f"opt/{i}"] = leaf
         if model_state:
             flat.update({f"state/{k}": v for k, v in
@@ -855,10 +977,11 @@ class Experiment:
         with open(str(path) + ".json", "w") as f:
             json.dump(meta, f, default=str)
 
-    def restore_training_state(self, path, trainable, optimizer, scheduler):
+    def restore_training_state(self, path, trainable, optimizer):
         """The inverse, onto the trainable leaves ({path: parameter},
-        overwritten in place where the file has them), Adam's state and the
-        scheduler (io.adam_state_from_numpy) -> (epoch, extras): extras
+        overwritten in place where the file has them) and the optimizer's
+        count and moments (io.adam_state_from_numpy) -> (epoch, extras):
+        extras
         holds the model state (or None), the best snapshot ({path:
         tensor}, or None), smooth-val's window (a list of those), the val
         histories, best_val_ade (or None) and best_epoch. A file that
@@ -885,7 +1008,7 @@ class Experiment:
                 trainable[k].copy_(v)
         n_opt = sum(1 for k in flat if k.startswith("opt/"))
         io.adam_state_from_numpy([flat[f"opt/{i}"] for i in range(n_opt)],
-                                 trainable, optimizer, scheduler)
+                                 trainable, optimizer)
         extras = {"val_ADE": list(meta.get("val_ADE", [])),
                   "val_FDE": list(meta.get("val_FDE", [])),
                   "best_val_ade": meta.get("best_val_ade"),

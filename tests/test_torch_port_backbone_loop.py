@@ -32,7 +32,7 @@ from mst_tpu_torch.models import unet
 from mst_tpu_torch.models import ynet as ynet_lib
 from mst_tpu_torch.ops.softargmax import softargmax2d_nhwc
 from mst_tpu_torch.serve_http import run_server
-from mst_tpu_torch.train import steps, trainer
+from mst_tpu_torch.train import optim, steps, trainer
 from tests.test_torch_port_http import _request
 from tests.test_torch_port_segmentation import (  # noqa: F401 (world)
     backbone_flat, hwio, jax_configs, jax_tree, params_for, scene, t, world)
@@ -94,8 +94,7 @@ def unfrozen(world):
     records})."""
     over = dict(n_epoch=2, e_unfreeze=1)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(torch.optim, "Adam",
-                   lambda params, lr: torch.optim.SGD(params, lr=lr))
+        mp.setattr(optim, "Adam", optim.SGD)
         mp.setattr(optax, "adam", optax.sgd)
         step_config = jtrainer.Experiment._step_config
         mp.setattr(jtrainer.Experiment, "_step_config",

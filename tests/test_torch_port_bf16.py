@@ -349,7 +349,6 @@ def train_runs():
                 setup = trainer.setup_training(weights, p, 1)
                 step = steps.make_train_step(ynet_config(p), step_config(p))
                 new_state, m = step(weights, state, setup["optimizer"],
-                                    setup["scheduler"],
                                     {k: t(v) for k, v in batch.items()})
                 trained = {k: v for k, v in io.flatten(weights).items()
                            if v.requires_grad}

@@ -11,7 +11,7 @@ implements. Two substitutions make the loop comparable step for step:
 - validation is the same scripted ADE sequence in both (`_evaluate` is
   replaced), since the two packages' samplers draw from different
   generators;
-- both optimizers are SGD (torch.optim.Adam -> SGD, optax.adam ->
+- both optimizers are SGD (optim.Adam -> optim.SGD, optax.adam ->
   optax.sgd), as tests/test_trainer_policy_parity.py does: Adam's first
   update is ~lr * sign(g), which flips on rounding where g is near 0, so
   weights under Adam drift apart by 2 lr per element and step; one Adam
@@ -38,7 +38,7 @@ from mst_tpu_torch import config, io
 from mst_tpu_torch import test as test_cli
 from mst_tpu_torch.data.tracks import Tracks
 from mst_tpu_torch.models import unet
-from mst_tpu_torch.train import trainer
+from mst_tpu_torch.train import optim, trainer
 from mst_tpu_torch.train.__main__ import main as train_main
 
 SMALL = dict(encoder_channels=[8, 8, 16, 16, 16],
@@ -130,8 +130,7 @@ def run_policy(tmp_path, monkeypatch, capsys, data, train_net, script,
     (port Experiment, mst_tpu Experiment, {side: (epoch records, stdout,
     files written)})."""
     frames, tables, images = data
-    monkeypatch.setattr(torch.optim, "Adam",
-                        lambda params, lr: torch.optim.SGD(params, lr=lr))
+    monkeypatch.setattr(optim, "Adam", optim.SGD)
     monkeypatch.setattr(optax, "adam", optax.sgd)
     step_config = jtrainer.Experiment._step_config
     monkeypatch.setattr(
@@ -399,9 +398,9 @@ def test_unported_loop_flags_raise(tmp_path, flag, over):
     """Each flag raises, naming itself; but those since ported: the
     segmentation backbone (a backbone npz builds the model with it, and a
     file that exists but is no backbone npz, this test file, raises),
-    --resume, the eth dataset, --cross_scene_batching and --remat (an
-    Experiment builds; remat reaches its step config)."""
-    if flag in ("resume", "eth", "cross_scene_batching", "remat"):
+    --resume, the eth dataset, --cross_scene_batching, --remat and
+    --fused (an Experiment builds; remat reaches its step config)."""
+    if flag in ("resume", "eth", "cross_scene_batching", "remat", "fused"):
         exp = trainer.Experiment(loop_params(tmp_path, **over))
         assert all(exp.params[k] == v for k, v in over.items())
         assert config.step_config(exp.params).remat == (flag == "remat")
@@ -540,15 +539,15 @@ def test_clis_need_a_card_unless_told(workdir, monkeypatch):
 
 def test_cli_raises_on_unported_flags(workdir, monkeypatch):
     monkeypatch.chdir(workdir)
-    for flag in ("--fused",):
-        with pytest.raises(NotImplementedError, match=flag[2:]):
-            run_train(COMMON + [flag])
-    # --resume, --remat and --cross_scene_batching are ported: the parser
-    # takes them into the params, and --compute_dtype bfloat16 too
+    # --resume, --remat, --cross_scene_batching and --fused are ported: the
+    # parser takes them into the params, and --compute_dtype bfloat16 too;
+    # the mesh flags still raise (config.check_loop_ported)
     args = config.get_parser(True).parse_args(
         COMMON + ["--resume", "--remat", "--cross_scene_batching",
-                  "--compute_dtype", "bfloat16"])
+                  "--fused", "--compute_dtype", "bfloat16"])
     params = config.get_params(args=args)
-    assert params["resume"] is params["remat"] is True
+    assert params["resume"] is params["remat"] is params["fused"] is True
+    with pytest.raises(NotImplementedError, match="mesh_shape"):
+        config.check_loop_ported({**params, "mesh_shape": [2]})
     assert params["cross_scene_batching"] is True
     assert config.step_config(params).compute_dtype == torch.bfloat16

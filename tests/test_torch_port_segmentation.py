@@ -452,8 +452,7 @@ def test_segmentation_strategies_leave_running_stats(world, train_net):
     tbatch = {k: t(v) for k, v in batch.items()}
     losses = []
     for _ in range(3):
-        _, m = step(weights, {}, setup["optimizer"], setup["scheduler"],
-                    tbatch)
+        _, m = step(weights, {}, setup["optimizer"], tbatch)
         losses.append(float(m["loss"]))
     assert np.all(np.isfinite(losses))
     after = io.flatten(weights["segmentation"])
@@ -672,7 +671,7 @@ def test_segmentation_train_steps_match_jax(world, jax_step, train_net):
                                                     segment_in_step=True))
     tbatch = {k: t(v) for k, v in batch.items()}
     assert_losses_exact(step, weights, tbatch)
-    _, m = step(weights, {}, setup["optimizer"], setup["scheduler"], tbatch)
+    _, m = step(weights, {}, setup["optimizer"], tbatch)
     leaves = {k: v for k, v in io.flatten(weights).items() if v.requires_grad}
     moved = hwio(leaves)
     grads = hwio({k: torch.zeros_like(v) if v.grad is None else v.grad

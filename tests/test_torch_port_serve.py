@@ -347,7 +347,9 @@ def test_port_imports_no_jax_and_no_mst_tpu():
     assert len(PORT_FILES) > 15
     for new in ("native/__init__.py", "data/trajectories.py", "data/sdd.py",
                 "data/ind.py", "data/split_dataset.py",
-                "data/filter_dataset.py", "data/generate_varf.py"):
+                "data/filter_dataset.py", "data/generate_varf.py",
+                "train/fused.py", "train/optim.py", "grid.py",
+                "ops/kernels/launches.py"):
         assert REPO / "mst_tpu_torch" / new in PORT_FILES, new
     for path in PORT_FILES:
         for name in _imports(path):

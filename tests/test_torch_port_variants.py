@@ -418,8 +418,7 @@ def step_runs():
             tw, tst = io.params_from_numpy(flat), io.state_from_numpy(st)
             setup = trainer.setup_training(tw, params, steps_per_epoch=1)
             tstep = steps.make_train_step(mcfg, step_config(params))
-            tnew, tm = tstep(tw, tst, setup["optimizer"], setup["scheduler"],
-                             {k: t(v) for k, v in batch.items()})
+            tnew, tm = tstep(tw, tst, setup["optimizer"], {k: t(v) for k, v in batch.items()})
             trained = {k: v for k, v in io.flatten(tw).items()
                        if v.requires_grad}
             torch_out = {
