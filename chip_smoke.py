@@ -192,13 +192,29 @@ Phases, each fatal on failure:
      rows, shared and own weights) and the rows kernel (2 x 96 rows)
      against one call a run; the grid's seconds against the loop runs',
      its peak memory and launches.
+  13. the serialized program (serialized_program_path; after phase 12,
+     before phase 10): one key's draws on the card against the CPU's bit
+     for bit (bits, uniforms, randints, exponentials, and the exponential
+     of all 2^24 uniforms); then phase 5's model (random weights from
+     seed 0) with phase 5's LoRA delta as a style, in f32 and in bf16,
+     and phase 6d's Y-Net-Mod at inD_longterm_eval.yaml's width with TTST
+     and CWS on (B = 10 at 320 x 576, P = 30, a random LoRA style), each
+     written by `python -m mst_tpu_torch.serve export` (timed: forward.pt2
+     and decode.pt2 through torch.export) and refused on the CPU; a fresh
+     process with mst_tpu_torch.models, .train and .config blocked loads
+     each directory (timed) and answers 4 requests and 1 styled, every
+     count zeroed before and read after (both serving kernels must rise
+     in each); every output finite, inside the image and within 1e-4 raw
+     px of the eager Predictor of the same weights and keys; a program
+     request against an eager one, median of 5 each.
 The line before the last is the per-kernel JSON record (launches on each
 kernel's own path, train_launches on the fine-tune path, loop_launches
 on the Experiment loop's, ymod_launches on Y-Net-Mod's, serve_launches
 on the daemon's, seg_launches on the segmentation backbone's,
 res_launches over phase 10's CLI processes, p11_launches over phase
-11's requests, steps and cross-scene test, and p12_launches over phase
-12's fused runs (eager warm-up + replays) and grid; the bf16 records'
+11's requests, steps and cross-scene test, p12_launches over phase
+12's fused runs (eager warm-up + replays) and grid, and p13_launches over
+phase 13's program-only process; the bf16 records'
 launches count phase 11's bf16 requests and steps); the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -2062,11 +2078,17 @@ def serial_state_check(torch, tmp):
             st[k] = np.full(v.shape, 3, v.dtype)
     exp.model_params = io.params_from_numpy(flat)
     exp.model_state = io.state_from_numpy(st)
-    export_model(exp, f"{tmp}/serial", 64, 96, 4)
+    # a directory's programs serve on the device type they were exported
+    # for: one export from the CPU, one from the card
+    export_model(exp, f"{tmp}/serial_cpu", 64, 96, 4)
+    on_card = Experiment(params)
+    on_card.model_params = io.params_from_numpy(flat, "cuda")
+    on_card.model_state = io.state_from_numpy(st, "cuda")
+    export_model(on_card, f"{tmp}/serial", 64, 96, 4)
     exp.model_state = init_state
     export_model(exp, f"{tmp}/serial_init", 64, 96, 4)
     card = LoadedModel(f"{tmp}/serial", device="cuda")
-    cpu = LoadedModel(f"{tmp}/serial", device="cpu")
+    cpu = LoadedModel(f"{tmp}/serial_cpu", device="cpu")
     init = LoadedModel(f"{tmp}/serial_init", device="cpu")
     check(len(io.flatten(card.state)) == len(st) == 6,
           f"the serial model's state: {sorted(io.flatten(card.state))}")
@@ -2915,7 +2937,7 @@ def segmentation_path(torch, wrappers, card, rows_rec, fused_rec):
         print(f"export {export_s:.2f} s, LoadedModel "
               f"{time.perf_counter() - t:.2f} s")
         check(model.manifest["semantic_shape"] == [1, H, W, 3]
-              and model.scfg.segment_in_step,
+              and model.manifest["segment_in_step"],
               "the exported directory does not take the raw scene")
         pred = serve.Predictor(get_params("sdd_shortterm_eval.yaml", base),
                                ckpt, seed=0)
@@ -2951,7 +2973,9 @@ def segmentation_path(torch, wrappers, card, rows_rec, fused_rec):
             step(head.model_params, state, setup["optimizer"],
                  batch), torch.cuda.synchronize()),
             conv_ops=6)
-        err = check_path_tail(torch, model, scene, observed, seed=0)
+        # (the directory runs programs: the Predictor, on the segmented
+        # map, has the same decode-tail operands)
+        err = check_path_tail(torch, pred, sem, observed, seed=0)
         fused_rec["max_abs_err"] = max(fused_rec["max_abs_err"], err)
 
         # ---- where a segmented test batch's time goes
@@ -4029,6 +4053,281 @@ def fused_and_grid_path(torch, wrappers, card, rows_rec, fused_rec):
     return total
 
 
+# ---- phase 13: the serialized program
+P13_TOL = 1e-4  # raw px: a program request against the eager Predictor of
+# the same weights and key on the same card (phase 8's bar)
+P13_LATENCY_N = 5  # requests a side, program against eager
+P13_REQUESTS = ((0, None), (1, None), (2, None), (3, None), (0, "style"))
+# Y-Net-Mod's directory: phase 6d's network at inD_longterm_eval.yaml's
+# width, with the long-term evaluation's TTST and CWS on so that both
+# serving kernels run in its programs (the shipped yaml has both off)
+P13_YMOD = dict(YMOD, use_TTST=True, use_CWS=True, seed=0)
+# the fresh process that serves the directories: the port's model code
+# blocked, so only loader.py, io.py and the kernels can load
+PROGRAM_SERVE = r'''
+import json, sys, time
+BLOCKED = ("mst_tpu_torch.models", "mst_tpu_torch.train",
+           "mst_tpu_torch.config")
+for name in BLOCKED:
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from mst_tpu_torch.loader import LoadedModel
+from mst_tpu_torch.ops.kernels.fused_predict import \
+    fused_predictor_softargmax as fused
+from mst_tpu_torch.ops.kernels.softargmax_rows import \
+    softargmax2d_rows as rows
+job = json.loads(sys.argv[2])
+report = {}
+for name in job["names"]:
+    d = job["tmp"] + "/" + name
+    with np.load(d + "_inputs.npz") as z:
+        semantic, observed = z["semantic"], z["observed"]
+    for fn in (rows, fused):
+        fn.launches = fn.launches_bf16 = 0
+    t0 = time.perf_counter()
+    model = LoadedModel(d)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    model.add_style("style", d + "_style.npz")
+    served, ms = {}, []
+    for i, (seed, style) in enumerate(job["requests"]):
+        t0 = time.perf_counter()
+        out = model.predict(semantic, observed, seed=seed, style=style)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        for k, v in out.items():
+            served[f"{i}/{k}"] = v
+    np.savez(d + "_served.npz", **served)
+    report[name] = {
+        "load_s": load_s, "ms": ms, "device": str(model.device),
+        "launches": {"softargmax_rows": rows.launches,
+                     "softargmax_rows_bf16": rows.launches_bf16,
+                     "fused_predict": fused.launches,
+                     "fused_predict_bf16": fused.launches_bf16}}
+    del model
+leaked = sorted(m for m in sys.modules if m.startswith(
+    tuple(b + "." for b in BLOCKED)) and sys.modules[m] is not None)
+print(json.dumps({"report": report, "leaked": leaked}))
+'''
+
+
+def check_key_draws(torch):
+    """One key's draws on the card against the CPU's, bit for bit: the
+    32-bit words and the uniforms at TTST's shape (8 rows x 10k), the
+    exponentials at a (20, 8, 352 x 480) CWS draw, and the exponential of
+    every one of the 2^24 possible uniforms. -> the number of elements
+    held."""
+    from mst_tpu_torch.ops.sampling import (Key, exponential_of_24_bits,
+                                            key_from_seed)
+
+    n = 0
+    for seed in (0, 12345):
+        card_key, cpu_key = Key(key_from_seed(seed, "cuda")), Key(
+            key_from_seed(seed))
+        for what, fn in (
+                ("bits", lambda k: k.bits((8, 10000))),
+                ("uniform", lambda k: k.uniform((8, 10000))),
+                ("randint", lambda k: k.randint(10000, (8, 19), counter=7)),
+                ("exponential", lambda k: k.exponential(torch.empty(
+                    (20, 8, 352 * 480), device=k.key.device)))):
+            got, want = fn(card_key).cpu(), fn(cpu_key)
+            check(got.dtype == want.dtype and torch.equal(got, want),
+                  f"key draws of seed {seed}: the card's {what} differ "
+                  "from the CPU's")
+            n += got.numel()
+    m = torch.arange(1 << 24, dtype=torch.int64)
+    got = exponential_of_24_bits(m.cuda()).cpu()
+    want = exponential_of_24_bits(m)
+    check(torch.equal(got, want), f"{int((got != want).sum())} of the 2^24 "
+          "exponentials differ between the card and the CPU")
+    check(bool((want > 0).all()) and bool(torch.isfinite(want).all()),
+          "an exponential draw is 0 or not finite")
+    return n + m.numel()
+
+
+def lora_delta(params, rng):
+    """A style: every lora_B leaf of the tree drawn from N(0, 0.05^2)."""
+    import numpy as np
+
+    from mst_tpu_torch import io
+
+    return {k: rng.normal(scale=0.05, size=tuple(v.shape)).astype(np.float32)
+            for k, v in io.flatten(params).items()
+            if k.endswith("lora_B")}
+
+
+def serialized_program_path(torch, wrappers, card, semantic, observed,
+                            delta):
+    """Phase 13: model directories with their programs (forward.pt2,
+    decode.pt2) at full width: phase 5's model (sdd_shortterm_eval, TTST,
+    mosa_2 on 0-4, K = 20, B = 8 at 352 x 480, random weights from seed
+    0, phase 5's LoRA delta as the style) in f32 and in bf16, and phase
+    6d's Y-Net-Mod (inD_longterm_eval width, fusion, n_fusion 2, mosa_1,
+    TTST and CWS, B = 10 at 320 x 576, P = 30, a random LoRA style).
+    Each is written by `python -m mst_tpu_torch.serve export` (timed),
+    then served by a fresh process that cannot import the port's model
+    code (PROGRAM_SERVE): the load timed, 4 requests and 1 styled, every
+    count zeroed before and read after. Every output against the eager
+    Predictor of the same weights and keys here (P13_TOL), finite; the
+    directory refused on the CPU; the draws of a key card against CPU;
+    program against eager latency. -> {kernel: launches in the serving
+    processes}."""
+    import numpy as np
+    import yaml
+
+    from mst_tpu_torch import io, serve
+    from mst_tpu_torch.config import get_params
+
+    draws = check_key_draws(torch)
+    print(f"key draws: {draws} elements of the card's bits, uniforms, "
+          "randints and exponentials (and all 2^24 exponentials) equal "
+          "the CPU's bit for bit")
+    rng = np.random.default_rng(13)
+    (yh, yw), yb = YMOD_HW, YMOD_B
+    ymod_params = get_params("inD_longterm_eval.yaml", P13_YMOD)
+    logits = rng.normal(size=(1, yh, yw, ymod_params["n_semantic_classes"]))
+    start = rng.uniform([100, 80], [yw - 100, yh - 80], size=(yb, 1, 2))
+    walk = rng.normal(scale=3.0, size=(yb, ymod_params["obs_len"], 2))
+    sdd = get_params("sdd_shortterm_eval.yaml", dict(
+        use_TTST=True, train_net="mosa_2", position=POSITIONS, seed=0))
+    cases = {
+        "f32": (sdd, semantic, observed),
+        "bf16": (dict(sdd, compute_dtype="bfloat16"), semantic, observed),
+        "ymod": (ymod_params, np.exp(logits) / np.exp(logits).sum(
+            -1, keepdims=True), start + np.cumsum(walk, axis=1))}
+    tmp = tempfile.mkdtemp(prefix="mst_programs_")
+    total = dict.fromkeys(wrappers, 0)
+    try:
+        dirs, preds, export_s = {}, {}, {}
+        for name, (params, sem, obs) in cases.items():
+            pred = serve.Predictor(params, seed=0)
+            style = delta if name != "ymod" else lora_delta(
+                pred.params, rng)
+            ckpt, cfg = f"{tmp}/{name}_ckpt.npz", f"{tmp}/{name}.yaml"
+            np.savez(ckpt, **io.params_to_numpy(pred.params))
+            np.savez(f"{tmp}/{name}_style.npz", **style)
+            np.savez(f"{tmp}/{name}_inputs.npz",
+                     semantic=sem.astype(np.float32),
+                     observed=obs.astype(np.float32))
+            with open(cfg, "w") as f:
+                yaml.safe_dump(params, f)
+            pred.add_style("style", f"{tmp}/{name}_style.npz")
+            preds[name] = pred
+            dirs[name] = f"{tmp}/{name}"
+            argv = sys.argv
+            sys.argv = ["mst_tpu_torch.serve", "export", "--config_filename",
+                        cfg, "--pretrained_ckpt", ckpt, "--out_dir",
+                        dirs[name], "--height", str(sem.shape[1]),
+                        "--width", str(sem.shape[2]), "--batch_size",
+                        str(obs.shape[0])]
+            t0 = time.perf_counter()
+            try:
+                serve._main()
+            finally:
+                sys.argv = argv
+            export_s[name] = time.perf_counter() - t0
+            with open(f"{dirs[name]}/manifest.json") as f:
+                manifest = json.load(f)
+            sizes = {f: os.path.getsize(f"{dirs[name]}/{f}")
+                     for f in sorted(os.listdir(dirs[name]))}
+            print(f"13 {name}: export {export_s[name]:.2f} s, "
+                  f"{manifest['format']}, platforms "
+                  f"{manifest['platforms']}, compute_dtype "
+                  f"{manifest['compute_dtype']}, torch "
+                  f"{manifest['torch_version']}, files {sizes}")
+            check(manifest["platforms"] == ["cuda"]
+                  and {"forward.pt2", "decode.pt2"} <= set(sizes),
+                  f"{name}: the directory holds no program for the card")
+            with np.load(f"{dirs[name]}/params.npz") as z, \
+                    np.load(ckpt) as want:
+                check(sorted(z.files) == sorted(want.files) and all(
+                    np.array_equal(z[k], want[k]) for k in z.files),
+                      f"{name}: params.npz is not the checkpoint")
+            try:
+                serve.LoadedModel(dirs[name], device="cpu")
+            except ValueError as e:
+                check("exported for ['cuda']" in str(e), f"{name}: {e}")
+            else:
+                check(False, f"{name}: a card's directory loaded on the CPU")
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", PROGRAM_SERVE,
+             os.path.dirname(os.path.abspath(__file__)),
+             json.dumps({"tmp": tmp, "names": list(dirs),
+                         "requests": P13_REQUESTS})],
+            capture_output=True, text=True, timeout=600)
+        serve_s = time.perf_counter() - t0
+        check(proc.returncode == 0, "the program-only process failed:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(got["leaked"] == [], f"model code loaded: {got['leaked']}")
+        print(f"13: the program-only process ({serve_s:.1f} s, "
+              "mst_tpu_torch.models, .train and .config blocked)")
+        for name, rep in got["report"].items():
+            params = cases[name][0]
+            launches = rep["launches"]
+            for k, v in launches.items():
+                total[k] += v
+            dtype_rows = "softargmax_rows"
+            dtype_fused = ("fused_predict_bf16" if name == "bf16"
+                           else "fused_predict")
+            check(launches[dtype_rows] > 0 and launches[dtype_fused] > 0,
+                  f"{name}: the programs launched {launches}")
+            rf = params["resize_factor"]
+            sem, obs = cases[name][1], cases[name][2]
+            err, exact = 0.0, True
+            with np.load(f"{tmp}/{name}_served.npz") as served:
+                for i, (seed, style) in enumerate(P13_REQUESTS):
+                    want = preds[name].predict(sem, obs, seed=seed,
+                                               style=style)
+                    for k, v in want.items():
+                        a = served[f"{i}/{k}"]
+                        check(np.isfinite(a).all(), f"{name} request {i}: "
+                              f"non-finite {k}")
+                        check(a.shape == v.shape, f"{name}: {k} {a.shape}")
+                        err = max(err, float(np.abs(a - v).max()))
+                        exact = exact and np.array_equal(a, v)
+                    check_in_image(f"13 {name} request {i}",
+                                   served[f"{i}/trajectories"],
+                                   sem.shape[1], sem.shape[2], rf)
+            print(f"13 {name} ({rep['device']}): load {rep['load_s']:.2f} s,"
+                  f" requests {[round(x, 1) for x in rep['ms']]} ms, "
+                  f"launches {launches}; against the eager Predictor, same "
+                  f"weights and keys: max |difference| = {err:.3e} raw px "
+                  f"(tol {P13_TOL}), bit for bit: {exact}")
+            check(err <= P13_TOL, f"{name}: the programs disagree with the "
+                  "eager Predictor")
+
+        # program against eager latency, in turns, in this process
+        model = serve.LoadedModel(dirs["f32"])
+        pred = preds["f32"]
+        lat = {"program": [], "eager": []}
+        for i in range(P13_LATENCY_N + 1):
+            for label, m in (("program", model), ("eager", pred)):
+                t0 = time.perf_counter()
+                m.predict(semantic, observed, seed=20 + i)
+                if i:  # the first of each is a warm-up
+                    lat[label].append(time.perf_counter() - t0)
+        print(f"13 latency ({card}): a K = 20 TTST request, median of "
+              f"{P13_LATENCY_N}: program {pct(lat['program'], 50):.1f} ms "
+              f"{[round(x * 1e3, 1) for x in lat['program']]}, eager "
+              f"Predictor {pct(lat['eager'], 50):.1f} ms "
+              f"{[round(x * 1e3, 1) for x in lat['eager']]}")
+        print(f"13 seconds ({card}): export "
+              + ", ".join(f"{k} {v:.2f}" for k, v in export_s.items())
+              + "; load in the program-only process "
+              + ", ".join(f"{k} {v['load_s']:.2f}"
+                          for k, v in got["report"].items()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 13 launches: {total}")
+    return total
+
+
 def main():
     import torch
 
@@ -4262,6 +4561,14 @@ def main():
                               fused_rec)
     print(f"fused and grid phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 13. the serialized program: model directories with forward.pt2
+    # and decode.pt2, served by a process that cannot import the model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p13 = serialized_program_path(torch, kernel_wrappers(), card, semantic,
+                                  observed, delta)
+    print(f"serialized program phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- 10. from raw annotations to a resumed run, and ETH
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4272,6 +4579,7 @@ def main():
     for r in records:
         r["p11_launches"] = p11[r["name"]] + cross[r["name"]]
         r["p12_launches"] = p12[r["name"]]
+        r["p13_launches"] = p13[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
         r["loop_launches"] = loop_launches[r["name"]]
         r["ymod_launches"] = ymod_launches[r["name"]]
@@ -4281,7 +4589,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "train_launches", "loop_launches", "ymod_launches",
             "serve_launches", "seg_launches", "res_launches", "p11_launches",
-            "p12_launches",
+            "p12_launches", "p13_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

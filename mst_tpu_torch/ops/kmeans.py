@@ -1,14 +1,25 @@
 """Batched k-means for TTST goal clustering (counterpart of
-mst_tpu/ops/kmeans.py:39-112; reference utils/kmeans.py:22-108).
+mst_tpu/ops/kmeans.py; reference utils/kmeans.py:22-180).
 
 Each row of the batch is its own k-means run and stops on its own rule
 (summed centre shift, squared, below tol, or iter_limit iterations): rows
 that have converged stay frozen while the others go on, as under the JAX
 package's vmap of lax.while_loop. One global stopping condition would give
 other centres. Empty clusters re-seed from a random point of their row.
+
+The iterations run in torch._higher_order_ops.while_loop, which
+torch.export records as one loop in the program; run eagerly, and in the
+exported program, its condition reads one flag from the device each
+iteration, as the Python loop did. The draws come from a sampling.Key,
+the reseed's with the iteration as the counter, so the loop holds no
+torch.Generator. Both of the reference's distances (euclidean, cosine)
+and its centres-only kmeans_predict are here.
 """
 
 import torch
+from torch._higher_order_ops.while_loop import while_loop
+
+from mst_tpu_torch.ops.sampling import Key, key_from_generator
 
 
 def pairwise_sq_dist(a, b):
@@ -16,40 +27,80 @@ def pairwise_sq_dist(a, b):
     return ((a[:, :, None, :] - b[:, None, :, :]) ** 2).sum(-1)
 
 
+def pairwise_cosine(a, b):
+    """(B, N, D) x (B, k, D) -> (B, N, k) cosine distances 1 - cos_sim
+    (reference kmeans.py:162-180; no eps guard, so a zero vector gives
+    nan there as here)."""
+    a = a / torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+    b = b / torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+    return 1.0 - (a[:, :, None, :] * b[:, None, :, :]).sum(-1)
+
+
+DISTANCES = {"euclidean": pairwise_sq_dist, "cosine": pairwise_cosine}
+
+
 def batched_kmeans(X, num_clusters: int, tol: float = 1e-3,
                    iter_limit: int = 1000, init_centers=None,
-                   generator=None):
+                   generator=None, distance: str = "euclidean"):
     """Cluster (B, N, D) point sets into num_clusters each.
 
     init_centers: optional (B, k, D); each is snapped to its nearest data
-    point first (reference kmeans.py:62-68). Without it, k distinct points
-    of each row are drawn from `generator`.
+    point under `distance` first (reference kmeans.py:62-68). Without it,
+    k distinct points of each row are drawn. The draws come from
+    `generator`: a sampling.Key, or a torch.Generator (None: the global
+    one) from which a key is drawn.
 
     Returns assignments (B, N) int64 and centres (B, k, D).
     """
+    pdist = DISTANCES[distance]
+    if not isinstance(generator, Key):
+        generator = Key(key_from_generator(generator, X.device))
     B, N, D = X.shape
+    k = num_clusters
     rows = torch.arange(B, device=X.device)[:, None]
     if init_centers is None:
-        idx = torch.rand((B, N), generator=generator,
-                         device=X.device).topk(num_clusters, dim=1).indices
+        # the bits of one (stream, counter) are distinct within a row
+        idx = generator.bits((B, N)).topk(k, dim=1).indices
     else:
-        idx = pairwise_sq_dist(X, init_centers.to(X)).argmin(dim=1)
+        idx = pdist(X, init_centers.to(X)).argmin(dim=1)
     centers = X[rows, idx]  # (B, k, D)
+    # the reseed draws of every iteration the loop may run, drawn once
+    # with the iteration as the counter: inside the loop a draw is one
+    # index, not a hash of a dozen small launches an iteration
+    reseed = generator.randint(N, (B, k), counter=torch.arange(
+        iter_limit, dtype=torch.int64, device=X.device))
+    clusters = torch.arange(k, device=X.device)
 
-    active = torch.ones(B, dtype=torch.bool, device=X.device)
-    iters = torch.zeros(B, dtype=torch.int64, device=X.device)
-    while bool(active.any()):
-        choice = pairwise_sq_dist(X, centers).argmin(dim=2)  # (B, N)
-        onehot = torch.nn.functional.one_hot(
-            choice, num_clusters).to(X.dtype)  # (B, N, k)
+    def cond(centers, active, iters, it):
+        return active.any()
+
+    def body(centers, active, iters, it):
+        choice = pdist(X, centers).argmin(dim=2)  # (B, N)
+        # one_hot as a comparison: one_hot reads its input's range
+        onehot = (choice[..., None] == clusters).to(X.dtype)  # (B, N, k)
         counts = onehot.sum(dim=1)  # (B, k)
         means = (onehot.transpose(1, 2) @ X) / counts.clamp(min=1.0)[..., None]
-        ridx = torch.randint(0, N, (B, num_clusters), generator=generator,
-                             device=X.device)
+        ridx = reseed.index_select(0, it.reshape(1))[0]
         new_centers = torch.where((counts > 0)[..., None], means,
                                   X[rows, ridx])
         shift = torch.sqrt(((new_centers - centers) ** 2).sum(-1)).sum(-1)
         centers = torch.where(active[:, None, None], new_centers, centers)
         iters = iters + active.to(torch.int64)
         active = active & (shift ** 2 >= tol) & (iters < iter_limit)
-    return pairwise_sq_dist(X, centers).argmin(dim=2), centers
+        return centers, active, iters, it + 1
+
+    carry = (centers, torch.ones(B, dtype=torch.bool, device=X.device),
+             torch.zeros(B, dtype=torch.int64, device=X.device),
+             torch.zeros((), dtype=torch.int64, device=X.device))
+    centers = while_loop(cond, body, carry)[0]
+    return pdist(X, centers).argmin(dim=2), centers
+
+
+def kmeans_predict(X, cluster_centers, distance: str = "euclidean"):
+    """Assign points to existing centres (reference kmeans.py:111-143):
+    X (N, D) with centres (k, D), or (B, N, D) with (B, k, D) -> cluster
+    ids (N,) or (B, N) int64."""
+    pdist = DISTANCES[distance]
+    if X.dim() == 2:
+        return pdist(X[None], cluster_centers[None]).argmin(dim=2)[0]
+    return pdist(X, cluster_centers).argmin(dim=2)

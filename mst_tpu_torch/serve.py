@@ -8,25 +8,22 @@ motion styles: adapter deltas (LoRA factors, the parallel adapters, the
 semantic adapter) overlaid on the base weights, which stay shared, with
 mst_tpu's LRU cap on the resident styles.
 
-`export_model` writes a model directory and `LoadedModel` serves one:
+`export_model` writes a model directory and `LoadedModel` (loader.py,
+re-exported here) serves one. As mst_tpu's directory holds its forward
+and decode programs as jax.export StableHLO, this one holds them as
+torch.export programs, forward.pt2 and decode.pt2 (the layout is in
+loader.py), written at the directory's fixed shapes, in the config's
+compute dtype, for the device type the experiment is on. LoadedModel
+runs those programs with the weights of params.npz and state.npz and
+needs none of the port's model code: a process that cannot import
+mst_tpu_torch.models, .train or .config serves the directory.
 
-    model_dir/
-      manifest.json  input shapes, protocol constants, the device exported
-                     for, and `config`: the flat params dict
-      params.npz     every parameter, in mst_tpu's flat-key HWIO layout,
-                     the segmentation backbone's ('segmentation/...') too
-      state.npz      the model state (batch-norm running statistics), may
-                     be empty
-
-mst_tpu's directory also holds its forward and decode programs as
-jax.export StableHLO, which load without mst_tpu's model code. This one
-holds no program: LoadedModel rebuilds the model from `config` with this
-package's code, so a model directory of the port needs the port's source
-to load. A serialized program (torch.export, AOTInductor) waits on three
-things: k-means runs a data-dependent number of iterations, each syncing
-the host (ops/kmeans.py); the samplers draw from a torch.Generator; and
-both kernels launch through ctypes, which tracing cannot see until they
-are torch.library custom ops with fake implementations.
+The draws of a request come from a key (ops/sampling.Key): `key`, or a
+key drawn from `generator`, or the key of `seed`; a seed gives the same
+draws in Predictor and in LoadedModel, and a key the same bits on the
+CPU and on the card. TTST's k-means is one torch while_loop in the
+forward program (ops/kmeans.py), whose condition reads one flag from the
+device each iteration.
 
 The model state is the batch norms' running statistics of the serial
 adapters. A model with a state serves a checkpoint or a style only with
@@ -35,52 +32,53 @@ weights trained with running statistics would be served with init_ynet's,
 and Predictor raises NotImplementedError. Styles share the base's state.
 
 With a segmentation backbone (the config's segmentation_model_fp exists,
-or a model directory's params.npz holds it) a request's semantic input is
-the segmented map; with segment_in_step (`export_model(...,
-segment_in_step=True)`) it is the preprocessed RGB scene and the backbone
-runs inside the predict step.
+or the experiment holds one) a request's semantic input is the segmented
+map; with segment_in_step (`export_model(..., segment_in_step=True)`) it
+is the preprocessed RGB scene and the backbone runs inside the predict
+step, and inside forward.pt2.
 
     python -m mst_tpu_torch.serve export|check|serve ...
 
 takes mst_tpu's flags, plus --device (cuda, which must exist, or cpu) in
 place of --platforms; `serve` starts the HTTP daemon (serve_http.py).
+This module imports the model code only inside Predictor and
+export_model, so `check` and `serve` run without it.
 """
 
-import collections
 import json
 import os
 import pathlib
-import threading
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
-from mst_tpu_torch import io, resolve_device
-from mst_tpu_torch.config import step_config, ynet_config
-from mst_tpu_torch.models import segmentation as seg_lib
-from mst_tpu_torch.models.ynet import init_ynet, is_adapter_leaf
-from mst_tpu_torch.train.steps import make_predict_step
+from mst_tpu_torch import io
+from mst_tpu_torch.loader import (DECODE_FILE, FORMAT, FORWARD_FILE,
+                                  MANIFEST_FILE, PARAMS_FILE, STATE_FILE,
+                                  LoadedModel, StyleTable, card_device,
+                                  load_model, overlay_npz, resolve_key)
 
-FORMAT = "mst_tpu_torch.serve/1"
-_PARAMS_FILE = "params.npz"
-_STATE_FILE = "state.npz"
-_MANIFEST_FILE = "manifest.json"
+__all__ = ["FORMAT", "LoadedModel", "Predictor", "check", "export_model",
+           "load_model"]
 
 
-def _load_base(init, path, adapters_optional=True):
+def _load_base(init, path):
     """The base weights of a checkpoint, laid over `init` strictly: every
     parameter of `init` must be in the checkpoint, and every key of the
-    checkpoint must name a parameter of `init` with its shape. With
-    adapters_optional, the adapter leaves (is_adapter_leaf) may be
-    missing: a base model trained without them keeps the init's until a
-    style delta brings them, as the reference's fine-tune flow does. The
-    embed network's and the fusion encoder's weights are the base model's
-    own and are required. The backbone's may be missing: a whole-model
-    checkpoint leaves them out, and they come from their own file."""
+    checkpoint must name a parameter of `init` with its shape. The
+    adapter leaves (is_adapter_leaf) may be missing: a base model trained
+    without them keeps the init's until a style delta brings them, as the
+    reference's fine-tune flow does. The embed network's and the fusion
+    encoder's weights are the base model's own and are required. The
+    backbone's may be missing: a whole-model checkpoint leaves them out,
+    and they come from their own file."""
+    from mst_tpu_torch.models.ynet import is_adapter_leaf
+
     ckpt = io.params_from_numpy(io.load_checkpoint(path))
     missing = sorted(k for k in io.flatten(init).keys()
                      - io.flatten(ckpt).keys()
-                     if not (adapters_optional and is_adapter_leaf(k))
+                     if not is_adapter_leaf(k)
                      and not k.startswith("segmentation/"))
     if missing:
         raise KeyError(f"checkpoint {path} lacks {len(missing)} parameters "
@@ -88,29 +86,7 @@ def _load_base(init, path, adapters_optional=True):
     return io.overlay(init, ckpt, strict=True)
 
 
-def _overlay_npz(base, flat, what):
-    """Copy-on-write overlay of a flat npz {'a/b/c': array} (mst_tpu's
-    layout) onto the port's tree `base`, as strict as mst_tpu's serving
-    overlay (serve.py:67-101): a key that names no leaf of `base` raises
-    KeyError; a leaf of another dtype (the npz's own, checked before any
-    cast) or shape raises ValueError. Untouched tensors stay shared with
-    `base`, so a style costs only its delta."""
-    leaves = io.flatten(base)
-    for key, val in flat.items():
-        if key not in leaves:
-            raise KeyError(f"{what} key '{key}' does not exist in the base "
-                           "model")
-        old = torch.empty(0, dtype=leaves[key].dtype).numpy().dtype
-        if val.dtype != old:
-            raise ValueError(f"{what} key '{key}' has dtype {val.dtype}, the "
-                             f"base model has {old}")
-    return io.overlay(base, io.params_from_numpy(flat), strict=True)
-
-
-class Predictor:
-    # a checkpoint may lack the adapter leaves (_load_base)
-    _adapters_optional = True
-
+class Predictor(StyleTable):
     def __init__(self, params: dict, checkpoint=None, *, device=None,
                  seed: int = 0, state=None, **step_overrides):
         """params: flat config dict; checkpoint: optional mst_tpu npz of
@@ -120,11 +96,13 @@ class Predictor:
         step_overrides: StepConfig fields, e.g. eval_k_chunk=5. The
         config's compute_dtype (float32 or bfloat16) sets the convs'
         dtype; the weights and the state stay as loaded (f32)."""
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            # the card by its index, which other threads (the daemon's
-            # dispatcher) need to run on it
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        from mst_tpu_torch.config import step_config, ynet_config
+        from mst_tpu_torch.models import segmentation as seg_lib
+        from mst_tpu_torch.models.ynet import init_ynet
+        from mst_tpu_torch.train.steps import make_predict_step
+
+        super().__init__()
+        self.device = card_device(device)
         self.mcfg = ynet_config(params)
         self.scfg = step_config(params, **step_overrides)
         weights, self.state = init_ynet(torch.Generator().manual_seed(seed),
@@ -143,7 +121,7 @@ class Predictor:
             # file's own: the init state has none to check them against
             seg_bn = {k: v for k, v in flat.items()
                       if k.startswith("segmentation_bn/")}
-            self.state = _overlay_npz(
+            self.state = overlay_npz(
                 self.state, {k: v for k, v in flat.items()
                              if k not in seg_bn}, "state")
             if seg_bn:
@@ -151,35 +129,19 @@ class Predictor:
                     seg_bn, self.device)}
         if checkpoint is not None:
             self._refuse_trained_weights("a checkpoint")
-            weights = _load_base(weights, checkpoint,
-                                 self._adapters_optional)
+            weights = _load_base(weights, checkpoint)
         self.params = weights
-        self._styles = collections.OrderedDict()
-        # the HTTP daemon's handler threads register and evict styles
-        # while its dispatcher thread reads them
-        self._styles_lock = threading.Lock()
-        # the resident styles' cap: None or <= 0 means unbounded; beyond
-        # it the least recently used style is evicted (predict marks use)
-        self.max_styles = None
         self._predict = make_predict_step(self.mcfg, self.scfg)
 
     def add_style(self, name, delta_path):
         """Register a motion style: a delta checkpoint (the trainable-only
         npz of an adapter fine-tune) overlaid on the base weights, strict
-        on keys, shapes and dtypes (_overlay_npz). The styles share the
-        model state. -> the names this registration evicted (empty unless
-        max_styles is set and was exceeded)."""
+        on keys, shapes and dtypes (loader.overlay_npz). The styles share
+        the model state. -> the names this registration evicted (empty
+        unless max_styles is set and was exceeded)."""
         self._refuse_trained_weights("a style")
-        overlaid = _overlay_npz(self.params, io.load_checkpoint(delta_path),
-                                "delta")
-        with self._styles_lock:
-            self._styles[name] = overlaid
-            self._styles.move_to_end(name)
-            evicted = []
-            if self.max_styles is not None and int(self.max_styles) > 0:
-                while len(self._styles) > int(self.max_styles):
-                    evicted.append(self._styles.popitem(last=False)[0])
-        return evicted
+        return self._register(name, overlay_npz(
+            self.params, io.load_checkpoint(delta_path), "delta"))
 
     def _refuse_trained_weights(self, what):
         if self.state and not self._state_loaded:
@@ -189,38 +151,21 @@ class Predictor:
                 "with init_ynet's statistics; pass state= (a state npz, as "
                 "a model directory's state.npz)")
 
-    @property
-    def styles(self):
-        with self._styles_lock:
-            return sorted(self._styles)
-
-    def _weights(self, style):
-        if style is None:
-            return self.params
-        with self._styles_lock:
-            weights = self._styles.get(style)
-            if weights is not None:
-                self._styles.move_to_end(style)
-        if weights is None:
-            raise ValueError(f"unknown serving style '{style}'; registered: "
-                             f"{self.styles or '(none; call add_style)'}")
-        return weights
-
-    def _inputs(self, semantic, observed, seed, generator=None):
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(seed)
+    def _inputs(self, semantic, observed):
         return (torch.as_tensor(semantic, dtype=torch.float32,
                                 device=self.device),
                 torch.as_tensor(observed, dtype=torch.float32,
-                                device=self.device), generator)
+                                device=self.device))
 
     @torch.no_grad()
-    def forward(self, semantic, observed, seed=0, style=None):
+    def forward(self, semantic, observed, seed=0, style=None, key=None,
+                generator=None):
         """Stage 1: encoder, goal decoder and sampling -> (features,
         waypoint samples (K, B, n_wp, 2) in model-space pixels)."""
         return self._predict.forward(
             self._weights(style), self.state,
-            *self._inputs(semantic, observed, seed))
+            *self._inputs(semantic, observed),
+            resolve_key(key, seed, generator, self.device))
 
     @torch.no_grad()
     def decode(self, features, waypoint_samples, style=None):
@@ -230,20 +175,21 @@ class Predictor:
         return trajs / self.scfg.resize_factor
 
     @torch.no_grad()
-    def predict(self, semantic, observed, seed=0, generator=None, block=True,
-                style=None):
+    def predict(self, semantic, observed, key=None, seed=0, generator=None,
+                block=True, style=None):
         """semantic (1, H, W, C) + observed (B, obs_len, 2) model-space px
         -> {trajectories (K, B, pred_len, 2), waypoints (K, B, n_wp, 2)}
         in raw-image pixels, as numpy arrays.
 
-        The draws come from `generator`, else from a generator on the
-        device seeded with `seed`. block=False returns the device tensors
-        without the host copy. style selects a registered style (None: the
-        base weights); using one marks it recently used."""
+        The draws come from `key` (int64 (2,)), else from a key drawn from
+        `generator`, else from the key of `seed` (loader.resolve_key), as
+        in LoadedModel. block=False returns the device tensors without
+        the host copy. style selects a registered style (None: the base
+        weights); using one marks it recently used."""
         weights = self._weights(style)
         out = self._predict(weights, self.state,
-                            *self._inputs(semantic, observed, seed,
-                                          generator))
+                            *self._inputs(semantic, observed),
+                            resolve_key(key, seed, generator, self.device))
         if not block:
             return out
         return {k: v.cpu().numpy() for k, v in out.items()}
@@ -252,6 +198,27 @@ class Predictor:
 # ---------------------------------------------------------------------------
 # the model directory
 # ---------------------------------------------------------------------------
+
+class _Stage(torch.nn.Module):
+    """A predict step's stage as the module torch.export traces."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def _like(program):
+    """An exported program's outputs as zero tensors of their shapes and
+    dtypes, on their device, in the outputs' pytree."""
+    out = next(n for n in program.graph.nodes if n.op == "output")
+    return pytree.tree_unflatten(
+        [torch.zeros(n.meta["val"].shape, dtype=n.meta["val"].dtype,
+                     device=n.meta["val"].device) for n in out.args[0]],
+        program.call_spec.out_spec)
+
 
 def export_model(experiment, out_dir, height, width, batch_size,
                  semantic_channels=None, segment_in_step=False,
@@ -268,13 +235,20 @@ def export_model(experiment, out_dir, height, width, batch_size,
         n_semantic_classes, or 3 with segment_in_step.
       segment_in_step: the input is the preprocessed RGB scene and the
         segmentation backbone (which params.npz holds, as it holds it
-        whenever the experiment has one) runs inside the predict step.
+        whenever the experiment has one) runs inside forward.pt2.
       eval_k_chunk: overrides the config's K-chunking of the decode.
 
-    Returns the manifest dict: mst_tpu's fields (format FORMAT, and
-    `platforms` the device type exported for; `compute_dtype` the config's,
-    which LoadedModel serves in), and `config`.
+    Both programs are torch.export.export(..., strict=False) of the
+    predict step's two stages at these shapes, in the config's compute
+    dtype, on the experiment's device, whose type they serve on only.
+
+    Returns the manifest dict: mst_tpu's fields (format FORMAT,
+    `platforms` the device type exported for, `compute_dtype` the
+    config's), `torch_version` and `config`.
     """
+    from mst_tpu_torch.config import step_config, ynet_config
+    from mst_tpu_torch.train.steps import make_predict_step
+
     p = experiment.params
     div = experiment.division_factor
     if height % div or width % div:
@@ -283,7 +257,7 @@ def export_model(experiment, out_dir, height, width, batch_size,
     config = dict(p)
     if eval_k_chunk is not None:
         config["eval_k_chunk"] = int(eval_k_chunk)
-    step_config(config)  # raises on a flag the port does not serve
+    scfg = step_config(config, segment_in_step=segment_in_step)
     if semantic_channels is not None:
         sem_c = semantic_channels
     else:
@@ -291,11 +265,34 @@ def export_model(experiment, out_dir, height, width, batch_size,
 
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    np.savez(out / _PARAMS_FILE, **io.params_to_numpy(experiment.model_params))
-    np.savez(out / _STATE_FILE, **io.state_to_numpy(experiment.model_state))
+    flat_params = io.params_to_numpy(experiment.model_params)
+    flat_state = io.state_to_numpy(experiment.model_state)
+    np.savez(out / PARAMS_FILE, **flat_params)
+    np.savez(out / STATE_FILE, **flat_state)
+
+    # the programs take the trees LoadedModel rebuilds from the npz files
+    dev = experiment.device
+    params = io.params_from_numpy(flat_params, dev)
+    state = io.state_from_numpy(flat_state, dev)
+    step = make_predict_step(ynet_config(config), scfg)
+    semantic = torch.zeros((1, height, width, sem_c), device=dev)
+    observed = torch.zeros((batch_size, int(p["obs_len"]), 2), device=dev)
+    key = torch.zeros(2, dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        forward = torch.export.export(
+            _Stage(step.forward), (params, state, semantic, observed, key),
+            strict=False)
+        decode = torch.export.export(
+            _Stage(step.decode_trajs), (params, *_like(forward)),
+            strict=False)
+    for program, name in ((forward, FORWARD_FILE), (decode, DECODE_FILE)):
+        # the example inputs (the weights, and the decode's full-size
+        # features) would be saved with the program
+        program.example_inputs = None
+        torch.export.save(program, out / name)
     manifest = {
         "format": FORMAT,
-        "platforms": [experiment.device.type],
+        "platforms": [dev.type],
         "semantic_shape": [1, height, width, sem_c],
         "observed_shape": [batch_size, int(p["obs_len"]), 2],
         "obs_len": int(p["obs_len"]),
@@ -311,54 +308,14 @@ def export_model(experiment, out_dir, height, width, batch_size,
         "segment_in_step": bool(segment_in_step),
         "network": p.get("network", "original"),
         "train_net": p.get("train_net"),
-        "files": {"params": _PARAMS_FILE, "state": _STATE_FILE},
+        "files": {"forward": FORWARD_FILE, "decode": DECODE_FILE,
+                  "params": PARAMS_FILE, "state": STATE_FILE},
+        "torch_version": torch.__version__,
         "config": config,
     }
-    with open(out / _MANIFEST_FILE, "w") as f:
+    with open(out / MANIFEST_FILE, "w") as f:
         json.dump(manifest, f, indent=1)
     return manifest
-
-
-class LoadedModel(Predictor):
-    """A model directory written by export_model, on `device` ('cuda', the
-    default, which must exist, or 'cpu'): the model rebuilt from the
-    manifest's config, params.npz and state.npz put on the device once.
-    Serves like Predictor (mst_tpu's LoadedModel: add_style with the LRU
-    cap max_styles, predict with block=False); `manifest` is the dict
-    export_model wrote. params.npz must hold every parameter, the adapter
-    leaves too, as export_model writes it and as mst_tpu's exported
-    program takes them. The backbone comes from params.npz when it holds
-    one (in place of the config's segmentation_model_fp), and a
-    directory exported with segment_in_step runs it in the predict
-    step."""
-
-    _adapters_optional = False
-
-    def __init__(self, model_dir, device=None):
-        d = pathlib.Path(model_dir)
-        with open(d / _MANIFEST_FILE) as f:
-            manifest = json.load(f)
-        if manifest.get("format") != FORMAT:
-            raise ValueError(
-                f"{d} holds format {manifest.get('format')!r}, not "
-                f"{FORMAT!r}: export it with mst_tpu_torch.serve")
-        files = manifest["files"]
-        config = dict(manifest["config"])
-        # the manifest's field, as mst_tpu's LoadedModel serves it
-        config["compute_dtype"] = manifest["compute_dtype"]
-        with np.load(d / files["params"]) as z:
-            has_backbone = any(k.startswith("segmentation/")
-                               for k in z.files)
-        config["segmentation_model_fp"] = (str(d / files["params"])
-                                           if has_backbone else None)
-        super().__init__(config, d / files["params"], device=device,
-                         state=d / files["state"],
-                         segment_in_step=bool(manifest["segment_in_step"]))
-        self.manifest = manifest
-
-
-def load_model(model_dir, device=None):
-    return LoadedModel(model_dir, device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""HTTP serving daemon around serve.LoadedModel with continuous batching
+"""HTTP serving daemon around loader.LoadedModel with continuous batching
 (counterpart of mst_tpu/serve_http.py, whose policy it keeps line for line).
 
 A dependency-free (stdlib http.server) daemon that
@@ -8,10 +8,11 @@ A dependency-free (stdlib http.server) daemon that
 - **batches concurrent requests**: a dispatcher thread collects up to B
   agent rows (the manifest's batch size) from the request queue, grouped
   by (scene, style, seed): rows are independent through the convs, and
-  the group shares one generator, so a request's samples depend only on
+  the group shares one seed's key, so a request's samples depend only on
   its group's arrival order. It waits at most --max_wait_ms, pads the
-  remainder to B by repeating the first row (PyTorch needs no fixed shape,
-  but the draws do: a row's samples depend on the dispatch as in mst_tpu),
+  remainder to B by repeating the first row (the programs take the
+  directory's fixed B, and a row's draws depend on the dispatch as in
+  mst_tpu),
   runs ONE predict and fans the per-row results back out,
 - serves scenes registered at startup (--scene name=path.npy holding the
   preprocessed (1, H, W, C) semantic map) or uploaded via PUT /scenes.
@@ -66,7 +67,7 @@ class Batcher:
     """Collects pending rows into dispatches of B rows.
 
     Rows only co-batch within one (scene, style, seed) group: the model is
-    row-independent through the convs, but the generator is shared per
+    row-independent through the convs, but the key's draws are shared per
     dispatch, so the group key keeps a request's samples reproducible for
     a given arrival order.
 
@@ -410,7 +411,7 @@ def run_server(model_dir, port=8000, styles=(), scenes=(), max_wait_ms=5.0,
     'cuda' (the default, which must exist) or 'cpu'. A threading caller
     (tests) gets the server and the batcher as ready_event.server and
     ready_event.batcher, for shutdown."""
-    from mst_tpu_torch.serve import load_model
+    from mst_tpu_torch.loader import load_model
 
     model = load_model(model_dir, device)
     model.max_styles = max_styles

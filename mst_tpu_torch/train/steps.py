@@ -9,7 +9,9 @@ min-over-K metrics. Train: one few-shot fine-tune step, forward, masked
 BCE, backward into the trainable leaves and an optimizer step (see
 make_train_step). The decode is always the unpacked math; the JAX
 package's space-to-depth packing is a TPU layout and has no counterpart.
-Random draws come from one torch.Generator on the step's device.
+Random draws come from one torch.Generator on the step's device, or, in
+the eval and predict forward, from a key (ops/sampling.Key): an int64
+(2,) tensor, which is how the exported forward program takes its draws.
 
 Mixed precision (StepConfig.compute_dtype = torch.bfloat16) follows
 mst_tpu's explicit casts, not torch.autocast (whose per-op lists would
@@ -49,7 +51,7 @@ from mst_tpu_torch.ops.kernels.fused_predict import \
     fused_predictor_softargmax
 from mst_tpu_torch.ops.kmeans import batched_kmeans
 from mst_tpu_torch.ops.pooling import avg_pool_pyramid
-from mst_tpu_torch.ops.sampling import sample_heatmap
+from mst_tpu_torch.ops.sampling import Key, sample_heatmap
 from mst_tpu_torch.ops.softargmax import (softargmax2d_auto,
                                           softargmax_on_prob_map)
 from mst_tpu_torch.train.losses import bce_with_logits
@@ -314,6 +316,14 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     return train_step
 
 
+def draw_source(generator):
+    """The eval forward's draws: a key tensor (int64 (2,)) becomes a Key;
+    a torch.Generator, Draws or Key is used as it is."""
+    if isinstance(generator, torch.Tensor):
+        return Key(generator)
+    return generator
+
+
 def _ttst_goals(generator, pred_waypoint_map, wp_sigmoid_hw, scfg):
     """Test-Time Sampling Trick (evaluate.py:134-161): 10k samples of the
     goal map -> per-person k-means to n_goal - 1 centres, behind the
@@ -341,6 +351,10 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     with world_coords the scene's 'homography' (3, 3), and for a
     cross-scene batch 'scene_idx' (B,) into a (S, H, W, C) 'semantic'.
 
+    generator: the draws, from a torch.Generator, a sampling.Draws, or a
+    key (an int64 (2,) tensor, or a sampling.Key), from which the forward
+    reads no host value, so that torch.export records it.
+
     The parts are exposed: eval_step.forward -> (features, waypoint
     samples (K, B, n_wp, 2)); eval_step.prepredictor -> the decode tail's
     inputs; eval_step.decode_trajs -> (K, B, pred_len, 2) model-space
@@ -351,6 +365,7 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     waypoints = list(scfg.waypoints)
 
     def forward(params, state, batch, generator):
+        generator = draw_source(generator)
         params = _compute_params(params, scfg)
         traj = batch["traj"]
         semantic, observed_map, _ = _prepare_inputs(
@@ -472,21 +487,23 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
 def make_predict_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     """Serving predict: no ground truth; all K trajectories in raw pixels.
 
-    predict(params, state, semantic, observed, generator) -> dict
+    predict(params, state, semantic, observed, key) -> dict
       trajectories (K, B, pred_len, 2) and waypoints (K, B, n_wp, 2), raw px.
-    observed is (B, obs_len, 2) in model-space pixels (raw * resize_factor).
-    predict.forward and predict.decode_trajs are the two stages.
+    observed is (B, obs_len, 2) in model-space pixels (raw * resize_factor);
+    key: the draws, as eval_step's generator. predict.forward and
+    predict.decode_trajs are the two stages, which serve.export_model
+    exports as forward.pt2 and decode.pt2.
     """
     es = make_eval_step(mcfg, scfg)
 
-    def forward(params, state, semantic, observed, generator):
+    def forward(params, state, semantic, observed, key):
         # the forward only reads the first obs_len rows of traj
         return es.forward(params, state,
-                          {"semantic": semantic, "traj": observed}, generator)
+                          {"semantic": semantic, "traj": observed}, key)
 
-    def predict(params, state, semantic, observed, generator):
+    def predict(params, state, semantic, observed, key):
         features, waypoint_samples = forward(params, state, semantic,
-                                             observed, generator)
+                                             observed, key)
         trajs = es.decode_trajs(params, features, waypoint_samples)
         return {"trajectories": trajs / scfg.resize_factor,
                 "waypoints": waypoint_samples / scfg.resize_factor}

@@ -263,7 +263,8 @@ def test_loaded_model_segments_in_step(world, directory):
     the same weights and state answers on the segmented map (the
     backbone with the adapted statistics): 1e-4 model px."""
     model = serve.LoadedModel(directory, device="cpu")
-    assert model.scfg.segment_in_step and "segmentation" in model.params
+    assert model.manifest["segment_in_step"] and \
+        "segmentation" in model.params
     pred = serve.Predictor(params_for(world, n_goal=4), directory /
                            "params.npz", device="cpu",
                            state=directory / "state.npz")
@@ -276,7 +277,7 @@ def test_loaded_model_segments_in_step(world, directory):
     got = model.predict(raw, observed, seed=3)
     want = pred.predict(sem, observed, seed=3)
     for k in ("trajectories", "waypoints"):
-        close_px(got[k], want[k], model.scfg.resize_factor, k)
+        close_px(got[k], want[k], model.manifest["resize_factor"], k)
 
 
 def test_daemon_serves_a_segment_in_step_directory(world, directory,

@@ -561,7 +561,9 @@ def test_bf16_predictor_and_model_directory(tmp_path):
     manifest = serve.export_model(exp, tmp_path / "model", H, W, B)
     assert manifest["compute_dtype"] == "bfloat16"
     loaded = serve.LoadedModel(tmp_path / "model", device="cpu")
-    assert loaded.scfg.compute_dtype == BF
+    assert loaded.manifest["compute_dtype"] == "bfloat16"
+    # the programs were exported in bf16: their features are bf16
+    assert {f.dtype for f in loaded.forward(semantic, observed)[0]} == {BF}
     assert all(v.dtype == torch.float32
                for v in io.flatten(loaded.params).values())
     want = pred.predict(semantic, observed, seed=0)

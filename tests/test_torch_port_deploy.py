@@ -183,10 +183,13 @@ def test_export_writes_mst_tpus_params_and_state(exports, name):
     want = json.loads((e["jax"] / "manifest.json").read_text())
     assert got["format"] == serve.FORMAT
     assert want.keys() - got.keys() == set()
-    assert got.keys() - want.keys() == {"config"}
+    assert got.keys() - want.keys() == {"config", "torch_version"}
     for k in want.keys() - {"format", "files"}:
         assert got[k] == want[k], k
-    assert got["files"] == {k: want["files"][k] for k in ("params", "state")}
+    assert got["files"] == {**{k: want["files"][k] for k in ("params",
+                                                             "state")},
+                            "forward": "forward.pt2", "decode": "decode.pt2"}
+    assert want["files"].keys() == got["files"].keys()
     assert got["config"] == json.loads(json.dumps(e["params"]))
 
 
@@ -200,7 +203,8 @@ def test_export_refuses_what_it_cannot_serve(exports, tmp_path):
                                   segment_in_step=True)
     assert manifest["segment_in_step"] and \
         manifest["semantic_shape"] == [1, H, W, 3]
-    assert LoadedModel(tmp_path / "seg", device="cpu").scfg.segment_in_step
+    assert LoadedModel(tmp_path / "seg",
+                       device="cpu").manifest["segment_in_step"]
     with pytest.raises(ValueError, match="not a backbone npz"):
         Experiment(dict(exports["mosa_2"]["params"],
                         segmentation_model_fp=__file__), device="cpu")
@@ -299,7 +303,7 @@ def test_loaded_serial_matches_mst_tpu_predict_step(exports):
     key = jax.random.PRNGKey(4)
     jout = jstep(*e["trees"], semantic, observed, key)
     jfeats, _ = jstep.forward(*e["trees"], semantic, observed, key)
-    rf = loaded.scfg.resize_factor
+    rf = loaded.manifest["resize_factor"]
     wps = t(jout["waypoints"]) * rf
     feats, _ = loaded.forward(semantic, observed)
     for a, f in zip(feats, jfeats):
@@ -309,16 +313,16 @@ def test_loaded_serial_matches_mst_tpu_predict_step(exports):
     err = np.abs(got - np.asarray(jout["trajectories"])).max() * rf
     assert err <= MODEL_PX_TOL, err
     init = Predictor(e["params"], e["port"] / "params.npz", device="cpu",
-                     state=_init_state(e, loaded))
+                     state=_init_state(e))
     init_feats, _ = init.forward(semantic, observed)
     moved = np.abs(init.decode(init_feats, wps).numpy() - got).max() * rf
     assert moved > 10 * MODEL_PX_TOL, moved
 
 
-def _init_state(e, loaded):
+def _init_state(e):
     path = e["port"].parent / "init_state.npz"
     np.savez(path, **io.state_to_numpy(init_ynet(
-        torch.Generator().manual_seed(0), loaded.mcfg)[1]))
+        torch.Generator().manual_seed(0), ynet_config(e["params"]))[1]))
     return path
 
 

@@ -318,6 +318,17 @@ def _imports(path):
             yield node.module
 
 
+def _import_targets(path):
+    """Every module an import names, `from a import b` giving both a and
+    a.b (b may be a submodule)."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
 def _module_level_imports(path):
     """The imports that run when the module is imported: those outside any
     function body."""
@@ -349,7 +360,7 @@ def test_port_imports_no_jax_and_no_mst_tpu():
                 "data/ind.py", "data/split_dataset.py",
                 "data/filter_dataset.py", "data/generate_varf.py",
                 "train/fused.py", "train/optim.py", "grid.py",
-                "ops/kernels/launches.py"):
+                "ops/kernels/launches.py", "loader.py"):
         assert REPO / "mst_tpu_torch" / new in PORT_FILES, new
     for path in PORT_FILES:
         for name in _imports(path):
@@ -360,6 +371,30 @@ def test_port_imports_no_jax_and_no_mst_tpu():
         for name in _module_level_imports(path):
             assert name.split(".")[0] not in ("pandas", "cv2"), \
                 f"{os.path.relpath(path, REPO)} imports {name} at module level"
+    # the model directory's loader serves without the model code: it and
+    # every port module it imports, at any depth, import none of
+    # mst_tpu_torch.models, .train or .config, anywhere in the file, and
+    # serve.py and serve_http.py import them only inside functions
+    model_code = ("mst_tpu_torch.models", "mst_tpu_torch.train",
+                  "mst_tpu_torch.config")
+    seen, todo = set(), [REPO / "mst_tpu_torch" / "loader.py"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        for name in _import_targets(path):
+            assert not name.startswith(model_code), \
+                f"{os.path.relpath(path, REPO)} imports {name}"
+            if name.startswith("mst_tpu_torch"):
+                base = REPO / pathlib.Path(*name.split("."))
+                todo += [p for p in (base.with_suffix(".py"),
+                                     base / "__init__.py") if p.exists()]
+    assert REPO / "mst_tpu_torch" / "ops" / "kernels" / \
+        "fused_predict.py" in seen
+    for path in ("serve.py", "serve_http.py"):
+        for name in _module_level_imports(REPO / "mst_tpu_torch" / path):
+            assert not name.startswith(model_code), f"{path} imports {name}"
 
 
 def test_module_level_import_scan(tmp_path):
