@@ -134,11 +134,13 @@ Phases, each fatal on failure:
      builder CLIs (`python -m mst_tpu_torch.data.sdd`, then --reload
      --varf agent_type, then data.split_dataset), their pickles equal to
      the pandas chain's, and the native windowing timed against the chain
-     at 1M rows; `python -m mst_tpu_torch.train` runs A and B (4 epochs,
+     at 1M rows; `python -m mst_tpu_torch.train` runs A (4 epochs,
      smooth-val, a training state every epoch), C (2 epochs) and R
      (--resume to 4): what C held as it wrote epoch 2's state equals, bit
      for bit, what R holds after the restore, and R's leaves and val
-     histories lie within twice B's distance from A (plus 1e-6); then an
+     histories equal A's bit for bit (cuDNN's deterministic algorithms;
+     a second uninterrupted run that measured the card's noise went to
+     keep the script's time, and never saw any); then an
      ETH world (5 scenes of oracle.png masks and homographies): the
      validation cut's 30 // B scenes, a 1-epoch mosa_2 fine-tune and a
      --eth_world_coords test, world ADE/FDE on the card against the CPU on
@@ -207,14 +209,37 @@ Phases, each fatal on failure:
      in each); every output finite, inside the image and within 1e-4 raw
      px of the eager Predictor of the same weights and keys; a program
      request against an eager one, median of 5 each.
+  14. data parallelism over a mesh (mesh_path; after phase 13, before
+     phase 10), on phase 6c's scenes at sdd_shortterm_train.yaml's width,
+     cuDNN deterministic, its ranks child processes started as torchrun
+     starts them (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT;
+     mesh_rank_main): (a) a world of 1 on NCCL runs the train CLI with
+     --mesh_shape 1, and with --fused --mesh_shape 1 (its CUDA graph
+     captures the NCCL all-reduces), each bit-equal to the same flow
+     without a mesh in this process (weights, metrics log, printed
+     results); (b) a world of 2 sharing the card (gloo on CUDA tensors)
+     runs 3 mosa_2 steps, a serial-adapter step and a K = 20 TTST
+     validation pass on phase 6b's batch (B = 8, the last two rows
+     padding: 4 and 2 valid rows a rank) against this process's world of
+     1: losses 1e-5 relative, leaves 1e-4 of their max where every
+     step's |g| > 1e-3 max|g|, the serial BN statistics 1e-6, each rank's
+     TTST draws bit-equal to its rows of the world of 1's, ADE/FDE 1e-5
+     relative and best_traj 1e-4 model px on the rows whose samples did
+     not move (at most a third may), both kernels launched on each rank;
+     step and validation ms of both worlds (no scaling figure: the ranks
+     share one card), and a world of 1's serial step timed with the
+     port's batch norm and with cuDNN's in its place; (c) the world of 2's torch.distributed.checkpoint
+     restored here bit for bit; (d) the grid (2 seeds x 1 lr, 1 epoch,
+     one run a rank) against the same grid here at phase 12's bars.
 The line before the last is the per-kernel JSON record (launches on each
 kernel's own path, train_launches on the fine-tune path, loop_launches
 on the Experiment loop's, ymod_launches on Y-Net-Mod's, serve_launches
 on the daemon's, seg_launches on the segmentation backbone's,
 res_launches over phase 10's CLI processes, p11_launches over phase
 11's requests, steps and cross-scene test, p12_launches over phase
-12's fused runs (eager warm-up + replays) and grid, and p13_launches over
-phase 13's program-only process; the bf16 records'
+12's fused runs (eager warm-up + replays) and grid, p13_launches over
+phase 13's program-only process, and p14_launches, each rank's count over
+phase 14's world of 2; the bf16 records'
 launches count phase 11's bf16 requests and steps); the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -3011,7 +3036,6 @@ def segmentation_path(torch, wrappers, card, rows_rec, fused_rec):
 RES_EPOCHS, RES_CUT = 4, 2  # the uninterrupted runs; the cut before --resume
 RES_FLAGS = ["--train_net", "train", "--lr", "1e-4", "--smooth_val",
              "--window_size", "3"]
-RES_NOISE_TOL = 1e-6  # resumed vs uninterrupted: 2 x the card's noise + this
 ETH_TOL = 1e-4  # world ADE/FDE, card against the CPU, relative
 WINDOW_ROWS = 1_000_000  # rows of the native-against-pandas windowing
 ETH_SCENES = ("eth", "hotel", "students003", "uni_examples", "zara01")
@@ -3387,13 +3411,12 @@ def raw_to_resumed(torch, wrappers, card, rows_rec, fused_rec):
             for k, v in launches.items():
                 res[k] += v
 
-        # ---- A and B: two uninterrupted runs; C: the cut; R: --resume
+        # ---- A: the uninterrupted run; C: the cut; R: --resume
         name = "Seed_1__filter_shortterm_agent_type_Pedestrian__train__" \
             "original"
         runs = {}
         for label, ckpt, epochs, extra in (
                 ("A", "ckpts_a", RES_EPOCHS, []),
-                ("B", "ckpts_b", RES_EPOCHS, []),
                 ("C", "ckpts_r", RES_CUT, []),
                 ("R", "ckpts_r", RES_EPOCHS, ["--resume"])):
             out, secs, launches, peak = run_cli(
@@ -3444,28 +3467,18 @@ def raw_to_resumed(torch, wrappers, card, rows_rec, fused_rec):
               f"{len(saved['snapshots'])} smooth-val snapshot(s): equal bit "
               f"for bit")
 
-        # the resumed run within the card's own run-to-run noise
-        d_ba = state_distance(runs["B"]["state"], runs["A"]["state"])
+        # the resumed run ends on A's bits: the processes run cuDNN's
+        # deterministic algorithms, so the card adds no run-to-run noise
         d_ra = state_distance(runs["R"]["state"], runs["A"]["state"])
-        h = {}
-        for key in ("val_ADE", "val_FDE"):
-            h[key] = (history_distance(runs["B"]["meta"][key],
-                                       runs["A"]["meta"][key]),
-                      history_distance(runs["R"]["meta"][key],
-                                       runs["A"]["meta"][key]))
-        print(f"resume against the card's noise ({card}): leaves |B - A| "
-              f"{d_ba:.3e}, |R - A| {d_ra:.3e} of each leaf's max; val ADE "
-              f"B {h['val_ADE'][0]:.3e}, R {h['val_ADE'][1]:.3e}; val FDE B "
-              f"{h['val_FDE'][0]:.3e}, R {h['val_FDE'][1]:.3e} (relative); "
-              f"bound 2 x B + {RES_NOISE_TOL}")
-        check(d_ra <= 2 * d_ba + RES_NOISE_TOL, "the resumed run's leaves "
-              "are further from A than twice the card's own noise")
-        for key, (b, r) in h.items():
-            check(r <= 2 * b + RES_NOISE_TOL, f"the resumed run's {key} is "
-                  "further from A than twice the card's own noise")
-        if d_ba == 0 and all(b == 0 for b, _ in h.values()):
-            check(d_ra == 0 and all(r == 0 for _, r in h.values()),
-                  "A and B are bit-identical but R is not")
+        h = {key: history_distance(runs["R"]["meta"][key],
+                                   runs["A"]["meta"][key])
+             for key in ("val_ADE", "val_FDE")}
+        print(f"resume against the uninterrupted run ({card}): leaves "
+              f"|R - A| {d_ra:.3e} of each leaf's max; val ADE "
+              f"{h['val_ADE']:.3e}, val FDE {h['val_FDE']:.3e} (relative); "
+              f"bound 0")
+        check(d_ra == 0 and all(r == 0 for r in h.values()),
+              "the resumed run does not end on the uninterrupted run's bits")
         a_epochs = [r["steps_seconds"] + r["val_seconds"]
                     for r in runs["A"]["log"]]
         r_epochs = [r["steps_seconds"] + r["val_seconds"]
@@ -4328,6 +4341,732 @@ def serialized_program_path(torch, wrappers, card, semantic, observed,
     return total
 
 
+# ---- phase 14: data parallelism over a mesh
+# ---------------------------------------------------------------------------
+
+P14_STEPS = 3
+P14_LOSS_RTOL = 1e-5    # the world of 2's losses against the world of 1's
+P14_LEAF_TOL = 1e-4     # its leaves after P14_STEPS Adam steps, of a leaf's
+# max, where every step's |g| is above P14_SIG of its leaf's max: below,
+# Adam's update is ~lr x sign(g) of a gradient that is mostly rounding,
+# and the all-reduce sums in another order
+P14_SIG = 1e-3
+P14_STAT_TOL = 1e-6     # the serial adapters' running statistics
+P14_VAL_RTOL = 1e-5     # the TTST pass's ADE/FDE on the rows that kept
+P14_PX_TOL = 1e-4       # their samples, and best_traj, model px
+# rows whose TTST samples move at a CDF boundary (their map differs in the
+# last bits between batch sizes): at most this share of the valid rows
+P14_MOVED_SHARE = 0.34
+P14_EPOCHS = 2          # the CLI flows of the world of 1 (a)
+P14_SCALE_STEPS = 10    # mesh_scaling's steps a world
+# a rank of phase 14's worlds, run from the checkout's root
+P14_RANK = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "sys.exit(chip_smoke.mesh_rank_main(sys.argv[2]))")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(world, job, timeout, own_card=False):
+    """Start a world of `world` ranks on this card, as torchrun would
+    (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR/PORT),
+    each running mesh_rank_main(job) -> a function that waits for them
+    (each within `timeout` s, all killed after) and returns each rank's
+    report. own_card: rank r sees card r alone (CUDA_VISIBLE_DEVICES), as
+    launchers that give each task its own card do."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, WORLD_SIZE=str(world),
+               LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+               MASTER_PORT=str(free_port()))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", P14_RANK, root, json.dumps(job)],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r),
+                 **({"CUDA_VISIBLE_DEVICES": str(r)} if own_card else {})),
+        cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+
+    def wait():
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout))
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        failed = [f"rank {r} of {world} failed:\n{out[-2000:]}\n"
+                  f"{err[-5000:]}" for r, (p, (out, err))
+                  in enumerate(zip(procs, outs)) if p.returncode != 0]
+        check(not failed, "14: " + "\n".join(failed))
+        reports = []
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            line = [ln for ln in out.splitlines() if ln.startswith("P14 ")]
+            check(line, f"14: rank {r} reported nothing:\n{out[-3000:]}")
+            reports.append(json.loads(line[-1][4:]))
+        return reports
+    return wait
+
+
+def release(torch):
+    """Free what this process's dead objects hold on the card, cached
+    blocks too, for the other processes that share it."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def p14_model(torch, train_net):
+    """sdd_shortterm_train.yaml's model (mosa_2 on 0-4, or serial adapters
+    on 1-2) from seed 0, lora_B and the adapters random from seed 1, the
+    trainer's Adam (lr 1e-3) -> (params, weights, state, optimizer, named
+    trainable leaves)."""
+    from mst_tpu_torch import io
+    from mst_tpu_torch.config import get_params, ynet_config
+    from mst_tpu_torch.models.ynet import init_ynet
+    from mst_tpu_torch.train.trainer import setup_training
+
+    position = POSITIONS if train_net == "mosa_2" else ["1", "2"]
+    params = get_params("sdd_shortterm_train.yaml", dict(
+        train_net=train_net, position=position, lr=1e-3, use_TTST=True))
+    weights, state = init_ynet(torch.Generator().manual_seed(0),
+                               ynet_config(params), "cuda")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for k, v in io.flatten(weights).items():
+            if v.is_floating_point() and not v.any():
+                v.copy_(0.05 * torch.randn(v.shape, generator=gen))
+    setup = setup_training(weights, params, steps_per_epoch=1)
+    named = {k: v for k, v in io.flatten(weights).items() if v.requires_grad}
+    return params, weights, state, setup["optimizer"], named
+
+
+def p14_rows(torch, b, mesh):
+    """Phase 6b's batch (B = 8, the last two rows padding), this rank's
+    rows of it on a mesh."""
+    from mst_tpu_torch.parallel import mesh as mesh_lib
+
+    if mesh is None:
+        return b
+    lo, hi = mesh_lib.batch_shards(mesh).rows(
+        b["traj"].shape[0] // mesh.mesh.numel())
+    return {k: v if k == "semantic" else v[lo:hi] for k, v in b.items()}
+
+
+def p14_steps(torch, mesh, out_path, n_steps=P14_STEPS, n_evals=1):
+    """(b) on this rank: n_steps mosa_2 steps, one serial-adapter step and
+    one K = 20 TTST validation pass at full width on this rank's rows (on
+    the model as p14_model makes it: the steps' weights differ between
+    worlds in their last bits), each row's draws recorded (sampling.Rows)
+    -> report (losses, ms);
+    arrays to out_path: the leaves after the first P14_STEPS steps and
+    those steps' gradients, the serial state, the eval outputs and the
+    draws. n_evals > 1 repeats the pass on the same draws, the report's
+    val_ms the last's."""
+    import numpy as np
+
+    from mst_tpu_torch import io
+    from mst_tpu_torch.config import step_config, ynet_config
+    from mst_tpu_torch.ops import sampling
+    from mst_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    H, W, B = 352, 480, 8
+    arrays, report = {}, {"losses": [], "step_ms": []}
+    params, weights, state, opt, named = p14_model(torch, "mosa_2")
+    batch = p14_rows(torch, fine_tune_batch(torch, params, H, W, B), mesh)
+    step = make_train_step(ynet_config(params), step_config(params), mesh)
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(weights, state, opt, batch)
+        torch.cuda.synchronize()
+        report["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        report["losses"].append(float(m["loss"]))
+        if i < P14_STEPS:
+            arrays.update({f"grad{i}/{k}": v.grad.cpu().numpy()
+                           for k, v in named.items()})
+        if i == P14_STEPS - 1:
+            arrays.update({f"leaf/{k}": v.detach().cpu().numpy()
+                           for k, v in named.items()})
+    report["n"] = float(m["n"])
+
+    sparams, sweights, sstate, sopt, _ = p14_model(torch, "serial")
+    sstep = make_train_step(ynet_config(sparams), step_config(sparams), mesh)
+    sstate, sm = sstep(sweights, sstate, sopt, batch)
+    report["serial_loss"] = float(sm["loss"])
+    arrays.update({f"state/{k}": v.cpu().numpy()
+                   for k, v in io.flatten(sstate).items()})
+
+    eval_step = make_eval_step(ynet_config(params), step_config(params),
+                               mesh)
+    _, weights, state, _, _ = p14_model(torch, "mosa_2")
+    drawn = []
+    narrow = sampling.Rows._narrow
+
+    def recorded(self, t, batch_dim):
+        out = narrow(self, t, batch_dim)
+        drawn.append((out.cpu().numpy(), batch_dim))
+        return out
+
+    sampling.Rows._narrow = recorded
+    try:
+        for i in range(n_evals):
+            gen = torch.Generator("cuda").manual_seed(eval_seed_p14())
+            # a world of one draws through Rows of the whole batch, the
+            # same draws as the generator's own
+            source = gen if mesh is not None else sampling.Rows(gen, 0, B,
+                                                                B)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # eval_step's three parts, to keep the rows' samples
+            feats, wps = eval_step.forward(weights, state, batch, source)
+            out = eval_step.global_outputs(eval_step.decode_and_score(
+                weights, feats, wps, batch["traj"], batch["mask"]))
+            torch.cuda.synchronize()
+            report["val_ms"] = 1e3 * (time.perf_counter() - t0)
+            sampling.Rows._narrow = narrow  # the first pass's draws
+    finally:
+        sampling.Rows._narrow = narrow
+    arrays.update({f"eval/{k}": v.cpu().numpy() for k, v in out.items()})
+    arrays["eval/wps"] = wps.cpu().numpy()  # this rank's rows
+    for i, (d, dim) in enumerate(drawn):
+        arrays[f"draw{i}"] = d
+        arrays[f"drawdim{i}"] = np.asarray(dim)
+    np.savez(out_path, **arrays)
+    return report, named, opt
+
+
+def eval_seed_p14():
+    from mst_tpu_torch.train.trainer import eval_seed
+
+    return eval_seed(1, 0, 0)
+
+
+def p14_cli_args(cfg, base, ckpt, flags):
+    return ["--config_filename", cfg, "--batch_size", str(LOOP_B),
+            "--dataset_path", "synth", "--load_data", "predefined",
+            "--fine_tune", "--train_net", "mosa_2", "--position",
+            *POSITIONS, "--pretrained_ckpt", base, "--n_epoch",
+            str(P14_EPOCHS), "--n_train_batch", "2", "--lr", "3e-3",
+            "--ckpt_path", ckpt, "--metrics_jsonl",
+            os.path.join(ckpt, "metrics.jsonl"), "--device",
+            "cuda"] + flags
+
+
+def p14_train_cli(torch, args):
+    """The train CLI in this process -> (its stdout, whether its --fused
+    runner captured a graph, a replay's launches)."""
+    from mst_tpu_torch.config import get_parser
+    from mst_tpu_torch.train import trainer
+    from mst_tpu_torch.train.__main__ import main as train_main
+
+    seen = {}
+    train = trainer.Experiment.train
+
+    def hooked(self, *a, **k):
+        out = train(self, *a, **k)
+        runner = self.fused_runner
+        seen.update(fused=runner is not None, captured=bool(
+            runner is not None and runner.graph is not None), per_replay={
+                f"{fn.__name__}.{n}": c for (fn, n), c in (
+                    runner.graph.per_replay.items()
+                    if runner is not None and runner.graph else ())})
+        return out
+
+    trainer.Experiment.train = hooked
+    buf = io_text.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            train_main(get_parser(True).parse_args(args))
+    finally:
+        trainer.Experiment.train = train
+    return buf.getvalue(), seen
+
+
+def mesh_rank_main(job_json):
+    """One rank of phase 14 (P14_RANK): job 'cli' runs the train CLI's
+    flows with --mesh_shape 1 (a world of 1 on NCCL), job 'mesh' the world
+    of 2's steps, validation, checkpoint save and grid on its mesh (gloo on
+    the one card), job 'steps' the steps and validation alone on a world of
+    any size (mesh_scaling). Prints 'P14 ' + its report, with its kernel
+    launches."""
+    import torch
+
+    job = json.loads(job_json)
+    torch.backends.cudnn.deterministic = True
+    from mst_tpu_torch import resolve_device
+    from mst_tpu_torch.parallel import mesh as mesh_lib
+    from mst_tpu_torch.probes import kernel_wrappers
+
+    resolve_device("cuda")
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    rank = int(os.environ["RANK"])
+    report = {"rank": rank}
+    if job["kind"] == "cli":
+        for tag, flags in (("loop", []), ("fused", ["--fused"])):
+            text, seen = p14_train_cli(torch, p14_cli_args(
+                job["cfg"], job["base"], os.path.join(job["tmp"],
+                                                      f"a1_{tag}"),
+                flags + ["--mesh_shape", "1"]))
+            report[tag] = {"text": text, **seen}
+        report["backend"] = torch.distributed.get_backend()
+    elif job["kind"] == "steps":
+        world = int(os.environ["WORLD_SIZE"])
+        mesh = mesh_lib.mesh_from_shape([world], None, "cuda")
+        report["backend"] = torch.distributed.get_backend()
+        report.update(p14_steps(torch, mesh, os.path.join(
+            job["tmp"], f"w{world}_rank{rank}.npz"), job["n_steps"],
+            n_evals=2)[0])
+    else:
+        mesh = mesh_lib.mesh_from_shape([2], None, "cuda")
+        report["backend"] = torch.distributed.get_backend()
+        rep, named, opt = p14_steps(torch, mesh, os.path.join(
+            job["tmp"], f"w2_rank{rank}.npz"))
+        report.update(rep)
+        from mst_tpu_torch.train import sharded_ckpt
+
+        tree = {"trainable": named, "opt": {
+            f"{i}/{k}": t for i, s in enumerate(opt.state.values())
+            for k, t in s.items()}}
+        sharded_ckpt.save_sharded(os.path.join(job["tmp"], "dcp"), tree)
+        if rank == 0:
+            import numpy as np
+
+            from mst_tpu_torch import io
+
+            np.savez(os.path.join(job["tmp"], "dcp_saved.npz"), **{
+                k: v.detach().cpu().numpy()
+                for k, v in io.flatten(tree).items()})
+        from mst_tpu_torch import grid
+
+        del named, opt, tree
+        release(torch)  # the steps' cached blocks go before the grid's
+        t0 = time.perf_counter()
+        buf = io_text.StringIO()
+        with contextlib.redirect_stdout(buf):
+            report["grid"] = grid.run_grid(grid.get_parser().parse_args(
+                job["grid"] + ["--mesh_shape", "2"]))
+        report["grid_s"] = time.perf_counter() - t0
+    report["launches"] = {k: w.launches for k, w in wrappers.items()}
+    torch.distributed.destroy_process_group()
+    print("P14 " + json.dumps(report), flush=True)
+    return 0
+
+
+def serial_bn_cost(torch, card, n_steps=6, rounds=2):
+    """14b's serial-adapter step in a world of 1, timed with the port's
+    train-mode batch norm (layers.global_batch_norm, the one formula of
+    every world) and with cuDNN's F.batch_norm in its place, alternating,
+    each round on a fresh model -> their median ms past each round's
+    first step; their first losses agree to P14_LOSS_RTOL."""
+    import numpy as np
+
+    import torch.nn.functional as F
+
+    from mst_tpu_torch.config import step_config, ynet_config
+    from mst_tpu_torch.models import layers
+    from mst_tpu_torch.train.steps import make_train_step
+
+    def cudnn_bn(params, state, x, shards=None, momentum=0.1, eps=1e-5):
+        mean = state["running_mean"].detach().clone()
+        var = state["running_var"].detach().clone()
+        y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var,
+                         params["weight"].to(mean.dtype),
+                         params["bias"].to(mean.dtype), True, momentum, eps)
+        return y.permute(0, 2, 3, 1), {
+            "running_mean": mean, "running_var": var,
+            "num_batches": state["num_batches"] + 1}
+
+    port_bn = layers.global_batch_norm
+    ms, loss = {"port": [], "cudnn": []}, {}
+    try:
+        for _ in range(rounds):
+            for name, bn in (("port", port_bn), ("cudnn", cudnn_bn)):
+                layers.global_batch_norm = bn
+                params, weights, state, opt, _ = p14_model(torch, "serial")
+                batch = fine_tune_batch(torch, params, 352, 480, 8)
+                step = make_train_step(ynet_config(params),
+                                       step_config(params))
+                for i in range(n_steps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = step(weights, state, opt, batch)
+                    torch.cuda.synchronize()
+                    if i:
+                        ms[name].append(1e3 * (time.perf_counter() - t0))
+                    else:
+                        loss.setdefault(name, float(m["loss"]))
+    finally:
+        layers.global_batch_norm = port_bn
+    err = abs(loss["port"] - loss["cudnn"]) / abs(loss["cudnn"])
+    check(err <= P14_LOSS_RTOL, f"14b serial: the two batch norms' losses "
+          f"differ by {err}")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"14b serial step ms ({card}), world of 1, median of "
+          f"{rounds} x {n_steps - 1}: the port's batch norm "
+          f"{med['port']:.2f}, cuDNN's F.batch_norm in its place "
+          f"{med['cudnn']:.2f}; first losses {err:.3e} relative apart")
+    return med
+
+
+def hold_world(tmp, one, rep1, reps, backend, label):
+    """Phase 14b's checks of a world of ranks (their reports and their
+    w<world>_rank<r>.npz in tmp) against the world of 1 (one, rep1):
+    losses, leaves on the significant elements, the serial BN statistics
+    and loss, each rank's draws its rows of the world of 1's, the TTST
+    pass's outputs; both kernels launched on each rank. Prints them."""
+    import numpy as np
+
+    from mst_tpu_torch.config import get_params
+
+    world = len(reps)
+    check(all(r["backend"] == backend for r in reps),
+          f"{label}: backends {[r['backend'] for r in reps]}")
+    for r in reps:
+        for k in ("softargmax_rows", "fused_predict"):
+            check(r["launches"][k] > 0,
+                  f"{label}: {k} never ran on rank {r['rank']}")
+    loss_err = max(abs(a - b) / abs(b) for r in reps
+                   for a, b in zip(r["losses"][:P14_STEPS],
+                                   rep1["losses"]))
+    check(loss_err <= P14_LOSS_RTOL and all(
+        r["n"] == rep1["n"] == 6.0 for r in reps),
+          f"{label}: losses {loss_err:.3e} off the world of 1's")
+    ranks_out = [p14_read(os.path.join(tmp, f"w{world}_rank{r}.npz"))
+                 for r in range(world)]
+    leaf_err, flipped, n_el = 0.0, 0, 0
+    for k in (k for k in one if k.startswith("leaf/")):
+        name = k[len("leaf/"):]
+        sig = np.ones(one[k].shape, bool)
+        for i in range(P14_STEPS):
+            g = np.abs(one[f"grad{i}/{name}"])
+            sig &= g > P14_SIG * g.max()
+        scale = max(np.abs(one[k]).max(), 1e-12)
+        for out in ranks_out:
+            check(np.array_equal(out[k], ranks_out[0][k]),
+                  f"{label}: the ranks' {name} differ")
+        d = np.abs(ranks_out[0][k] - one[k]) / scale
+        leaf_err = max(leaf_err, float(d[sig].max(initial=0.0)))
+        flipped += int((d[~sig] > P14_LEAF_TOL).sum())
+        n_el += d.size
+    check(leaf_err <= P14_LEAF_TOL,
+          f"{label}: leaves {leaf_err:.3e} of their max off the world of 1")
+    stat_err = max(float(np.abs(out[k].astype(np.float64) - one[k])
+                         .max()) for out in ranks_out for k in one
+                   if k.startswith("state/"))
+    check(stat_err <= P14_STAT_TOL and any(
+        k.endswith("running_var") for k in one),
+          f"{label}: serial BN statistics {stat_err:.3e} off")
+    serial_err = max(abs(r["serial_loss"] - rep1["serial_loss"])
+                     / abs(rep1["serial_loss"]) for r in reps)
+    check(serial_err <= P14_LOSS_RTOL, f"{label}: serial loss {serial_err}")
+    # each rank's draws: its rows of the world of 1's, bit for bit
+    n_draws = sum(1 for k in one if k.startswith("draw") and "dim" not
+                  in k)
+    for r, out in enumerate(ranks_out):
+        check(sum(1 for k in out if k.startswith("draw") and "dim" not
+                  in k) == n_draws and n_draws > 0,
+              f"{label}: rank {r} drew {n_draws} times?")
+        for i in range(n_draws):
+            dim = int(one[f"drawdim{i}"])
+            n = one[f"draw{i}"].shape[dim] // world
+            want = np.take(one[f"draw{i}"], range(r * n, (r + 1) * n),
+                           axis=dim)
+            check(np.array_equal(out[f"draw{i}"], want),
+                  f"{label}: rank {r}'s draw {i} is not its rows' draw")
+    rf = get_params("sdd_shortterm_train.yaml")["resize_factor"]
+    valid = one["eval/mask"] > 0
+    for out in ranks_out:
+        check(all(np.array_equal(out[f"eval/{k}"], ranks_out[0][
+            f"eval/{k}"]) for k in ("ade", "fde", "best_traj")),
+              f"{label}: the ranks' gathered eval outputs differ")
+    out = ranks_out[0]
+    # a row moved where its waypoint samples did (model px): a sample at a
+    # CDF boundary of a map that differs in its last bits
+    wps = np.concatenate([o["eval/wps"] for o in ranks_out], axis=1)
+    moved = valid & (np.abs(wps - one["eval/wps"]).max(axis=(0, 2, 3))
+                     > P14_PX_TOL)
+    kept = valid & ~moved
+    px = np.abs(out["eval/best_traj"] - one["eval/best_traj"]).max(
+        axis=(1, 2)) * rf
+    check(float(px[kept].max(initial=0.0)) <= P14_PX_TOL,
+          f"{label}: best_traj {px[kept].max():.3e} model px off on rows "
+          f"whose samples did not move")
+    val_err = max(float(np.max(np.abs(out[f"eval/{k}"][kept]
+                                      - one[f"eval/{k}"][kept])
+                               / one[f"eval/{k}"][kept], initial=0.0))
+                  for k in ("ade", "fde"))
+    check(moved.sum() <= P14_MOVED_SHARE * valid.sum()
+          and val_err <= P14_VAL_RTOL,
+          f"{label}: TTST pass: {int(moved.sum())} of {int(valid.sum())} "
+          f"rows moved, the others' ADE/FDE {val_err:.3e} off")
+    per = len(valid) // world
+    print(f"{label}: a world of {world} ({backend}), valid rows by rank "
+          f"{[int(valid[r * per:(r + 1) * per].sum()) for r in range(world)]}"
+          f" of {per} each: {P14_STEPS} mosa_2 steps' "
+          f"losses {loss_err:.3e} relative off the world of 1's, leaves "
+          f"{leaf_err:.3e} of their max where |g| > {P14_SIG} max|g| "
+          f"({flipped} of {n_el} other elements off by more); serial "
+          f"BN statistics {stat_err:.3e}, its loss {serial_err:.3e}; "
+          f"{n_draws} TTST draws bit-equal by row on each rank; "
+          f"{int(moved.sum())} of {int(valid.sum())} rows' samples "
+          f"moved, the rest's ADE/FDE {val_err:.3e} relative, best_traj "
+          f"{float(px[kept].max(initial=0.0)):.2e} model px")
+
+
+def mesh_scaling(torch, card, worlds=(2, 4), n_steps=P14_SCALE_STEPS):
+    """Phase 14b across cards, not part of main(): for each N of `worlds`,
+    a world of N ranks, each on a card of its own (NCCL), runs n_steps
+    mosa_2 steps, a serial-adapter step and the K = 20 TTST pass on phase
+    6b's batch (B = 8, split N ways), held against this process's world of
+    1 as 14b holds the world of 2 (hold_world); the largest world's ranks
+    each see their own card alone, and must still take NCCL. Then the
+    step's and the pass's ms of every world: strong scaling of one global
+    batch. Needs
+    max(worlds) cards; on a host with four:
+
+        python3 -c 'import chip_smoke; chip_smoke.mesh_scaling_main()'
+    -> {N: (median step ms past the first, TTST pass ms)}."""
+    import numpy as np
+
+    check(torch.cuda.device_count() >= max(worlds),
+          f"mesh_scaling: {torch.cuda.device_count()} cards for a world of "
+          f"{max(worlds)}")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp()
+    try:
+        rep1, _, _ = p14_steps(torch, None, os.path.join(tmp, "w1.npz"),
+                               n_steps, n_evals=2)
+        one = p14_read(os.path.join(tmp, "w1.npz"))
+        times = {1: (float(np.median(rep1["step_ms"][1:])), rep1["val_ms"])}
+        for n in worlds:
+            release(torch)
+            reps = start_ranks(n, {"kind": "steps", "tmp": tmp,
+                                   "n_steps": n_steps}, 900,
+                               own_card=n == max(worlds))()
+            hold_world(tmp, one, rep1, reps, "nccl", f"14 x{n}")
+            times[n] = (float(np.median([x for r in reps
+                                         for x in r["step_ms"][1:]])),
+                        max(r["val_ms"] for r in reps))
+            own = "; each rank sees its own card alone" \
+                if n == max(worlds) else ""
+            print(f"14 x{n} ms ({card}{own}): a mosa_2 step by rank "
+                  f"{[[round(x, 1) for x in r['step_ms']] for r in reps]}; "
+                  f"the TTST pass by rank "
+                  f"{[round(r['val_ms'], 1) for r in reps]}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"14 scaling of one global batch (B = 8, 352 x 480; {card}): "
+          + "; ".join(f"{n} card(s): a step {t[0]:.1f} ms (median past the "
+                      f"first), the TTST pass {t[1]:.1f} ms (its second "
+                      f"call)" for n, t in times.items()))
+    return times
+
+
+def mesh_scaling_main():
+    """mesh_scaling on the host's cards, with the two serving kernels
+    built from the checkout; prints the card's name and power limit."""
+    import torch
+
+    from mst_tpu_torch import resolve_device
+    from mst_tpu_torch.ops.kernels import _build
+
+    resolve_device("cuda")
+    _build.build(["fused_predict", "softargmax_rows"])
+    card = "; ".join(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.split("\n")[:-1])  # each card's
+    print(card)
+    n = torch.cuda.device_count()
+    mesh_scaling(torch, card, tuple(w for w in (2, 4) if w <= n))
+    return 0
+
+
+def p14_read(path):
+    import numpy as np
+
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def mesh_path(torch, wrappers, card):
+    """Phase 14: data parallelism over a mesh on phase 6c's scenes at
+    sdd_shortterm_train.yaml's width, cuDNN deterministic -> {kernel:
+    [launches on each rank of the world of 2]}.
+
+    (a) a world of 1 on NCCL: the train CLI with --mesh_shape 1, and with
+        --fused --mesh_shape 1 (its graph captures the NCCL all-reduces),
+        each bit-equal to the same flow without a mesh in this process;
+    (b) a world of 2 sharing the card (gloo on CUDA tensors): 3 mosa_2
+        steps, a serial-adapter step and a K = 20 TTST validation pass on
+        phase 6b's batch (B = 8, the last two rows padding), against this
+        process's world of 1; both kernels launch on each rank; the
+        serial step's cost of the port's batch norm (serial_bn_cost);
+    (c) torch.distributed.checkpoint: saved by the world of 2, restored
+        here;
+    (d) the grid, 2 seeds x 1 lr, 1 epoch, one run a rank, against the
+        same grid in this process."""
+    import numpy as np
+
+    from mst_tpu_torch import grid, io
+    from mst_tpu_torch.config import get_params
+    from mst_tpu_torch.data import splits
+    from mst_tpu_torch.train import sharded_ckpt
+    from mst_tpu_torch.train.trainer import Experiment
+
+    images, train, val, test = loop_data()
+    train_ft = splits.limit_samples(train, 2, LOOP_B)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp()
+    t_phase = time.perf_counter()
+    try:
+        cfg = write_grid_world(os.path.join(tmp, "world"), images, train_ft,
+                               val, test)
+        base = os.path.join(tmp, "base.npz")
+        Experiment(get_params(cfg, {"seed": 0}),
+                   device="cuda").save_params(base)
+        grid_args = ["--config_filename", cfg, "--batch_size", str(LOOP_B),
+                     "--dataset_path", "synth", "--load_data", "predefined",
+                     "--fine_tune", "--train_net", "mosa_2", "--position",
+                     *POSITIONS, "--pretrained_ckpt", base, "--n_epoch", "1",
+                     "--n_train_batch", "2", "--smooth_val", "--window_size",
+                     "1", "--seeds", "1", "2", "--lrs", "3e-3", "--device",
+                     "cuda"]
+
+        # ---- (b) the world of 1 in this process
+        for w in wrappers.values():
+            w.launches = 0
+        rep1, _, _ = p14_steps(torch, None, os.path.join(tmp, "w1.npz"))
+        one = p14_read(os.path.join(tmp, "w1.npz"))
+        p14_1 = {k: w.launches for k, w in wrappers.items()}
+
+        # ---- (a) the CLI flows without a mesh here, then with
+        # --mesh_shape 1 in a world of 1 on NCCL
+        flows0 = {tag: p14_train_cli(torch, p14_cli_args(
+            cfg, base, os.path.join(tmp, f"a0_{tag}"), flags))
+            for tag, flags in (("loop", []), ("fused", ["--fused"]))}
+        release(torch)
+        wait1 = start_ranks(1, {"kind": "cli", "cfg": cfg, "base": base,
+                                "tmp": tmp}, 600)
+        (cli,) = wait1()
+        check(cli["backend"] == "nccl",
+              f"14a: backend {cli['backend']}")
+        for tag in ("loop", "fused"):
+            d0, d1 = (os.path.join(tmp, f"{w}_{tag}") for w in ("a0", "a1"))
+            names = sorted(os.listdir(d0))
+            check(names == sorted(os.listdir(d1)),
+                  f"14a {tag}: the files differ: {names}")
+            for name in names:
+                if name.endswith(".npz"):
+                    a, b = p14_read(os.path.join(d1, name)), p14_read(
+                        os.path.join(d0, name))
+                    check(a.keys() == b.keys() and all(
+                        np.array_equal(a[k], b[k]) for k in b),
+                          f"14a {tag}: {name} differs")
+            logs = [[{k: v for k, v in json.loads(ln).items()
+                      if k != "time" and "second" not in k
+                      and "per_sec" not in k}
+                     for ln in open(os.path.join(d, "metrics.jsonl"))]
+                    for d in (d0, d1)]
+            check(logs[0] == logs[1] and len(logs[0]) == P14_EPOCHS,
+                  f"14a {tag}: the metrics logs differ: {logs}")
+            epochs = [[ln for ln in text.splitlines()
+                       if ln.startswith(("Epoch ", "Test ADE", "Test FDE"))]
+                      for text in (flows0[tag][0], cli[tag]["text"])]
+            check(epochs[0] == epochs[1] and epochs[0],
+                  f"14a {tag}: the printed results differ: {epochs}")
+        check(cli["fused"]["captured"] and flows0["fused"][1]["captured"],
+              "14a: --fused did not capture a graph")
+        print(f"14a: a world of 1 on NCCL (--mesh_shape 1): the train CLI "
+              f"and --fused equal the runs without a mesh bit for bit "
+              f"(weights, validation, metrics log, printed results); the "
+              f"captured epoch's launches a replay "
+              f"{cli['fused']['per_replay']}, without a mesh "
+              f"{flows0['fused'][1]['per_replay']}; the world's launches "
+              f"{ {k: v for k, v in cli['launches'].items() if v} }")
+
+        # ---- (b) the world of 2 on the one card, (c) its checkpoint and
+        # (d) its grid; the world of 1's grid here meanwhile would share the
+        # card, so it runs after
+        release(torch)
+        wait2 = start_ranks(2, {"kind": "mesh", "tmp": tmp,
+                                "grid": grid_args + [
+                                    "--ckpt_path", os.path.join(tmp, "g2"),
+                                    "--log_dir", os.path.join(tmp, "g2l")]},
+                            900)
+        reps = wait2()
+        hold_world(tmp, one, rep1, reps, "gloo", "14b")
+        print(f"14b ms ({card}): a mosa_2 step, world of 1 "
+              f"{[round(x, 1) for x in rep1['step_ms']]}, world of 2 by rank "
+              f"{[[round(x, 1) for x in r['step_ms']] for r in reps]}; the "
+              f"TTST pass, world of 1 {rep1['val_ms']:.1f}, world of 2 "
+              f"{[round(r['val_ms'], 1) for r in reps]} (the two ranks share "
+              f"one card and talk through the host: no scaling figure)")
+        serial_bn_cost(torch, card)
+
+        # ---- (c) the world of 2's checkpoint restored in a world of 1
+        saved = p14_read(os.path.join(tmp, "dcp_saved.npz"))
+        template = io.unflatten({k: torch.zeros(v.shape, dtype=getattr(
+            torch, str(v.dtype)), device="cuda")
+            for k, v in saved.items()})
+        sharded_ckpt.restore_sharded(os.path.join(tmp, "dcp"), template)
+        restored = {k: v.cpu().numpy()
+                    for k, v in io.flatten(template).items()}
+        check(restored.keys() == saved.keys() and all(
+            np.array_equal(restored[k], saved[k]) for k in saved),
+              "14c: the restored checkpoint differs from the saved one")
+        print(f"14c: torch.distributed.checkpoint saved by the world of 2 "
+              f"({len(saved)} leaves) restored in a world of 1 bit for bit")
+
+        # ---- (d) the grid: each rank's run against the world of 1's
+        buf = io_text.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            want = grid.run_grid(grid.get_parser().parse_args(grid_args + [
+                "--ckpt_path", os.path.join(tmp, "g1")]))
+        grid1_s = time.perf_counter() - t0
+        got = reps[0]["grid"]
+        check([s["name"] for s in got] == [s["name"] for s in want]
+              and reps[1]["grid"] == got, "14d: the grids' runs differ")
+        worst = 0.0
+        for s, w in zip(got, want):
+            a = p14_read(os.path.join(tmp, "g2", s["name"] + ".npz"))
+            b = p14_read(os.path.join(tmp, "g1", w["name"] + ".npz"))
+            werr = max(float(np.abs(a[k] - b[k]).max()) for k in b) / w["lr"]
+            verr = max(abs(x - y) / abs(y) for x, y in zip(
+                s["val_ADE"] + s["val_FDE"], w["val_ADE"] + w["val_FDE"]))
+            worst = max(worst, werr, verr)
+            check(s["best_epoch"] == w["best_epoch"]
+                  and werr <= GRID_STEP_TOL and verr <= GRID_VAL_RTOL,
+                  f"14d: run {s['name']}: weights {werr:.3e} lr, val "
+                  f"{verr:.3e}")
+        print(f"14d: the grid over the world of 2 (one run a rank, "
+              f"{[round(r['grid_s'], 2) for r in reps]} s) against the same "
+              f"grid in a world of 1 ({grid1_s:.2f} s): each run within "
+              f"{worst:.2e} (weights in lr, val relative); {card}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+    per_rank = {k: [r["launches"][k] for r in reps] for k in wrappers}
+    print(f"phase 14 launches: world of 2 by rank {per_rank}; this "
+          f"process's world of 1 {p14_1}; {time.perf_counter() - t_phase:.1f}"
+          f" s")
+    return per_rank
+
+
 def main():
     import torch
 
@@ -4569,6 +5308,13 @@ def main():
                                   observed, delta)
     print(f"serialized program phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 14. data parallelism over a mesh: a world of 1 on NCCL, a world
+    # of 2 sharing the card on gloo, its checkpoint and its grid
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p14 = mesh_path(torch, kernel_wrappers(), card)
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- 10. from raw annotations to a resumed run, and ETH
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4580,6 +5326,7 @@ def main():
         r["p11_launches"] = p11[r["name"]] + cross[r["name"]]
         r["p12_launches"] = p12[r["name"]]
         r["p13_launches"] = p13[r["name"]]
+        r["p14_launches"] = p14[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
         r["loop_launches"] = loop_launches[r["name"]]
         r["ymod_launches"] = ymod_launches[r["name"]]
@@ -4589,7 +5336,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "train_launches", "loop_launches", "ymod_launches",
             "serve_launches", "seg_launches", "res_launches", "p11_launches",
-            "p12_launches", "p13_launches",
+            "p12_launches", "p13_launches", "p14_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

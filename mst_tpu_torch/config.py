@@ -4,10 +4,12 @@ the dataset paths (counterpart of mst_tpu/config.py:26-306 and
 mst_tpu/train/trainer.py:312-351), with the JAX package's key vocabulary
 and flag surface, plus --device.
 
-Flags the port does not act on yet raise NotImplementedError at a
-non-default value instead of being dropped: the loop's
---mesh_shape/--mesh_axes, from the Experiment (check_loop_ported). An
-unknown --compute_dtype raises ValueError (parse_compute_dtype).
+Flags the port does not act on yet raise NotImplementedError instead of
+being dropped: the spatial mesh, --mesh_axes data space, from the
+Experiment, the CLIs and the grid (check_loop_ported); --mesh_shape N
+and --mesh_shape R D (--mesh_axes replica data) run data-parallel over
+the ranks torchrun starts (parallel/mesh.py). An unknown --compute_dtype
+raises ValueError (parse_compute_dtype).
 --seg_cache_device_mb sizes a TPU-side cache and is accepted and unused.
 The segmentation backbone is used when its weight file exists
 (has_backbone).
@@ -23,6 +25,7 @@ import torch
 import yaml
 
 from mst_tpu_torch.models.ynet import YNetConfig
+from mst_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED
 from mst_tpu_torch.train.steps import CWSParams, StepConfig
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "configs")
@@ -69,9 +72,13 @@ def get_parser(is_train: bool) -> argparse.ArgumentParser:
     parser.add_argument("--config_filename", default=None, type=str)
     # mst_tpu's additions
     parser.add_argument("--mesh_shape", default=None, type=int, nargs="+",
-                        help="device mesh shape; not ported yet (raises)")
+                        help="device mesh shape: N (data) or R D (replica"
+                             " data), one process a device under torchrun;"
+                             " its product must be the world size")
     parser.add_argument("--mesh_axes", default=None, type=str, nargs="+",
-                        help="mesh axis names; not ported yet (raises)")
+                        help="mesh axis names: data, or replica data; the"
+                             " spatial data space is not ported yet"
+                             " (raises)")
     parser.add_argument("--compute_dtype", default="float32",
                         choices=["float32", "bfloat16"],
                         help="the convs' dtype; bfloat16 keeps f32 master "
@@ -221,18 +228,12 @@ def parse_compute_dtype(name) -> torch.dtype:
                          f"{sorted(_COMPUTE_DTYPES)}") from None
 
 
-# the Experiment loop's flags the port does not act on yet, and the value
-# that means "off"
-_LOOP_FLAGS = dict(mesh_shape=None, mesh_axes=None)
-
-
 def check_loop_ported(params: dict):
-    """Raise on a flag of mst_tpu's Experiment loop that the port does not
-    act on yet: a device mesh. Then an unknown compute dtype."""
-    for flag, off in _LOOP_FLAGS.items():
-        if params.get(flag, off) not in (off, [], ()):
-            raise NotImplementedError(
-                f"{flag}={params[flag]!r} is not ported yet")
+    """Raise on what mst_tpu's Experiment loop takes and the port does not
+    act on yet: the spatial mesh (a 'space' axis in --mesh_axes). Then an
+    unknown compute dtype."""
+    if "space" in (params.get("mesh_axes") or ()):
+        raise NotImplementedError(SPATIAL_NOT_PORTED)
     parse_compute_dtype(params.get("compute_dtype", "float32"))
 
 

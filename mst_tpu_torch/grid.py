@@ -36,7 +36,16 @@ runs after its first chunk, MST_GRID_CHUNK_CAP=c caps the chunk.
 
 --n_trains values change the packed data's shapes, so each n_train sweeps
 as its own shape group; seeds x lrs within one n_train share a program.
---mesh_shape is not ported yet and raises.
+
+On a mesh (--mesh_shape N, or R D with --mesh_axes replica data, under
+torchrun) the run axis splits over the ranks, as mst_tpu shards it over
+the mesh: rank i of n takes block i of the runs, padded to a multiple of
+n with duplicates of the last run, whose results are discarded, and
+sweeps its runs on its own card without collectives; every run's
+results are gathered to rank 0, which writes every run's files as a
+world of one would. The spatial mesh (--mesh_axes data space) raises.
+
+    torchrun --nproc_per_node 2 -m mst_tpu_torch.grid --mesh_shape 2 ...
 """
 
 import contextlib
@@ -48,14 +57,17 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mst_tpu_torch import config as config_lib
 from mst_tpu_torch import io, resolve_device
 from mst_tpu_torch.data.splits import prepare_dataset
 from mst_tpu_torch.ops.kernels import launches
 from mst_tpu_torch.ops.sampling import Draws
+from mst_tpu_torch.parallel import mesh as mesh_lib
 from mst_tpu_torch.train import fused as fused_lib
-from mst_tpu_torch.train.trainer import Experiment, eval_seed, masked_means
+from mst_tpu_torch.train.trainer import (Experiment, eval_seed, masked_means,
+                                         write_checkpoint)
 from mst_tpu_torch.utils.seeding import set_random_seeds
 
 # bytes of per-epoch snapshots a chunk may bring to the host at once: the
@@ -265,17 +277,21 @@ def run_grid(args):
     --n_trains, --log_dir, --runs_per_program) -> one dict a run, in run
     order: seed, lr, n_train, name, the test's ade and fde (NaN for a
     diverged run), val_ADE and val_FDE (the epochs' histories) and
-    best_epoch. run_grid.stats holds the sweep's seconds, its epochs of
-    programs (replays on a card) and their capture seconds."""
+    best_epoch; on every rank of a mesh. run_grid.stats holds the sweep's
+    seconds, its epochs of programs (replays on a card) and their capture
+    seconds, on this rank."""
     t0 = time.time()
     config_lib.check_loop_ported(vars(args))
     device = resolve_device(args.device)
+    mesh = mesh_lib.mesh_from_shape(args.mesh_shape, args.mesh_axes, device)
     seeds = list(args.seeds or [args.seed])
     lrs = [float(x) for x in (args.lrs or [args.lr])]
     n_trains = ([int(x) for x in args.n_trains] if args.n_trains
                 else [args.n_train_batch])
     # lr-major like the reference's grids; an n_train's runs stay together
-    runs = [(s, lr, nt) for nt in n_trains for lr in lrs for s in seeds]
+    all_runs = [(s, lr, nt) for nt in n_trains for lr in lrs for s in seeds]
+    owned, keep = rank_runs(len(all_runs), mesh_lib.batch_shards(mesh))
+    runs = [all_runs[i] for i in owned]
     R = len(runs)
 
     # ---- each run's setup: what the train CLI does up to its epoch loop
@@ -284,6 +300,8 @@ def run_grid(args):
         set_random_seeds(seed)
         args_r = copy.deepcopy(args)
         args_r.seed, args_r.lr, args_r.n_train_batch = seed, lr, nt
+        # each run trains on its whole batch on this rank
+        args_r.mesh_shape = args_r.mesh_axes = None
         params = config_lib.get_params(args=args_r)
         image_path, data_path = config_lib.get_image_and_data_path(params)
         train, val, test = prepare_dataset(
@@ -318,7 +336,7 @@ def run_grid(args):
                      for k, v in sorted(part.items()))
 
     for nt in n_trains:
-        if len({sig(r) for r in range(R) if runs[r][2] == nt}) != 1:
+        if len({sig(r) for r in range(R) if runs[r][2] == nt}) > 1:
             raise SystemExit(
                 "grid runs produced differently-shaped data (seeds changed "
                 "the split sizes or scene buckets); use predefined splits "
@@ -399,10 +417,11 @@ def run_grid(args):
 
     snap_bytes = max(_tree_bytes(carries[0]["trainable"]), 1)
     G0 = max(1, min(int(args.runs_per_program or R), R))
-    print(f"[grid] {R} runs ({len(seeds)} seeds x {len(lrs)} lrs x "
-          f"{len(n_trains)} n_trains), {n_epoch} epochs, "
+    print(f"[grid] {len(all_runs)} runs ({len(seeds)} seeds x {len(lrs)} "
+          f"lrs x {len(n_trains)} n_trains), {n_epoch} epochs, "
           f"{len(shape_groups)} shape group(s)"
           + (f", <={G0} runs/program" if G0 < R else "")
+          + (f", {R} on each of {mesh.mesh.numel()} ranks" if mesh else "")
           + f", on {device}")
 
     sels = [fused_lib.Selection(
@@ -428,54 +447,84 @@ def run_grid(args):
             stats_out=run_stats)
     t_sweep = time.time() - t0
 
-    # ---- each run's output, save and left-out test, in the train CLI's
-    # order, also written to <log_dir>/<name>.out
-    summary = []
+    # ---- each run's output, checkpoint and left-out test, in the train
+    # CLI's order; on a mesh gathered to rank 0, which writes them all
+    results = []
     for r, (seed, lr, nt) in enumerate(runs):
+        if not keep[r]:
+            continue
         buf = text_io.StringIO()
         with contextlib.redirect_stdout(buf):
-            ok = _emit_run(exps[r], names[r], sels[r], hist[r], snaps[r],
-                           last_state[r], diverged[r], setups[r])
+            ckpt = _emit_run(exps[r], names[r], sels[r], hist[r], snaps[r],
+                             last_state[r], diverged[r], setups[r])
             ade = fde = float("nan")
-            if ok:
+            if ckpt is not None:
                 print("############ Test leftout data ##############")
                 set_random_seeds(seed)
                 test, image_path = tests[r]
                 ade, fde, _, _ = exps[r].test(test, image_path)
-            summary.append(dict(
-                seed=seed, lr=lr, n_train=nt, name=names[r], ade=ade,
-                fde=fde, val_ADE=[h[2] for h in hist[r]],
-                val_FDE=[h[3] for h in hist[r]],
-                best_epoch=sels[r].best_epoch))
-        text = buf.getvalue()
-        print(f"===== run seed={seed} lr={lr} n_train={nt} =====")
+        results.append((owned[r], dict(
+            seed=seed, lr=lr, n_train=nt, name=names[r], ade=ade, fde=fde,
+            val_ADE=[h[2] for h in hist[r]],
+            val_FDE=[h[3] for h in hist[r]],
+            best_epoch=sels[r].best_epoch), buf.getvalue(), ckpt))
+    if mesh is not None:
+        gathered = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, results)
+        results = sorted(x for part in gathered for x in part)
+    writer = mesh is None or dist.get_rank() == 0
+    summary = []
+    for _, s, text, ckpt in results:
+        summary.append(s)
+        if not writer:
+            continue
+        if ckpt is not None:
+            write_checkpoint(*ckpt)
+        print(f"===== run seed={s['seed']} lr={s['lr']} "
+              f"n_train={s['n_train']} =====")
         print(text, end="")
         if args.log_dir:
             os.makedirs(args.log_dir, exist_ok=True)
-            with open(os.path.join(args.log_dir, f"{names[r]}.out"),
+            with open(os.path.join(args.log_dir, f"{s['name']}.out"),
                       "w") as f:
                 f.write(text)
+    if mesh is not None:
+        dist.barrier()
 
     print("\n[grid] summary (test minADE / minFDE):")
     for s in summary:
         print(f"  seed={s['seed']} lr={s['lr']} n_train={s['n_train']}: "
               f"ADE {s['ade']:.4f} FDE {s['fde']:.4f}  ({s['name']})")
-    print(f"[grid] {R} runs in {time.time() - t0:.1f}s (sweep "
+    print(f"[grid] {len(summary)} runs in {time.time() - t0:.1f}s (sweep "
           f"{t_sweep:.1f}s, {run_stats['replays']} epochs of programs, "
           f"capture {run_stats['capture_seconds']:.1f}s)")
     run_grid.stats = dict(run_stats, sweep_seconds=t_sweep)
     return summary
 
 
+def rank_runs(n_runs, shards):
+    """This rank's runs of n_runs -> (their indices, whether each is kept):
+    block `shards.index` of the runs padded to a multiple of the ranks with
+    duplicates of the last run, which are not kept (every run, all kept,
+    without shards)."""
+    if shards is None:
+        return list(range(n_runs)), [True] * n_runs
+    per = -(-n_runs // shards.count)
+    block = range(shards.index * per, (shards.index + 1) * per)
+    return [min(i, n_runs - 1) for i in block], [i < n_runs for i in block]
+
+
 def _emit_run(exp, name, sel, hist, snaps, state, diverged, setup):
-    """One run's epoch lines, selection and final save from its streamed
-    bookkeeping; False for a diverged run."""
+    """One run's epoch lines and selection from its streamed bookkeeping,
+    its leaves and state restored -> (path, arrays, metadata) of its
+    checkpoint (trainer.write_checkpoint's arguments), or None for a
+    diverged run."""
     p = exp.params
     if diverged is not None:
         ep, bi = diverged
         print(f"[grid] run diverged: non-finite loss at epoch {ep}, "
               f"scene-batch {bi} (lr={p['lr']}); skipping")
-        return False
+        return None
     for e, (ta, tf, va, vf) in enumerate(hist):
         print(f"Epoch {e}: \tTrain (Top-1) ADE: {ta:.2f} "
               f"FDE: {tf:.2f} \t\tVal (Top-k) ADE: {va:.2f} "
@@ -494,9 +543,7 @@ def _emit_run(exp, name, sel, hist, snaps, state, diverged, setup):
             setup["trainable"][k].copy_(v)
     exp.model_state = io.unflatten({
         k: v.to(exp.device) for k, v in io.flatten(state).items()})
-    config_lib.ensure_dir(p["ckpt_path"])
-    exp.save_params(f'{p["ckpt_path"]}/{name}.npz')
-    return True
+    return (f'{p["ckpt_path"]}/{name}.npz', *exp.checkpoint())
 
 
 def get_parser():
@@ -520,4 +567,5 @@ def get_parser():
 
 
 if __name__ == "__main__":
-    run_grid(get_parser().parse_args())
+    with mesh_lib.rank_zero_prints():
+        run_grid(get_parser().parse_args())

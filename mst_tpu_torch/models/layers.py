@@ -55,28 +55,54 @@ def batchnorm_apply(params, state, x, train, momentum=0.1, eps=1e-5):
     (y, new state). train normalises with the batch's biased variance and
     returns running statistics moved to 0.9 old + 0.1 batch, with the
     unbiased variance; the state given is not modified. Eval normalises
-    with the running statistics and returns the state as it is."""
+    with the running statistics and returns the state as it is.
+
+    train is False, True, or a parallel.mesh.Shards: x is then this
+    rank's rows of a global batch, and the statistics are the global
+    batch's. Train mode takes one formula in every world
+    (global_batch_norm)."""
+    if train:
+        return global_batch_norm(params, state, x,
+                                 None if train is True else train,
+                                 momentum, eps)
+    # JAX promotes (x - mean) to the wider of the two dtypes
+    dtype = torch.promote_types(x.dtype, state["running_mean"].dtype)
+    y = F.batch_norm(x.permute(0, 3, 1, 2).to(dtype),
+                     state["running_mean"].to(dtype),
+                     state["running_var"].to(dtype),
+                     params["weight"].to(dtype), params["bias"].to(dtype),
+                     False, momentum, eps)
+    return y.permute(0, 2, 3, 1), state
+
+
+def global_batch_norm(params, state, x, shards=None, momentum=0.1,
+                      eps=1e-5):
+    """Train-mode batchnorm_apply over a global batch whose rows the ranks
+    of `shards` hold, x this rank's (every rank the same number; None: x
+    is the whole batch): the mean, then the biased variance about it, as
+    mst_tpu computes them, each a sum over the ranks (an autograd op, so
+    the backward sums over the ranks too; what SyncBatchNorm computes),
+    in the statistics' dtype. x keeps its dtype. The moved running
+    statistics are the same on every rank."""
     stat_dtype = state["running_mean"].dtype
-    if not train:
-        # JAX promotes (x - mean) to the wider of the two dtypes
-        dtype = torch.promote_types(x.dtype, stat_dtype)
-        y = F.batch_norm(x.permute(0, 3, 1, 2).to(dtype),
-                         state["running_mean"].to(dtype),
-                         state["running_var"].to(dtype),
-                         params["weight"].to(dtype), params["bias"].to(dtype),
-                         False, momentum, eps)
-        return y.permute(0, 2, 3, 1), state
-    # F.batch_norm updates the running statistics it is given in place
-    # (outside autograd), so it gets copies: the new state. It takes a bf16
-    # x with weights of the statistics' dtype, and keeps x's dtype.
-    mean = state["running_mean"].detach().clone()
-    var = state["running_var"].detach().clone()
-    y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var,
-                     params["weight"].to(stat_dtype),
-                     params["bias"].to(stat_dtype), True, momentum, eps)
-    return y.permute(0, 2, 3, 1), {
-        "running_mean": mean, "running_var": var,
-        "num_batches": state["num_batches"] + 1}
+    xs = x.to(stat_dtype)
+
+    def total(t):
+        return t if shards is None else shards.sum_differentiable(t)
+
+    n = xs.numel() // xs.shape[-1] * (1 if shards is None else shards.count)
+    mean = total(xs.sum(dim=(0, 1, 2))) / n
+    var = total(((xs - mean) ** 2).sum(dim=(0, 1, 2))) / n
+    y = (xs - mean) * torch.rsqrt(var + eps) * params["weight"].to(
+        stat_dtype) + params["bias"].to(stat_dtype)
+    with torch.no_grad():
+        running_mean = ((1 - momentum) * state["running_mean"]
+                        + momentum * mean)
+        running_var = ((1 - momentum) * state["running_var"]
+                       + momentum * var * (n / max(n - 1, 1)))
+    return y.to(x.dtype), {"running_mean": running_mean,
+                           "running_var": running_var,
+                           "num_batches": state["num_batches"] + 1}
 
 
 def lora_merged_weight(params, rank):

@@ -418,7 +418,10 @@ def pred_features(params, state, cfg: YNetConfig, scene_map, motion_map,
     """Encoder: scene (B, H, W, Cs) + motion (B, H, W, obs_len) -> (the
     list of len(encoder_channels) + 1 NHWC feature maps, finest first; the
     new state) (reference ynet.py:570-575). train runs the batch norms on
-    the batch's statistics and returns their moved running statistics."""
+    the batch's statistics and returns their moved running statistics:
+    True for this process's rows, or a parallel.mesh.Shards for the
+    global batch whose rows the mesh's ranks hold
+    (layers.batchnorm_apply)."""
     enc_state = state.get("encoder", {})
     if cfg.network == "fusion":
         features, new_enc = _fusion_encoder_apply(

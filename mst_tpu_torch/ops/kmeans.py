@@ -19,7 +19,7 @@ and its centres-only kmeans_predict are here.
 import torch
 from torch._higher_order_ops.while_loop import while_loop
 
-from mst_tpu_torch.ops.sampling import Key, key_from_generator
+from mst_tpu_torch.ops.sampling import Key, Rows, key_from_generator
 
 
 def pairwise_sq_dist(a, b):
@@ -48,12 +48,15 @@ def batched_kmeans(X, num_clusters: int, tol: float = 1e-3,
     point under `distance` first (reference kmeans.py:62-68). Without it,
     k distinct points of each row are drawn. The draws come from
     `generator`: a sampling.Key, or a torch.Generator (None: the global
-    one) from which a key is drawn.
+    one) from which a key is drawn, or a sampling.Rows of either (a
+    rank's rows of a global batch).
 
     Returns assignments (B, N) int64 and centres (B, k, D).
     """
     pdist = DISTANCES[distance]
-    if not isinstance(generator, Key):
+    if isinstance(generator, Rows):
+        generator = generator.keyed(X.device)
+    elif not isinstance(generator, Key):
         generator = Key(key_from_generator(generator, X.device))
     B, N, D = X.shape
     k = num_clusters

@@ -10,7 +10,9 @@ comes from a `Draws` in place of the generator: noise drawn ahead, as a
 CUDA graph's replay (train/fused.py) and the grid's vmapped runs need it,
 or from a `Key`: every draw a function of an int64 key tensor, in integer
 tensor ops a traced program (torch.export) carries with the key as its
-input, and the same bits on the CPU and on the card.
+input, and the same bits on the CPU and on the card. A `Rows` draws a
+block of a global batch's rows from any of them, as a world of one draws
+them (a rank of a data-parallel mesh).
 """
 
 import torch
@@ -135,6 +137,50 @@ class Draws:
         return t
 
 
+class Rows:
+    """The draws of rows [lo, hi) of a global batch of n rows from
+    `source` (a torch.Generator, Draws or Key), bit for bit as a world of
+    one draws them: each draw is made at the global batch's shape, the
+    batch on axis batch_dim, and narrowed to these rows. So each row of a
+    rank of a data-parallel mesh (parallel/mesh.py) draws what the same
+    row draws in one process; a rank draws the whole batch's noise."""
+
+    def __init__(self, source, lo, hi, n):
+        self.source, self.lo, self.hi, self.n = source, lo, hi, n
+
+    def _global(self, shape, batch_dim):
+        shape = list(shape)
+        shape[batch_dim] = self.n
+        return shape
+
+    def _narrow(self, t, batch_dim):
+        return t.narrow(batch_dim, self.lo, self.hi - self.lo)
+
+    def exponential(self, like, batch_dim=0):
+        t = exponential(like.new_empty(self._global(like.shape, batch_dim)),
+                        self.source)
+        return self._narrow(t, batch_dim)
+
+    def uniform(self, shape, device, batch_dim=0):
+        return self._narrow(uniform(self._global(shape, batch_dim), device,
+                                    self.source), batch_dim)
+
+    def keyed(self, device):
+        """The same rows of the source's key (a Key source as it is, else a
+        key drawn from the source generator), for k-means."""
+        key = self.source if isinstance(self.source, Key) else Key(
+            key_from_generator(self.source, device))
+        return Rows(key, self.lo, self.hi, self.n)
+
+    def bits(self, shape, stream=None, counter=0):
+        """Key.bits of these rows (the batch on axis 0 of `shape`, behind
+        a tensor of counters' axes)."""
+        t = self.source.bits(self._global(shape, 0), stream, counter)
+        return self._narrow(t, t.dim() - len(shape))
+
+    randint = Key.randint
+
+
 def exponential(like, generator=None):
     """Standard exponential noise of like's shape and dtype, from a
     torch.Generator, a Draws or a Key."""
@@ -152,13 +198,15 @@ def uniform(shape, device, generator=None):
 
 def sample_heatmap(prob_map, num_samples: int, rel_threshold=None,
                    replacement: bool = False, generator=None, u=None,
-                   gumbel=None):
+                   gumbel=None, batch_dim=0):
     """Sample (x, y) coordinates from (..., H, W) non-negative maps.
 
     rel_threshold excludes entries below rel_threshold * max(map).
     u: optional (rows, num_samples) uniforms in [0, 1) for the
     with-replacement draw; gumbel: optional (rows, H*W) Gumbel noise for
     the draw without replacement (rows = prod of the leading dims).
+    batch_dim: the leading dim that is the batch, where a Rows generator
+    draws a global batch's noise.
 
     Returns (..., num_samples, 2) f32 coordinates.
     """
@@ -175,7 +223,10 @@ def sample_heatmap(prob_map, num_samples: int, rel_threshold=None,
         if below is not None:
             w = torch.where(below, torch.zeros_like(w), w)
         cdf = torch.cumsum(w, dim=1)
-        if u is None:
+        if u is None and isinstance(generator, Rows):
+            u = generator.uniform((*batch_shape, num_samples), flat.device,
+                                  batch_dim).reshape(-1, num_samples)
+        elif u is None:
             u = uniform((flat.shape[0], num_samples), flat.device,
                         generator)
         u = u.to(device=flat.device, dtype=torch.float32) * cdf[:, -1:]
@@ -184,7 +235,11 @@ def sample_heatmap(prob_map, num_samples: int, rel_threshold=None,
         logp = torch.log(torch.clamp(flat, min=1e-38))
         if below is not None:
             logp = torch.where(below, torch.full_like(logp, -torch.inf), logp)
-        if gumbel is None:
+        if gumbel is None and isinstance(generator, Rows):
+            gumbel = -generator.exponential(
+                logp.reshape(*batch_shape, H * W), batch_dim).reshape(
+                    logp.shape).log()
+        elif gumbel is None:
             # -log(E) with E ~ Exp(1) is a standard Gumbel draw
             gumbel = -exponential(logp, generator).log()
         gumbel = gumbel.to(device=flat.device, dtype=logp.dtype)

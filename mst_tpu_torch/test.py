@@ -4,7 +4,9 @@
 
 Restores a whole checkpoint or a base + delta pair and runs the
 multi-round stochastic test; mst_tpu's flags plus --device (cuda, which
-must exist, or cpu).
+must exist, or cpu). Over a mesh, under torchrun, as the train CLI
+(`torchrun --nproc_per_node N -m mst_tpu_torch.test --mesh_shape N ...`;
+only rank 0 prints).
 """
 
 import time
@@ -12,13 +14,16 @@ import time
 from mst_tpu_torch import config as config_lib
 from mst_tpu_torch import resolve_device
 from mst_tpu_torch.data.splits import prepare_dataset
+from mst_tpu_torch.parallel import mesh as mesh_lib
 from mst_tpu_torch.train.trainer import restore_model
 from mst_tpu_torch.utils.seeding import set_random_seeds
 
 
 def main(args):
     tic = time.time()
-    resolve_device(args.device)
+    device = resolve_device(args.device)
+    config_lib.check_loop_ported(vars(args))
+    mesh = mesh_lib.mesh_from_shape(args.mesh_shape, args.mesh_axes, device)
     set_random_seeds(args.seed)
     params = config_lib.get_params(args=args)
     image_path, data_path = config_lib.get_image_and_data_path(params)
@@ -38,13 +43,14 @@ def main(args):
     # model, as in the reference
     model = None
     if len(ckpts_name) == 1:
-        model = restore_model(params, is_sep[0], ckpts[0], None)
+        model = restore_model(params, is_sep[0], ckpts[0], None, mesh=mesh)
     else:
         for i, (ckpt, name) in enumerate(zip(ckpts, ckpts_name)):
             if name != "OODG":
                 model = restore_model(params, is_sep[i],
                                       ckpt if not is_sep[i] else ckpts[0],
-                                      None if not is_sep[i] else ckpt)
+                                      None if not is_sep[i] else ckpt,
+                                      mesh=mesh)
 
     print("############ Test model ##############")
     set_random_seeds(args.seed)
@@ -55,4 +61,5 @@ def main(args):
 
 
 if __name__ == "__main__":
-    main(config_lib.get_parser(False).parse_args())
+    with mesh_lib.rank_zero_prints():
+        main(config_lib.get_parser(False).parse_args())

@@ -27,6 +27,12 @@ wrappers count a captured launch once each replay
 make_epoch_runner is the same epoch with parameters in and out and the
 data, the validation draws and the learning rate as arguments, which the
 grid (mst_tpu_torch.grid) runs under torch.func.vmap over a run axis.
+
+On a data-parallel mesh each rank stages its rows of every batch and
+runs the mesh's steps (train/steps.py), whose collectives an NCCL
+world's graph captures; validation draws each rank's rows of the global
+batch's noise. gloo's collectives cannot be captured, so a gloo world
+on the card runs its epochs eagerly, as the CPU does, and says so.
 """
 
 import collections
@@ -34,10 +40,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mst_tpu_torch import io
 from mst_tpu_torch.ops.kernels import launches
 from mst_tpu_torch.ops.sampling import Draws
+from mst_tpu_torch.parallel import mesh as mesh_lib
 from mst_tpu_torch.train.steps import make_eval_step, make_train_step
 
 # chunks are capped so the per-chunk snapshots (chunk x trainable) and the
@@ -100,11 +108,17 @@ def pack_batches(batches, semantic_for, homography_for=None):
     return per_batch, scenes
 
 
-def stage_data(per_batch, scenes, device):
+def stage_data(per_batch, scenes, device, shards=None):
     """A pack on the device, once for the run: its arrays as tensors
-    ('scene_idx' as int64, for index_select) and 'scenes'."""
-    out = {k: torch.as_tensor(np.asarray(v), device=device)
-           for k, v in per_batch.items()}
+    ('scene_idx' as int64, for index_select) and 'scenes'. With shards
+    (a parallel.mesh.Shards), each batch's rows are this rank's (axis 1;
+    'homography' is a batch's, and whole)."""
+    out = {}
+    for k, v in per_batch.items():
+        v = np.asarray(v)
+        if shards is not None and k != "homography":
+            v = v[:, slice(*shards.rows(v.shape[1] // shards.count))]
+        out[k] = torch.as_tensor(v, device=device)
     out["scene_idx"] = out["scene_idx"].long()
     out["scenes"] = torch.as_tensor(np.asarray(scenes), device=device)
     return out
@@ -215,12 +229,15 @@ class FusedEpochs:
     (after one warm-up train step and validation batch on the capture
     stream, whose effects are undone) and every epoch is a replay; a
     capture or launch failure raises. On the CPU the same epoch runs
-    eagerly, drawing validation from the loop's generators."""
+    eagerly, drawing validation from the loop's generators, and so does
+    a mesh whose collectives cannot be captured (gloo's) on the card.
+    mesh: the run's data-parallel mesh; the data is this rank's rows
+    (stage_data)."""
 
     def __init__(self, mcfg, scfg_train, scfg_val, optimizer, val_seed,
-                 train_data, val_data, named):
-        self.train_step = make_train_step(mcfg, scfg_train)
-        self.eval_step = make_eval_step(mcfg, scfg_val)
+                 train_data, val_data, named, mesh=None):
+        self.train_step = make_train_step(mcfg, scfg_train, mesh)
+        self.eval_step = make_eval_step(mcfg, scfg_val, mesh)
         self.optimizer = optimizer
         self.val_seed = val_seed
         self.train_data = train_data
@@ -233,6 +250,12 @@ class FusedEpochs:
         self.graph = None
         self.capture_seconds = 0.0
         self.replays = 0
+        self.captured = (self.device.type == "cuda"
+                         and mesh_lib.capturable(mesh))
+        if self.device.type == "cuda" and not self.captured:
+            print(f"--fused: the {dist.get_backend()} backend's collectives "
+                  f"cannot be captured in a CUDA graph; the epochs run "
+                  f"eagerly")
 
     def epoch(self, params, state, perm, gens):
         """One epoch, eagerly or under capture -> (state, stats, val)."""
@@ -249,7 +272,7 @@ class FusedEpochs:
     def __call__(self, params, state, perms, epochs):
         perms = torch.as_tensor(np.asarray(perms, np.int64),
                                 device=self.device)
-        captured = self.device.type == "cuda"
+        captured = self.captured
         if captured:
             if self.graph is None:
                 self._capture(params, state)

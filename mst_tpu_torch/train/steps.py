@@ -30,8 +30,20 @@ differ from mst_tpu's bf16 rounding by design: the decode tail's fused
 kernel takes the bf16 activations and weight and sums in f32
 (mst_tpu's fused Pallas kernel does the same; its default unpacked path
 rounds the logits to bf16 first), and a serial adapter's train-mode batch
-norm takes its batch statistics in f32 (F.batch_norm), where mst_tpu
-rounds them to bf16.
+norm takes its batch statistics in f32 (layers.global_batch_norm), where
+mst_tpu rounds them to bf16.
+
+On a data-parallel mesh (parallel/mesh.py) a rank holds rows [lo, hi) of
+the global batch and the scene maps whole, and the steps compute what one
+process computes on the whole batch, as jit does over a sharded batch:
+the masked BCE divides each rank's sum by the global count and the
+gradients are summed over the ranks after the backward; the serial
+adapters' train-mode batch norms take the global batch's statistics; the
+metric sums are summed and the eval step's per-row outputs gathered in
+global row order, on every rank; and each row's eval draws are the ones
+it draws in one process (sampling.Rows). The segmentation backbone runs
+on the scene maps, which every rank holds whole, so its train-mode
+statistics are the global batch's already.
 """
 
 import functools
@@ -51,9 +63,10 @@ from mst_tpu_torch.ops.kernels.fused_predict import \
     fused_predictor_softargmax
 from mst_tpu_torch.ops.kmeans import batched_kmeans
 from mst_tpu_torch.ops.pooling import avg_pool_pyramid
-from mst_tpu_torch.ops.sampling import Key, sample_heatmap
+from mst_tpu_torch.ops.sampling import Key, Rows, sample_heatmap
 from mst_tpu_torch.ops.softargmax import (softargmax2d_auto,
                                           softargmax_on_prob_map)
+from mst_tpu_torch.parallel.mesh import batch_shards
 from mst_tpu_torch.train.losses import bce_with_logits
 
 
@@ -177,7 +190,7 @@ def _prepare_inputs(mcfg, scfg, params, semantic, traj, train=False,
     return semantic, observed_map, seg_updates
 
 
-def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
+def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
     """The few-shot fine-tune step (mst_tpu make_train_step, unpacked).
 
     train_step(params, state, optimizer, batch) -> (new state, metrics).
@@ -214,14 +227,23 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     contiguous (B, P, H, W) copies of the detached compute-dtype maps
     through softargmax2d_auto: two rows-kernel launches a step on the
     card, the plain version on the CPU.
+
+    mesh: a data-parallel DeviceMesh (parallel/mesh.py) whose rank holds
+    its rows of the global batch; the step then computes the global
+    batch's step (the module docstring): the gradients are summed over
+    the ranks between the backward and the optimizer's step, and the
+    losses and metric sums are the global batch's on every rank.
     """
     waypoints = list(scfg.waypoints)
     n_levels = len(mcfg.encoder_channels) + 1
     dtype = scfg.compute_dtype
+    shards = batch_shards(mesh)
+    # train-mode batch norms take the global batch's statistics
+    bn_batch = shards if shards is not None and shards.count > 1 else True
 
     def encode(params, state, semantic, observed_map):
         return ynet_lib.pred_features(params, state, mcfg, semantic,
-                                      observed_map, train=True)
+                                      observed_map, train=bn_batch)
 
     def decode_maps(params, features, wp_pyramid):
         goal_map = ynet_lib.pred_goal(params, features)
@@ -256,9 +278,9 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
             new_state = {**new_state, "segmentation_bn": seg_updates}
         goal_map, traj_map = decode_maps(params, features, wp_pyramid)
         goal_loss = bce_with_logits(goal_map.float(), gt_future_map,
-                                    mask) * scfg.loss_scale
+                                    mask, shards) * scfg.loss_scale
         traj_loss = bce_with_logits(traj_map.float(), gt_future_map,
-                                    mask) * scfg.loss_scale
+                                    mask, shards) * scfg.loss_scale
         return goal_loss, traj_loss, goal_map, traj_map, new_state
 
     @torch.no_grad()
@@ -276,18 +298,29 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
         return {"ade_sum": (ade * mask).sum(), "fde_sum": (fde * mask).sum(),
                 "n": mask.sum()}
 
+    def global_metrics(metrics):
+        """On a mesh, each metric (a rank's part of the global loss, or
+        its rows' sum) summed over the ranks, in one collective."""
+        if shards is None:
+            return metrics
+        values = shards.all_reduce(torch.stack(list(metrics.values())))
+        return dict(zip(metrics, values.unbind()))
+
     def train_step(params, state, optimizer, batch):
         optimizer.zero_grad()
         goal_loss, traj_loss, goal_map, traj_map, new_state = forward(
             params, state, batch)
         loss = goal_loss + traj_loss
         loss.backward()
+        if shards is not None:
+            shards.sum_([p.grad for p in optimizer.params
+                         if p.grad is not None])
         optimizer.step()
         metrics = top1_metrics(goal_map, traj_map, batch["traj"],
                                batch["mask"])
-        return new_state, {"loss": loss.detach(),
-                           "goal_loss": goal_loss.detach(),
-                           "traj_loss": traj_loss.detach(), **metrics}
+        return new_state, global_metrics({
+            "loss": loss.detach(), "goal_loss": goal_loss.detach(),
+            "traj_loss": traj_loss.detach(), **metrics})
 
     def loss_and_maps(trainable, frozen, state, batch):
         goal_loss, traj_loss, goal_map, traj_map, new_state = forward(
@@ -300,7 +333,11 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
         (the grid): trainable and frozen are {path: tensor} of the tree's
         leaves, update an optim.Functional's update ->
         (trainable, state, opt_state, metrics); the gradients come from
-        torch.func.grad_and_value."""
+        torch.func.grad_and_value. It takes no mesh: the grid splits its
+        runs over the ranks and steps each on its whole batch."""
+        if shards is not None:
+            raise ValueError("the functional step takes no mesh: the grid "
+                             "splits its runs over the ranks instead")
         grads, (loss, (goal_loss, traj_loss, goal_map, traj_map,
                        new_state)) = torch.func.grad_and_value(
             loss_and_maps, has_aux=True)(trainable, frozen, state, batch)
@@ -340,7 +377,7 @@ def _ttst_goals(generator, pred_waypoint_map, wp_sigmoid_hw, scfg):
     return goals.transpose(0, 1)
 
 
-def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
+def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
     """The multi-goal eval step.
 
     eval_step(params, state, batch, generator) -> dict of per-trajectory
@@ -358,16 +395,28 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
     The parts are exposed: eval_step.forward -> (features, waypoint
     samples (K, B, n_wp, 2)); eval_step.prepredictor -> the decode tail's
     inputs; eval_step.decode_trajs -> (K, B, pred_len, 2) model-space
-    trajectories; eval_step.decode_and_score. Only forward takes the
-    state: the decoders hold no batch norm (as in mst_tpu).
+    trajectories; eval_step.decode_and_score; eval_step.global_outputs
+    (the mesh's reduction of decode_and_score's outputs). Only forward
+    takes the state: the decoders hold no batch norm (as in mst_tpu).
+
+    mesh: a data-parallel DeviceMesh whose rank holds its rows of the
+    global batch: the forward then draws each row's noise as one process
+    draws it (sampling.Rows over the generator), and eval_step returns the
+    global batch's outputs on every rank: 'ade', 'fde', 'mask' and
+    'best_traj' gathered in global row order, the sums summed over the
+    ranks.
     """
     n_wp = len(scfg.waypoints)
     waypoints = list(scfg.waypoints)
+    shards = batch_shards(mesh)
 
     def forward(params, state, batch, generator):
         generator = draw_source(generator)
-        params = _compute_params(params, scfg)
         traj = batch["traj"]
+        if shards is not None:  # this rank's rows of the global draws
+            n = traj.shape[0]
+            generator = Rows(generator, *shards.rows(n), n * shards.count)
+        params = _compute_params(params, scfg)
         semantic, observed_map, _ = _prepare_inputs(
             mcfg, scfg, params, batch["semantic"], traj,
             seg_bn_state=state.get("segmentation_bn"),
@@ -469,18 +518,30 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig):
                 "n": mask.sum(),
                 "best_traj": best_traj / scfg.resize_factor}
 
+    def global_outputs(out):
+        """decode_and_score's outputs on this rank's rows -> the global
+        batch's (themselves without a mesh)."""
+        if shards is None:
+            return out
+        sums = shards.all_reduce(torch.stack(
+            [out["ade_sum"], out["fde_sum"], out["n"]]))
+        rows = {k: shards.gather_rows(out[k])
+                for k in ("ade", "fde", "mask", "best_traj")}
+        return dict(rows, ade_sum=sums[0], fde_sum=sums[1], n=sums[2])
+
     @torch.no_grad()
     def eval_step(params, state, batch, generator):
         features, waypoint_samples = forward(params, state, batch,
                                              generator)
-        return decode_and_score(params, features, waypoint_samples,
-                                batch["traj"], batch["mask"],
-                                batch.get("homography"))
+        return global_outputs(decode_and_score(
+            params, features, waypoint_samples, batch["traj"],
+            batch["mask"], batch.get("homography")))
 
     eval_step.forward = torch.no_grad()(forward)
     eval_step.prepredictor = prepredictor
     eval_step.decode_trajs = torch.no_grad()(decode_trajs)
     eval_step.decode_and_score = torch.no_grad()(decode_and_score)
+    eval_step.global_outputs = global_outputs
     return eval_step
 
 
@@ -574,8 +635,8 @@ def _cws(generator, goal_samples, traj, wp_sigmoid_hw, scfg: StepConfig):
         # first-goal group: soft-argmax; the others: a thresholded sample
         sam_pts = softargmax_on_prob_map(wmap)
         sampled = sample_heatmap(wmap, 1, rel_threshold=0.05,
-                                 replacement=False,
-                                 generator=generator)[:, :, 0]
+                                 replacement=False, generator=generator,
+                                 batch_dim=1)[:, :, 0]
         samples = torch.where(first, sam_pts, sampled)
         wp_list.append(samples[:, :, None])
     return torch.cat(wp_list[::-1], dim=2)

@@ -25,8 +25,17 @@ gradients. --compute_dtype and --remat reach the steps through
 config.step_config. With --fused, an eligible run trains in chunks of
 epochs replayed as CUDA graphs on the card (train/fused.py), through the
 same per-epoch bookkeeping; an ineligible one falls back to the loop with
-mst_tpu's printed reason. Not ported: device meshes
-(config.check_loop_ported raises on their flags).
+mst_tpu's printed reason.
+
+On a data-parallel mesh (--mesh_shape N, or R D with --mesh_axes replica
+data; parallel/mesh.py) every rank builds the same global batches from
+the same seed, with batch_size rounded up to a multiple of the ranks, and
+keeps its block of rows (parallel/hostdata.py); the steps reduce over the
+ranks (train/steps.py), so every rank holds the same weights, losses and
+validation rows, and takes the same decisions. Rank 0 alone writes the
+checkpoints, _weights.npz, the metrics log and the training state, each
+followed by a barrier; every rank reads a state to resume. Not ported:
+the spatial mesh (config.check_loop_ported raises on it).
 
 The segmentation backbone (when its file exists) turns each scene's
 image into its semantic map once a pass and a cache (_semantic_for):
@@ -62,6 +71,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mst_tpu_torch import config as config_lib
 from mst_tpu_torch import io, resolve_device
@@ -74,6 +84,8 @@ from mst_tpu_torch.models.unet import extract_bn_stats
 from mst_tpu_torch.ops.heatmap import (rasterize_dist_nhwc,
                                        rasterize_gaussian_nhwc)
 from mst_tpu_torch.ops.pooling import avg_pool_pyramid
+from mst_tpu_torch.parallel import hostdata
+from mst_tpu_torch.parallel import mesh as mesh_lib
 from mst_tpu_torch.train import freeze, optim
 from mst_tpu_torch.train import fused as fused_lib
 from mst_tpu_torch.train.losses import bce_with_logits
@@ -132,6 +144,11 @@ def save_params(path, model_params, params_dict):
     segmentation_* strategy), as mst_tpu's Experiment.save_params writes
     it (trainer.py:88-101, checkpoints.py:78-101): np.savez of the flat
     JAX layout at path, and the metadata at path + '.json'."""
+    write_checkpoint(path, *checkpoint_arrays(model_params, params_dict))
+
+
+def checkpoint_arrays(model_params, params_dict):
+    """What save_params writes -> (the flat numpy arrays, the metadata)."""
     train_net = params_dict.get("train_net", "train")
     flat = io.flatten(model_params)
     if train_net in ("all", "train"):
@@ -142,12 +159,16 @@ def save_params(path, model_params, params_dict):
         if not flat:
             raise ValueError(f"train_net={train_net!r}: no leaf requires "
                              "grad; call setup_training first")
-    arrays = io.params_to_numpy(flat)
+    return io.params_to_numpy(flat), {k: params_dict.get(k)
+                                      for k in METADATA_KEYS}
+
+
+def write_checkpoint(path, arrays, metadata):
+    """checkpoint_arrays' output as save_params writes it."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, **arrays)
     with open(str(path) + ".json", "w") as f:
-        json.dump({k: params_dict.get(k) for k in METADATA_KEYS}, f,
-                  indent=1, default=str)
+        json.dump(metadata, f, indent=1, default=str)
 
 
 def eval_seed(seed: int, stream: int, i: int) -> int:
@@ -175,13 +196,21 @@ class Experiment:
 
     params: the flat params dict (config.get_params); images: optional
     {sceneId: raw HWC image} used in place of reading image files; device:
-    'cuda' (the default, which must exist) or 'cpu', else params['device'].
+    'cuda' (the default, which must exist) or 'cpu', else params['device'];
+    mesh: a data-parallel DeviceMesh (parallel/mesh.py), else the one
+    params' mesh_shape and mesh_axes make (none without them).
     """
 
-    def __init__(self, params: dict, images=None, device=None):
+    def __init__(self, params: dict, images=None, device=None, mesh=None):
         self.params = dict(params)
         config_lib.check_loop_ported(self.params)
         self.device = resolve_device(device or self.params.get("device"))
+        if mesh is None:
+            mesh = mesh_lib.mesh_from_shape(self.params.get("mesh_shape"),
+                                            self.params.get("mesh_axes"),
+                                            self.device)
+        self.mesh = mesh
+        self.shards = mesh_lib.batch_shards(mesh)
         self.mcfg = config_lib.ynet_config(self.params)
         self.division_factor = 2 ** len(self.params["encoder_channels"])
         self.seed = int(self.params.get("seed", 1))
@@ -208,11 +237,23 @@ class Experiment:
     def save_params(self, path):
         """The whole model for 'train'/'all', else the strategy's trainable
         leaves (see save_params)."""
+        write_checkpoint(path, *self.checkpoint())
+
+    def checkpoint(self):
+        """What save_params writes -> (arrays, metadata)."""
         p = self.params
         freeze.set_trainable(self.model_params, p.get("train_net", "train"),
                              p.get("position", ()), p.get("ynet_bias", False),
                              p.get("network"))
-        save_params(path, self.model_params, p)
+        return checkpoint_arrays(self.model_params, p)
+
+    def _written(self, write, *args):
+        """write(*args) on rank 0 of the mesh alone (always without one),
+        then a barrier, after which every rank finds the file."""
+        if self.mesh is None or dist.get_rank() == 0:
+            write(*args)
+        if self.mesh is not None:
+            dist.barrier()
 
     def load_separated_params(self, pretrained_path, tuned_path):
         self.model_params = io.load_separated(self.model_params,
@@ -227,8 +268,13 @@ class Experiment:
         'train' shuffles with rng. With --cross_scene_batching, 'train' and
         'test' give BucketedBatches instead, except on eth (its homography
         is a scene's) or when allow_bucketed is False (trainer.py:
-        160-176)."""
+        160-176). On a mesh the batch size rounds up to a multiple of the
+        ranks (trainer.py:150-159), so every batch splits over them."""
         p = self.params
+        batch_size = int(p["batch_size"])
+        if self.mesh is not None:
+            n = self.shards.count
+            batch_size = -(-batch_size // n) * n
         scenes = tracks.scene_ids()
         seg_mask = self._is_eth()  # oracle.png: class ids, one-hot
         if self._images_override is not None:
@@ -248,12 +294,12 @@ class Experiment:
                 and p.get("cross_scene_batching") and not seg_mask):
             return scenes_lib.make_bucketed_batches(
                 tracks, images, p["obs_len"] + p["pred_len"],
-                int(p["batch_size"]), p["resize_factor"],
+                batch_size, p["resize_factor"],
                 shuffle=(mode == "train"), rng=rng,
                 max_scenes_per_batch=int(p.get("max_scenes_per_batch", 8)))
         return scenes_lib.make_scene_batches(
             tracks, images, p["obs_len"] + p["pred_len"],
-            int(p["batch_size"]), p["resize_factor"],
+            batch_size, p["resize_factor"],
             shuffle=(mode == "train"), rng=rng)
 
     def _is_eth(self):
@@ -280,8 +326,12 @@ class Experiment:
         """[(batch, its device batch)], each scene's preprocessed image
         (1, H, W, C), or a cross-scene group's stack (S, H, W, C), uploaded
         once as 'image', with a cross-scene batch's 'scene_idx' and on eth
-        the scene's homography; _with_semantic adds the semantic map."""
+        the scene's homography; _with_semantic adds the semantic map. The
+        per-row arrays are this rank's rows on a mesh (every row without
+        one; hostdata.take_local and shard_batch_global)."""
         images, homographies = {}, {}
+        index, count = ((self.shards.index, self.shards.count)
+                        if self.mesh is not None else (0, 1))
         out = []
         for b in batches:
             bucketed = isinstance(b, scenes_lib.BucketedBatch)
@@ -293,12 +343,14 @@ class Experiment:
                     homographies[b.scene_id] = torch.tensor(
                         self._homography_for(b.scene_id),
                         device=self.device)
-            db = {"image": images[b.scene_id],
-                  "traj": torch.tensor(b.trajectories, device=self.device),
-                  "mask": torch.tensor(b.mask, device=self.device)}
+            host = {"traj": b.trajectories, "mask": b.mask}
             if bucketed:
-                db["scene_idx"] = torch.tensor(b.scene_idx, dtype=torch.long,
-                                               device=self.device)
+                host["scene_idx"] = np.asarray(b.scene_idx, np.int64)
+            rows = hostdata.shard_batch_global(
+                self.mesh, hostdata.take_local(host, index, count),
+                len(b.mask))
+            db = {k: v.to(self.device, copy=True) for k, v in rows.items()}
+            db["image"] = images[b.scene_id]
             if self._is_eth():
                 db["homography"] = homographies[b.scene_id]
             out.append((b, db))
@@ -390,7 +442,7 @@ class Experiment:
     def _eval_step(self, eval_k_chunk=None, for_validation=False):
         over = {} if eval_k_chunk is None else {"eval_k_chunk": eval_k_chunk}
         return make_eval_step(self.mcfg, config_lib.step_config(
-            self.params, for_validation, **over))
+            self.params, for_validation, **over), self.mesh)
 
     def _eval_shrinker(self, make_step):
         """The out-of-memory ladder of the K-sample decode (trainer.py:
@@ -418,7 +470,8 @@ class Experiment:
     def _evaluate(self, items, eval_step, stream, shrink,
                   collect_preds=False):
         """items: [(batch, device batch)] -> (ADE, FDE, metrics rows, trajs)
-        over the real rows (trainer.py:891-1017). Batch i draws from its
+        over the real rows (trainer.py:891-1017), the global batch's on a
+        mesh (the eval step gathers them). Batch i draws from its
         own generator (eval_seed(seed, stream, i)); on
         torch.cuda.OutOfMemoryError the batch is retried, with the same
         draws, one rung down the shrink ladder. The metrics rows are numpy
@@ -632,12 +685,15 @@ class Experiment:
         """mst_tpu's eligibility gates and packing for --fused
         (trainer.py:375-395) -> (train pack, val pack, None), or (None,
         None, reason): the run is one program only when the backbone stays
-        out of the step (no segmentation_* strategy, no e_unfreeze) and
-        both splits are non-empty per-scene batches of one (H, W)."""
+        out of the step (no segmentation_* strategy, no e_unfreeze), its
+        ranks share one host, and both splits are non-empty per-scene
+        batches of one (H, W)."""
         if self._segment_in_step():
             return None, None, "segmentation runs inside the train step"
         if self._e_unfreeze() is not None:
             return None, None, "e_unfreeze switches programs mid-training"
+        if self.mesh is not None and mesh_lib.host_count() > 1:
+            return None, None, "multi-host runs feed per-host shards"
         images = {b.scene_id: db["image"] for b, db in train_items + val_items}
         cache = {}
 
@@ -667,8 +723,9 @@ class Experiment:
             self.mcfg, config_lib.step_config(p),
             config_lib.step_config(p, for_validation=True), optimizer,
             lambda e, i: eval_seed(self.seed, e, i),
-            fused_lib.stage_data(*tr, self.device),
-            fused_lib.stage_data(*va, self.device), trainable)
+            fused_lib.stage_data(*tr, self.device, self.shards),
+            fused_lib.stage_data(*va, self.device, self.shards), trainable,
+            self.mesh)
         save_every_n = int(p.get("save_every_n", 10))
         chunk = fused_lib.chunk_size(save_every_n)
         if chunk < min(save_every_n, fused_lib.MAX_CHUNK) and chunk <= 2:
@@ -699,8 +756,11 @@ class Experiment:
         optimizer, trainable = setup["optimizer"], setup["trainable"]
         fine_tune = bool(p.get("fine_tune", False))
         segment_in_step = self._segment_in_step()
+        # every rank starts from rank 0's weights and state
+        mesh_lib.replicate_tree(self.mesh, {"params": self.model_params,
+                                            "state": self.model_state})
         train_step = make_train_step(self.mcfg, config_lib.step_config(
-            p, segment_in_step=segment_in_step))
+            p, segment_in_step=segment_in_step), self.mesh)
         ves_state, ves_shrink = self._eval_shrinker(
             lambda kc: self._eval_step(kc, for_validation=True))
         e_unfreeze = self._e_unfreeze()
@@ -724,7 +784,9 @@ class Experiment:
         snapshots = collections.deque()
         n_early_stop = int(p.get("n_early_stop", 300))
         metrics_log = (MetricsLogger(p["metrics_jsonl"])
-                       if p.get("metrics_jsonl") else None)
+                       if p.get("metrics_jsonl") and (
+                           self.mesh is None or dist.get_rank() == 0)
+                       else None)
         meter = ThroughputMeter()
         n_batches = len(train_items)
         state = self.model_state
@@ -804,21 +866,21 @@ class Experiment:
                 best_epoch = e - half_window + 1 if smooth_val else e
                 best_snapshot = current
                 if not fine_tune:
-                    config_lib.ensure_dir(p["ckpt_path"])
-                    self.save_params(
+                    self._written(
+                        self.save_params,
                         f'{p["ckpt_path"]}/{experiment_name}_weights.npz')
 
             if (e + 1) % int(p.get("save_every_n", 10)) == 0:
-                config_lib.ensure_dir(p["ckpt_path"])
-                self.save_params(
+                self._written(
+                    self.save_params,
                     f'{p["ckpt_path"]}/{experiment_name}__epoch_{e}.npz')
-                self.save_training_state(
+                self._written(lambda: self.save_training_state(
                     train_state_path, trainable, optimizer, e + 1,
                     val_history=self.val_ADE, model_state=state,
                     val_fde_history=self.val_FDE,
                     best_snapshot=best_snapshot, best_val_ade=best_val_ade,
                     best_epoch=best_epoch,
-                    snapshots=snapshots if smooth_val else None)
+                    snapshots=snapshots if smooth_val else None))
 
             # early stop on clear overfitting (trainer.py:279-281)
             if fine_tune and self.val_ADE and \
@@ -881,7 +943,8 @@ class Experiment:
             if in_unfreeze and unfreeze_step is None:
                 unfreeze_step = make_train_step(
                     self.mcfg, config_lib.step_config(
-                        p, segment_in_step=True, segment_train_mode=True))
+                        p, segment_in_step=True, segment_train_mode=True),
+                    self.mesh)
                 if "segmentation_bn" not in state:
                     state = {**state, "segmentation_bn": extract_bn_stats(
                         self.model_params["segmentation"])}
@@ -925,8 +988,8 @@ class Experiment:
             with torch.no_grad():
                 for k, v in best_snapshot.items():
                     trainable[k].copy_(v)
-        config_lib.ensure_dir(p["ckpt_path"])
-        self.save_params(f'{p["ckpt_path"]}/{experiment_name}.npz')
+        self._written(self.save_params,
+                      f'{p["ckpt_path"]}/{experiment_name}.npz')
         rates = meter.rates()
         print(f"train wall-clock: {time.time() - t0:.1f}s "
               f"({rates['traj_per_sec']:.1f} traj/s, "
@@ -1028,14 +1091,15 @@ class Experiment:
 
 
 def restore_model(params, is_separated, base_ckpt, separated_ckpt=None,
-                  images=None, device=None):
+                  images=None, device=None, mesh=None):
     """A whole checkpoint, or a base + delta pair (reference
-    utils/util.py:138-147; mst_tpu/train/trainer.py:1186-1198)."""
+    utils/util.py:138-147; mst_tpu/train/trainer.py:1186-1198), on `mesh`
+    (else the one params make)."""
     if not is_separated:
-        model = Experiment(params, images=images, device=device)
+        model = Experiment(params, images=images, device=device, mesh=mesh)
         model.load_params(base_ckpt)
     else:
         updated = config_lib.update_params_from_ckpt(separated_ckpt, params)
-        model = Experiment(updated, images=images, device=device)
+        model = Experiment(updated, images=images, device=device, mesh=mesh)
         model.load_separated_params(base_ckpt, separated_ckpt)
     return model

@@ -361,8 +361,8 @@ def test_shrink_ladder_steps_down_on_oom(tmp_path, monkeypatch, data):
     real = trainer.make_eval_step
     limit = {"kc": 2}
 
-    def make(mcfg, scfg):
-        step = real(mcfg, scfg)
+    def make(mcfg, scfg, mesh=None):
+        step = real(mcfg, scfg, mesh)
 
         def eval_step(params, state, batch, gen):
             if not 0 < scfg.eval_k_chunk <= limit["kc"]:
@@ -391,7 +391,8 @@ def test_shrink_ladder_steps_down_on_oom(tmp_path, monkeypatch, data):
     ("fused", dict(fused=True)), ("resume", dict(resume=True)),
     ("cross_scene_batching", dict(cross_scene_batching=True)),
     ("mesh_shape", dict(mesh_shape=[2])),
-    ("mesh_axes", dict(mesh_axes=["data"])), ("remat", dict(remat=True)),
+    ("mesh_axes", dict(mesh_shape=[1, 1], mesh_axes=["data", "space"])),
+    ("remat", dict(remat=True)),
     ("eth", dict(dataset_name="eth")),
     ("segmentation", dict(segmentation_model_fp=__file__))])
 def test_unported_loop_flags_raise(tmp_path, flag, over):
@@ -399,7 +400,10 @@ def test_unported_loop_flags_raise(tmp_path, flag, over):
     segmentation backbone (a backbone npz builds the model with it, and a
     file that exists but is no backbone npz, this test file, raises),
     --resume, the eth dataset, --cross_scene_batching, --remat and
-    --fused (an Experiment builds; remat reaches its step config)."""
+    --fused (an Experiment builds; remat reaches its step config), and
+    the data-parallel mesh, whose --mesh_shape must be the world (2 in a
+    world of 1 raises ValueError, naming both). The spatial mesh
+    (--mesh_axes data space) still raises NotImplementedError."""
     if flag in ("resume", "eth", "cross_scene_batching", "remat", "fused"):
         exp = trainer.Experiment(loop_params(tmp_path, **over))
         assert all(exp.params[k] == v for k, v in over.items())
@@ -415,6 +419,11 @@ def test_unported_loop_flags_raise(tmp_path, flag, over):
         assert exp.mcfg.segmentation == "unet"
         assert "layer4" in exp.model_params["segmentation"]["encoder"]
         with pytest.raises(ValueError, match="not a backbone npz"):
+            trainer.Experiment(loop_params(tmp_path, **over))
+        return
+    if flag == "mesh_shape":
+        with pytest.raises(ValueError, match="mesh_shape 2 spans 2 ranks "
+                           "but the world has 1"):
             trainer.Experiment(loop_params(tmp_path, **over))
         return
     with pytest.raises(NotImplementedError, match=flag):
@@ -541,13 +550,16 @@ def test_cli_raises_on_unported_flags(workdir, monkeypatch):
     monkeypatch.chdir(workdir)
     # --resume, --remat, --cross_scene_batching and --fused are ported: the
     # parser takes them into the params, and --compute_dtype bfloat16 too;
-    # the mesh flags still raise (config.check_loop_ported)
+    # so is the data-parallel mesh; the spatial mesh still raises
+    # (config.check_loop_ported)
     args = config.get_parser(True).parse_args(
         COMMON + ["--resume", "--remat", "--cross_scene_batching",
                   "--fused", "--compute_dtype", "bfloat16"])
     params = config.get_params(args=args)
     assert params["resume"] is params["remat"] is params["fused"] is True
+    config.check_loop_ported({**params, "mesh_shape": [2]})
     with pytest.raises(NotImplementedError, match="mesh_shape"):
-        config.check_loop_ported({**params, "mesh_shape": [2]})
+        config.check_loop_ported({**params, "mesh_shape": [2, 2],
+                                  "mesh_axes": ["data", "space"]})
     assert params["cross_scene_batching"] is True
     assert config.step_config(params).compute_dtype == torch.bfloat16

@@ -285,7 +285,8 @@ def test_vmapped_runner_matches_jax_vmap(workdir, monkeypatch):
 def test_grid_refusals(workdir, monkeypatch):
     """No full base checkpoint: each seed's own random frozen base, which
     the grid refuses to share; seeds whose few-shot subsets batch to
-    different shapes; --mesh_shape, which is not ported."""
+    different shapes; a --mesh_shape that is not the world (2 in a world
+    of 1); the spatial mesh (--mesh_axes data space), not ported."""
     monkeypatch.chdir(workdir)
     with pytest.raises(SystemExit, match="frozen parameters"):
         run_grid(COMMON + GRID + ["--ckpt_path", "refused"])
@@ -296,9 +297,13 @@ def test_grid_refusals(workdir, monkeypatch):
         # scene (1 batch), seed 1's from both (2 batches)
         run_grid(argv + ["--shuffle", "--pretrained_ckpt", "base.npz",
                          "--seeds", "1", "11", "--ckpt_path", "refused"])
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
+    with pytest.raises(ValueError, match="mesh_shape 2 spans 2 ranks"):
         run_grid(COMMON + GRID + ["--pretrained_ckpt", "base.npz",
                                   "--mesh_shape", "2"])
+    with pytest.raises(NotImplementedError, match="mesh_shape"):
+        run_grid(COMMON + GRID + ["--pretrained_ckpt", "base.npz",
+                                  "--mesh_shape", "2", "2", "--mesh_axes",
+                                  "data", "space"])
 
 
 def test_diverged_run_is_skipped(workdir, monkeypatch):
