@@ -134,7 +134,7 @@ Phases, each fatal on failure:
      builder CLIs (`python -m mst_tpu_torch.data.sdd`, then --reload
      --varf agent_type, then data.split_dataset), their pickles equal to
      the pandas chain's, and the native windowing timed against the chain
-     at 1M rows; `python -m mst_tpu_torch.train` runs A (4 epochs,
+     at 1M rows; the train CLI runs A (4 epochs,
      smooth-val, a training state every epoch), C (2 epochs) and R
      (--resume to 4): what C held as it wrote epoch 2's state equals, bit
      for bit, what R holds after the restore, and R's leaves and val
@@ -144,11 +144,13 @@ Phases, each fatal on failure:
      ETH world (5 scenes of oracle.png masks and homographies): the
      validation cut's 30 // B scenes, a 1-epoch mosa_2 fine-tune and a
      --eth_world_coords test, world ADE/FDE on the card against the CPU on
-     the same draws (1e-4 relative); each CLI process's kernel launches
+     the same draws (1e-4 relative); each CLI run's kernel launches
      against what the code gives, the rows kernel on a train step's maps
      and the fused kernel on the ETH path's operands against their plain
      versions; host seconds of the build, split, epochs and resume, and
-     the peak memory.
+     the peak memory. Every CLI of the phase runs as its main() in this
+     process (run_main; as a process each paid ~9-15 s of start), with
+     cuDNN's deterministic algorithms.
   11. bf16, remat, cross-scene batching and forward_test (its kernel
      checks run beside phase 3's, the rest before phase 10, while
      torch.profiler still records every launch): both serving kernels
@@ -231,15 +233,31 @@ Phases, each fatal on failure:
      port's batch norm and with cuDNN's in its place; (c) the world of 2's torch.distributed.checkpoint
      restored here bit for bit; (d) the grid (2 seeds x 1 lr, 1 epoch,
      one run a rank) against the same grid here at phase 12's bars.
+  15. the eval step's sample payload, the evaluator tools and two suites
+     of scripts/ (analysis_path; last), on phase 6c's scenes at
+     sdd_shortterm_eval.yaml's width (352 x 480, B = 8, TTST on, mosa_2 on
+     0-4, 3 classes): (a) Experiment.test(return_samples=True), its
+     payload's shapes and host bytes, and at small width card against CPU
+     on the same weights (goal maps 1e-4 of max); (b) compare_checkpoints
+     of a base and base + mosa_2 delta, lora_importance over the delta's
+     9 LoRA layers (11 test passes), the swap oracle bit for bit, seconds
+     a pass; (c) capture_activations (small width card against CPU, 1e-4
+     of each map's max; full width timed); both kernels at the harness's
+     miniature shapes (32 x 64 maps, C = 8 into the fused kernel) against
+     their plain versions; (d) generalize.sh and tune_mosa.sh of
+     scripts/sdd/ped_to_biker through mst_tpu_torch.utils.scripts_e2e on
+     the card, side by side, jax and mst_tpu unimportable, each suite
+     process printing its kernel launches as it ends.
 The line before the last is the per-kernel JSON record (launches on each
 kernel's own path, train_launches on the fine-tune path, loop_launches
 on the Experiment loop's, ymod_launches on Y-Net-Mod's, serve_launches
 on the daemon's, seg_launches on the segmentation backbone's,
-res_launches over phase 10's CLI processes, p11_launches over phase
+res_launches over phase 10's CLI runs, p11_launches over phase
 11's requests, steps and cross-scene test, p12_launches over phase
 12's fused runs (eager warm-up + replays) and grid, p13_launches over
-phase 13's program-only process, and p14_launches, each rank's count over
-phase 14's world of 2; the bf16 records'
+phase 13's program-only process, p14_launches, each rank's count over
+phase 14's world of 2, and p15_launches over phase 15's full-width
+evaluations and its two suites' processes; the bf16 records'
 launches count phase 11's bf16 requests and steps); the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -3049,34 +3067,14 @@ ETH_HOMOGRAPHIES = {"eth": [[0.05, 0.0, 1.0], [0.0, 0.02, -2.0],
                     "uni_examples": [[0.04, 0, 0], [0, 0.04, 0], [0, 0, 1]],
                     "zara01": [[0.03, 0, 0], [0, 0.03, 0], [0, 0, 1]]}
 
-# `python -m <module> <args>` with the port's training-state calls wrapped:
-# the process dumps (torch.save) what it holds when it writes the state of
-# epoch <dump_epoch>, and what a restore put in place, and prints its kernel
-# launches and peak device memory as it ends. It runs cuDNN's deterministic
-# algorithms, so the card's run-to-run noise in phase 10 is zero.
-#   python -c HOOKED_CLI <dump path> <dump_epoch> <module> <args...>
-HOOKED_CLI = r'''
-import json, runpy, sys, torch
-from mst_tpu_torch import io
-from mst_tpu_torch.probes import kernel_wrappers
-from mst_tpu_torch.train import trainer
+def held(trainable, optimizer, state, val_ade, val_fde, best, snapshots,
+         best_val_ade, best_epoch):
+    """What a run holds of its training state, on the host."""
+    from mst_tpu_torch import io
 
-dump, dump_epoch, module = sys.argv[1], int(sys.argv[2]), sys.argv[3]
-sys.argv = [module] + sys.argv[4:]
-# cuDNN's deterministic algorithms: with the bilinear backward's fixed
-# order (ops/pooling.py), two runs of one recipe then end on the same bits
-torch.backends.cudnn.deterministic = True
-wrappers = kernel_wrappers()
-for fn in wrappers.values():
-    fn.launches = 0
+    def cpu(d):
+        return {k: v.detach().cpu().clone() for k, v in d.items()}
 
-
-def cpu(d):
-    return {k: v.detach().cpu().clone() for k, v in d.items()}
-
-
-def held(trainable, optimizer, state, val_ade, val_fde, best,
-         snapshots, best_val_ade, best_epoch):
     return {"trainable": cpu(trainable),
             "adam": {k: cpu(optimizer.state.get(p, {}))
                      for k, p in trainable.items()},
@@ -3092,80 +3090,98 @@ def held(trainable, optimizer, state, val_ade, val_fde, best,
             "best_epoch": int(best_epoch or 0)}
 
 
-save = trainer.Experiment.save_training_state
-restore = trainer.Experiment.restore_training_state
+@contextlib.contextmanager
+def state_hooks(dump, dump_epoch):
+    """The port's training-state calls wrapped: what a run holds when it
+    writes the state of epoch dump_epoch goes to dump + '.saved', what a
+    restore put in place to dump + '.restored' (torch.save)."""
+    import torch
+
+    from mst_tpu_torch.train import trainer
+
+    cls = trainer.Experiment
+    save, restore = cls.save_training_state, cls.restore_training_state
+
+    def save_hook(self, path, trainable, optimizer, epoch,
+                  val_history=None, model_state=None, val_fde_history=None,
+                  best_snapshot=None, best_val_ade=None, best_epoch=None,
+                  snapshots=None):
+        save(self, path, trainable, optimizer, epoch, val_history,
+             model_state, val_fde_history, best_snapshot, best_val_ade,
+             best_epoch, snapshots)
+        if epoch == dump_epoch:
+            torch.save(held(trainable, optimizer, model_state,
+                            val_history or [], val_fde_history or [],
+                            best_snapshot, snapshots, best_val_ade,
+                            best_epoch), dump + ".saved")
+
+    def restore_hook(self, path, trainable, optimizer):
+        epoch, x = restore(self, path, trainable, optimizer)
+        torch.save(held(trainable, optimizer, x["model_state"],
+                        x["val_ADE"], x["val_FDE"], x["best_snapshot"],
+                        x["snapshots"], x["best_val_ade"], x["best_epoch"]),
+                   dump + ".restored")
+        return epoch, x
+
+    cls.save_training_state, cls.restore_training_state = \
+        save_hook, restore_hook
+    try:
+        yield
+    finally:
+        cls.save_training_state, cls.restore_training_state = save, restore
 
 
-def save_hook(self, path, trainable, optimizer, epoch,
-              val_history=None, model_state=None, val_fde_history=None,
-              best_snapshot=None, best_val_ade=None, best_epoch=None,
-              snapshots=None):
-    save(self, path, trainable, optimizer, epoch, val_history,
-         model_state, val_fde_history, best_snapshot, best_val_ade,
-         best_epoch, snapshots)
-    if epoch == dump_epoch:
-        torch.save(held(trainable, optimizer, model_state,
-                        val_history or [], val_fde_history or [],
-                        best_snapshot, snapshots, best_val_ade, best_epoch),
-                   dump + ".saved")
+def run_main(label, module, args, cwd, wrappers, dump=None, dump_epoch=-1):
+    """The CLI `python -m module args` as its main() in this process, from
+    cwd, with cuDNN's deterministic algorithms (with the bilinear
+    backward's fixed order, two runs of one recipe end on the same bits),
+    and with dump the training-state calls wrapped (state_hooks) ->
+    (stdout, host seconds, kernel launches, peak GiB). In this process a
+    run pays no process start (~9-15 s) and no cold first epoch."""
+    import importlib
 
+    import torch
 
-def restore_hook(self, path, trainable, optimizer):
-    epoch, x = restore(self, path, trainable, optimizer)
-    torch.save(held(trainable, optimizer, x["model_state"],
-                    x["val_ADE"], x["val_FDE"], x["best_snapshot"],
-                    x["snapshots"], x["best_val_ade"], x["best_epoch"]),
-               dump + ".restored")
-    return epoch, x
+    from mst_tpu_torch.config import get_parser
 
+    if module in ("mst_tpu_torch.train", "mst_tpu_torch.test"):
+        is_train = module == "mst_tpu_torch.train"
+        main = importlib.import_module(
+            module + (".__main__" if is_train else "")).main
+        parsed = get_parser(is_train).parse_args(args)
 
-trainer.Experiment.save_training_state = save_hook
-trainer.Experiment.restore_training_state = restore_hook
-try:
-    runpy.run_module(module, run_name="__main__", alter_sys=True)
-finally:
-    peak = 0.0
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-    print("KERNEL_LAUNCHES " + json.dumps(
-        {k: fn.launches for k, fn in wrappers.items()}))
-    print(f"PEAK_GIB {peak:.3f}")
-'''
-
-
-def run_cli(label, module, args, cwd, dump=None, dump_epoch=-1):
-    """`python -m module args` in cwd (the hooked form for the train and
-    test CLIs) -> (stdout, host seconds, kernel launches or None, peak
-    GiB or None). Raises on a non-zero exit, with the output's tail."""
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [repo] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                  if p])
-    if dump is None:
-        cmd = [sys.executable, "-m", module, *args]
+        def run():
+            return main(parsed)
     else:
-        cmd = [sys.executable, "-c", HOOKED_CLI, dump, str(dump_epoch),
-               module, *args]
+        main = importlib.import_module(module).main
+
+        def run():
+            return main(list(args))
+    old_cwd, deterministic = os.getcwd(), torch.backends.cudnn.deterministic
+    text = io_text.StringIO()
+    hooks = (state_hooks(dump, dump_epoch) if dump is not None
+             else contextlib.nullcontext())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
-                          text=True, timeout=600)
+    try:
+        os.chdir(cwd)
+        torch.backends.cudnn.deterministic = True
+        with hooks, contextlib.redirect_stdout(text):
+            _, launches = count_launches(wrappers, run)
+        torch.cuda.synchronize()
+    except BaseException:
+        print(f"{label}: `{module}` failed; its output's tail:\n"
+              f"{text.getvalue()[-3000:]}")
+        raise
+    finally:
+        os.chdir(old_cwd)
+        torch.backends.cudnn.deterministic = deterministic
     dt = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"{label}: `{module}` exited "
-                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
-                             f"{proc.stderr[-3000:]}")
-    launches = peak = None
-    for line in proc.stdout.splitlines():
-        if line.startswith("KERNEL_LAUNCHES "):
-            launches = json.loads(line.split(" ", 1)[1])
-        elif line.startswith("PEAK_GIB "):
-            peak = float(line.split()[1])
-    print(f"{label}: `python -m {module}` {dt:.1f} s host"
-          + (f", peak device memory {peak:.2f} GiB" if peak is not None
-             else ""))
-    return proc.stdout, dt, launches, peak
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label}: `{module}` main() {dt:.1f} s host, peak device memory "
+          f"{peak:.2f} GiB")
+    return text.getvalue(), dt, launches, peak
 
 
 def state_distance(a, b):
@@ -3298,7 +3314,7 @@ def time_windowing():
 def raw_to_resumed(torch, wrappers, card, rows_rec, fused_rec):
     """Phase 10: from raw annotations to a resumed run, at the full width
     of sdd_shortterm_train.yaml (352 x 480, B = 8, the identity backbone's
-    3 classes). -> {kernel: launches over the phase's CLI processes}."""
+    3 classes). -> {kernel: launches over the phase's CLI runs}."""
     import numpy as np
 
     import pandas as pd
@@ -3336,17 +3352,18 @@ def raw_to_resumed(torch, wrappers, card, rows_rec, fused_rec):
               f"{time.perf_counter() - t0:.2f} s")
 
         # ---- the builders, in scripts/sdd/preprocessing.sh's order
-        _, build_s, _, _ = run_cli("build", "mst_tpu_torch.data.sdd", [],
-                                   tmp)
-        _, bucket_s, _, _ = run_cli(
+        _, build_s, _, _ = run_main("build", "mst_tpu_torch.data.sdd", [],
+                                    tmp, wrappers)
+        _, bucket_s, _, _ = run_main(
             "buckets", "mst_tpu_torch.data.sdd",
             ["--reload", "--varf", "agent_type", "--labels", "Pedestrian"],
-            tmp)
+            tmp, wrappers)
         bucket = os.path.join(tmp, "data/sdd/filter/shortterm/agent_type")
-        _, split_s, _, _ = run_cli(
+        _, split_s, _, _ = run_main(
             "split", "mst_tpu_torch.data.split_dataset",
             ["--data_dir", bucket, "--data_filename", "Pedestrian.pkl",
-             "--val_split", "16", "--test_split", "16", "--seed", "1"], tmp)
+             "--val_split", "16", "--test_split", "16", "--seed", "1"], tmp,
+            wrappers)
         # the same pickles from the pandas chain, in this process
         plain = os.path.join(tmp, "plain")
         chain = trajectories.window_chain(load_raw_sdd(raw), 12, 20, 20)
@@ -3365,7 +3382,7 @@ def raw_to_resumed(torch, wrappers, card, rows_rec, fused_rec):
               f"{chain.metaId.nunique()} windows) and the bucket and split "
               f"pickles equal the pandas chain's; host seconds build "
               f"{build_s:.1f}, buckets {bucket_s:.1f}, split {split_s:.1f} "
-              f"(each a process)")
+              f"(each its CLI's main() in this process)")
         native_ms, chain_ms = time_windowing()
 
         # ---- the config: the shipped yaml with the identity backbone's 3
@@ -3419,12 +3436,12 @@ def raw_to_resumed(torch, wrappers, card, rows_rec, fused_rec):
                 ("A", "ckpts_a", RES_EPOCHS, []),
                 ("C", "ckpts_r", RES_CUT, []),
                 ("R", "ckpts_r", RES_EPOCHS, ["--resume"])):
-            out, secs, launches, peak = run_cli(
+            out, secs, launches, peak = run_main(
                 f"run {label}", "mst_tpu_torch.train",
                 common + RES_FLAGS + [
                     "--n_epoch", str(epochs), "--ckpt_path", ckpt,
                     "--metrics_jsonl", f"{ckpt}_{label}.jsonl"] + extra,
-                tmp, dump=os.path.join(tmp, f"held_{label}"),
+                tmp, wrappers, dump=os.path.join(tmp, f"held_{label}"),
                 dump_epoch=RES_CUT)
             done = epochs - (RES_CUT if label == "R" else 0)
             tally(f"run {label}", launches, want_launches(done))
@@ -3467,7 +3484,7 @@ def raw_to_resumed(torch, wrappers, card, rows_rec, fused_rec):
               f"{len(saved['snapshots'])} smooth-val snapshot(s): equal bit "
               f"for bit")
 
-        # the resumed run ends on A's bits: the processes run cuDNN's
+        # the resumed run ends on A's bits: the runs take cuDNN's
         # deterministic algorithms, so the card adds no run-to-run noise
         d_ra = state_distance(runs["R"]["state"], runs["A"]["state"])
         h = {key: history_distance(runs["R"]["meta"][key],
@@ -3540,23 +3557,22 @@ def raw_to_resumed(torch, wrappers, card, rows_rec, fused_rec):
               "test": len(probe.prepare_data(eth_t["test"], eth_images,
                                              "val"))}
         del probe
-        out, eth_s, launches, _ = run_cli(
+        out, eth_s, launches, _ = run_main(
             "ETH fine-tune", "mst_tpu_torch.train",
             eth_common + ["--train_net", "mosa_2", "--position", *POSITIONS,
                           "--fine_tune", "--n_train_batch", "5",
                           "--n_epoch", "1", "--lr", "3e-3",
                           "--pretrained_ckpt", base, "--ckpt_path",
-                          "ckpts_eth"], tmp, dump=os.path.join(tmp, "held_e"))
+                          "ckpts_eth"], tmp, wrappers)
         tally("ETH fine-tune", launches, want_launches(
             1, train=ne["train"], val=ne["val"], test=ne["test"]))
         (delta,) = [os.path.join(tmp, "ckpts_eth", f)
                     for f in os.listdir(os.path.join(tmp, "ckpts_eth"))
                     if f.endswith("__original.npz")]
-        out, test_s, launches, _ = run_cli(
+        out, test_s, launches, _ = run_main(
             "ETH test", "mst_tpu_torch.test",
             eth_common + ["--n_round", "1", "--pretrained_ckpt", base,
-                          "--tuned_ckpt", delta], tmp,
-            dump=os.path.join(tmp, "held_t"))
+                          "--tuned_ckpt", delta], tmp, wrappers)
         tally("ETH test", launches, want_launches(0, test=ne["test"]))
         ades = [float(a) for a in re.findall(r"Test ADE: ([\d.eE+-]+)", out)]
         fdes = [float(a) for a in re.findall(r"Test FDE: ([\d.eE+-]+)", out)]
@@ -3613,7 +3629,7 @@ def raw_to_resumed(torch, wrappers, card, rows_rec, fused_rec):
         fused_rec["max_abs_err"] = max(fused_rec["max_abs_err"], e)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"phase 10 launches over its CLI processes: {res}")
+    print(f"phase 10 launches over its CLI runs: {res}")
     for k in ("softargmax_rows", "fused_predict"):
         check(res[k] > 0, f"{k} never ran on phase 10's path")
     return res
@@ -5067,6 +5083,358 @@ def mesh_path(torch, wrappers, card):
     return per_rank
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the eval payload, the evaluator tools and the experiment suites
+# ---------------------------------------------------------------------------
+
+P15_MAP_TOL = 1e-4  # goal maps and activations, card against CPU, of max
+P15_SMALL = dict(encoder_channels=[8, 8, 16, 16, 16],
+                 decoder_channels=[16, 16, 16, 8, 8])
+P15_SUITES = ("scripts/sdd/ped_to_biker/generalize.sh",
+              "scripts/sdd/ped_to_biker/tune_mosa.sh")
+# appended to the harness's guard/sitecustomize.py: every suite process
+# prints its kernel launches as it ends
+P15_COUNT_HOOK = r'''
+
+def _print_launches():
+    if "mst_tpu_torch.ops.kernels.fused_predict" not in sys.modules:
+        return
+    import json
+    from mst_tpu_torch.probes import kernel_wrappers
+    print("KERNEL_LAUNCHES " + json.dumps(
+        {k: fn.launches for k, fn in kernel_wrappers().items()}),
+        flush=True)
+
+
+import atexit
+
+atexit.register(_print_launches)
+'''
+
+
+def p15_params(flags=None, **over):
+    """sdd_shortterm_eval.yaml with TTST on and mosa_2 on 0-4, the
+    identity backbone's 3 classes, B = 8, one round."""
+    from mst_tpu_torch.config import get_params
+
+    return get_params("sdd_shortterm_eval.yaml", {
+        "use_TTST": True, "train_net": "mosa_2", "position": POSITIONS,
+        "n_semantic_classes": 3, "batch_size": LOOP_B, "n_round": 1,
+        "seed": 1, "segmentation_model_fp": None, **(flags or {}), **over})
+
+
+def p15_checkpoints(torch, params, images, tmp, tag):
+    """A base checkpoint (random weights, seed 1) and a mosa_2 delta over
+    it (lora_B ~ N(0, 0.05) from seed 3) -> (base path, delta path)."""
+    from mst_tpu_torch import io
+    from mst_tpu_torch.train.trainer import Experiment
+
+    base = Experiment(dict(params, train_net="train", position=[]),
+                      images=images, device="cpu")
+    base_path = os.path.join(tmp, f"{tag}_base.npz")
+    base.save_params(base_path)
+    ft = Experiment(params, images=images, device="cpu")
+    ft.load_params(base_path)
+    g = torch.Generator().manual_seed(3)
+    flat = io.flatten(ft.model_params)
+    for k, v in flat.items():
+        if k.endswith("lora_B"):
+            v.copy_(torch.randn(v.shape, generator=g) * 0.05)
+    delta_path = os.path.join(tmp, f"{tag}_delta.npz")
+    ft.save_params(delta_path)
+    return base_path, delta_path
+
+
+def p15_small_reference(torch, tmp):
+    """15a/15c at small width, card against CPU, on the same weights: the
+    payload's goal maps of test(return_samples=True) and every map
+    capture_activations returns -> (max map error, max activation error),
+    each over its map's max |value|."""
+    import numpy as np
+
+    from mst_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mst_tpu_torch.evaluator.activations import capture_activations
+    from mst_tpu_torch.train.trainer import restore_model
+
+    params = p15_params(P15_SMALL)
+    tracks, images = make_synthetic_dataset(seed=2, n_scenes=2, n_traj=6,
+                                            img_hw=(128, 192))
+    base, delta = p15_checkpoints(torch, params, images, tmp, "small")
+    exps = {dev: restore_model(dict(params, device=dev), True, base, delta,
+                               images=images) for dev in ("cuda", "cpu")}
+    out = {dev: e.test(tracks, None, return_samples=True)[3][0]
+           for dev, e in exps.items()}
+    map_err = 0.0
+    for key in ("goal_map", "goal_sigmoid_map"):
+        got = np.concatenate(out["cuda"][key])
+        want = np.concatenate(out["cpu"][key])
+        check(got.shape == want.shape and np.isfinite(got).all(),
+              f"payload {key}: shape or non-finite")
+        map_err = max(map_err, float(np.abs(got - want).max()
+                                     / np.abs(want).max()))
+    for key in ("metaId", "groundtruth"):
+        check(np.array_equal(np.concatenate(out["cuda"][key]),
+                             np.concatenate(out["cpu"][key])),
+              f"payload {key}: rows differ between card and CPU")
+    one = tracks.take(tracks.sceneId == tracks.sceneId[0])
+    acts = {dev: capture_activations(e, one, None)
+            for dev, e in exps.items()}
+    act_err = 0.0
+    for k, want in acts["cpu"].items():
+        got = acts["cuda"][k]
+        check(got.shape == want.shape, f"activation {k}: shape")
+        scale = max(float(np.abs(want).max()), 1e-12)
+        act_err = max(act_err, float(np.abs(got - want).max()) / scale)
+    return map_err, act_err
+
+
+def p15_tiny_kernels(torch, rows_rec, fused_rec):
+    """Both kernels at the harness's miniature shapes (32 x 64 maps, the
+    decoder's last 8 channels into the fused kernel, K = 20 x B = 4 rows)
+    against their plain versions."""
+    from mst_tpu_torch.ops.kernels.fused_predict import (
+        fused_predictor_softargmax, fused_predictor_softargmax_plain)
+    from mst_tpu_torch.ops.kernels.softargmax_rows import (plain,
+                                                           softargmax2d_rows)
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    logits = torch.randn((4, 32, 64), generator=g, device="cuda") * 4
+    e_rows = float((softargmax2d_rows(logits) - plain(logits)).abs().max())
+    x = torch.randn((80, 32, 64, 8), generator=g, device="cuda")
+    w = torch.randn((8, 12), generator=g, device="cuda") * 0.5
+    b = torch.randn((12,), generator=g, device="cuda")
+    e_fused = float((fused_predictor_softargmax(x, w, b)
+                     - fused_predictor_softargmax_plain(x, w, b))
+                    .abs().max())
+    print(f"harness shapes: rows soft-argmax (4, 32, 64) max |kernel - "
+          f"plain| {e_rows:.3e} px (tol {ROWS_TOL}); fused predictor "
+          f"(80, 32, 64, 8) x (8, 12) {e_fused:.3e} px (tol {FUSED_TOL})")
+    check(e_rows <= ROWS_TOL, "rows kernel disagrees at the harness shapes")
+    check(e_fused <= FUSED_TOL,
+          "fused kernel disagrees at the harness shapes (C = 8)")
+    rows_rec["max_abs_err"] = max(rows_rec["max_abs_err"], e_rows)
+    fused_rec["max_abs_err"] = max(fused_rec["max_abs_err"], e_fused)
+
+
+def p15_suites(tmp):
+    """15d: two suites of scripts/ through the harness, on the card, side
+    by side, with jax and mst_tpu unimportable -> {kernel: launches}."""
+    from mst_tpu_torch.utils import scripts_e2e
+
+    sb = os.path.join(tmp, "sandbox")
+    t0 = time.perf_counter()
+    scripts_e2e.build_sandbox(sb, scripts=list(P15_SUITES), device="cuda")
+    with open(os.path.join(sb, "guard", "sitecustomize.py"), "a") as f:
+        f.write(P15_COUNT_HOOK)
+    print(f"harness sandbox for {len(P15_SUITES)} suites: "
+          f"{time.perf_counter() - t0:.1f} s host")
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(rel):
+        t0 = time.perf_counter()
+        rc, out = scripts_e2e.run_script(rel, sb, timeout=300)
+        return rc, out, time.perf_counter() - t0
+
+    # side by side: a suite is a CLI process or two, most of whose time
+    # is the process's start
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(P15_SUITES)) as pool:
+        done = list(pool.map(run, P15_SUITES))
+    print(f"15d: {len(P15_SUITES)} suites side by side in "
+          f"{time.perf_counter() - t0:.1f} s host")
+    total = {}
+    for rel, (rc, out, dt) in zip(P15_SUITES, done):
+        n_avg = len(re.findall(r"Average performance \(by ", out))
+        want = scripts_e2e.expected_runs(rel)
+        counts = [json.loads(line.split(" ", 1)[1])
+                  for line in out.splitlines()
+                  if line.startswith("KERNEL_LAUNCHES ")]
+        launches = {}
+        for c in counts:
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+        ade = re.findall(r"Average performance \(by \d+\): \nTest ADE: "
+                         r"([\d.]+) \nTest FDE: ([\d.]+)", out)
+        print(f"suite {rel}: rc {rc}, {n_avg}/{want} 'Average performance' "
+              f"blocks {ade}, {len(counts)} CLI process(es), {dt:.1f} s "
+              f"host, launches {launches}")
+        check(rc == 0 and n_avg >= want,
+              f"suite {rel} failed (rc {rc}):\n{out[-3000:]}")
+        check("may not be imported" not in out, f"{rel} imported jax or "
+              "mst_tpu")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def analysis_path(torch, wrappers, card, rows_rec, fused_rec):
+    """Phase 15: the eval step's sample payload, the evaluator tools and
+    two experiment suites, on phase 6c's scenes at sdd_shortterm_eval.
+    yaml's width (352 x 480, B = 8, TTST on, mosa_2 on 0-4, the identity
+    backbone's 3 classes, random weights from a seed).
+
+    (a) Experiment.test(return_samples=True): the payload's keys and
+        shapes, its host bytes; at small width, card against CPU on the
+        same weights, the goal maps within P15_MAP_TOL of their max;
+    (b) compare_checkpoints of the base and base + a mosa_2 delta;
+        lora_importance over the delta's 9 LoRA layers (11 test passes);
+        the swap oracle (a single perturbed group's swap equals the
+        pretrained eval, every other group's the tuned eval, bit for bit);
+    (c) capture_activations on one scene (small width: card against CPU;
+        full width: timed);
+    (d) generalize.sh and tune_mosa.sh through the harness on the card.
+    Every count is set to 0 before (a)-(c)'s full-width runs and before
+    each suite, and read after; the rows and fused kernels launch once an
+    eval batch of (a) and (b). -> {kernel: launches}."""
+    import numpy as np
+
+    from mst_tpu_torch import io
+    from mst_tpu_torch.evaluator.activations import capture_activations
+    from mst_tpu_torch.evaluator.importance import (lora_importance,
+                                                    swap_importance)
+    from mst_tpu_torch.evaluator.multickpts import compare_checkpoints
+    from mst_tpu_torch.train.trainer import restore_model
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mst_p15_")
+    try:
+        # ---- small width: card against CPU (not counted: comparisons)
+        t0 = time.perf_counter()
+        map_err, act_err = p15_small_reference(torch, tmp)
+        print(f"15a/15c small width, card against CPU: goal maps "
+              f"{map_err:.3e}, activations {act_err:.3e} of max (tol "
+              f"{P15_MAP_TOL}); {time.perf_counter() - t0:.1f} s host")
+        check(map_err <= P15_MAP_TOL and act_err <= P15_MAP_TOL,
+              "the payload or the activations on the card disagree with "
+              "the CPU")
+        p15_tiny_kernels(torch, rows_rec, fused_rec)
+
+        images, _, _, test = loop_data()
+        params = p15_params()
+        base, delta = p15_checkpoints(torch, params, images, tmp, "full")
+        one = test.take(test.sceneId == test.sceneId[0])
+        total = dict.fromkeys(wrappers, 0)
+        n_batches = 0
+
+        def counted(fn):
+            out, launches = count_launches(wrappers, fn)
+            for k, v in launches.items():
+                total[k] += v
+            return out
+
+        # ---- (a) the payload at full width
+        model = restore_model(params, True, base, delta, images=images)
+        tuned = io.params_to_numpy(model.model_params)
+        n_test = len(model.prepare_data(test, None, "test"))
+        n_one = len(model.prepare_data(one, None, "test"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = counted(lambda: model.test(test, None, return_samples=True))
+        dt = time.perf_counter() - t0
+        n_batches += n_test
+        trajs = res[3][0]
+        n = len(np.unique(test.metaId))
+        shapes = {k: np.concatenate(v).shape for k, v in trajs.items()}
+        nbytes = sum(np.concatenate(trajs[k]).nbytes for k in
+                     ("goal_map", "goal_sigmoid_map", "waypoint_sample"))
+        print(f"15a payload ({card}): {n} trajectories in {n_test} batches, "
+              f"{dt:.2f} s host; shapes {shapes}; host bytes {nbytes} "
+              f"({nbytes / 2**20:.1f} MiB); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(shapes["goal_map"] == (n, 352, 480, 12)
+              and shapes["goal_sigmoid_map"] == (n, 352, 480, 12)
+              and shapes["waypoint_sample"] == (n, 1, 20, 2)
+              and shapes["prediction"] == (n, 12, 2),
+              f"payload shapes {shapes}")
+        check(all(np.isfinite(np.concatenate(v)).all()
+                  for k, v in trajs.items() if k != "metaId"),
+              "the payload is not finite")
+        del trajs, res
+
+        # ---- (b) compare_checkpoints, lora_importance, the swap oracle
+        t0 = time.perf_counter()
+        df, _ = counted(lambda: compare_checkpoints(
+            params, test, None, [base, delta], ["OODG", "mosa_2"],
+            [False, True], n_round=1, seed=1, images=images))
+        n_batches += 2 * n_test
+        moved = float(np.abs(df["ade_OODG"] - df["ade_mosa_2"]).max())
+        print(f"15b compare_checkpoints: {len(df)} rows, columns "
+              f"{list(df.columns)}; the delta moves a trajectory's ADE by "
+              f"up to {moved:.3f} px; {time.perf_counter() - t0:.2f} s "
+              f"(2 test passes of {n_test} batches)")
+        check(len(df) == n and moved > 0, "compare_checkpoints")
+        t0 = time.perf_counter()
+        lora = counted(lambda: lora_importance(model, one, None))
+        n_batches += len(lora) * n_one
+        dt = time.perf_counter() - t0
+        print(f"15b lora_importance: {len(lora)} test passes of {n_one} "
+              f"batch(es), {dt / len(lora):.3f} s a pass; ADE "
+              f"{dict(zip(lora.zeroed, lora.ade.round(4)))}")
+        check(len(lora) == 11 and np.isfinite(lora.ade).all(),
+              "lora_importance: not none + 9 layers + all")
+        pretrained = dict(tuned)
+        for k in tuned:
+            if k.startswith("traj_decoder/"):
+                pretrained[k] = tuned[k] + 0.01
+
+        def direct(flat):
+            model.model_params = io.params_from_numpy(flat, "cuda")
+            return model.test(one, None)[:2]
+
+        t0 = time.perf_counter()
+        ade_t, fde_t = counted(lambda: direct(tuned))
+        ade_p, fde_p = counted(lambda: direct(pretrained))
+        model.model_params = io.params_from_numpy(tuned, "cuda")
+        swap = counted(lambda: swap_importance(
+            model, one, None, pretrained, tuned, depth=1, seed=1))
+        n_batches += (2 + len(swap)) * n_one
+        dt = time.perf_counter() - t0
+        by = swap.set_index("group")
+        others = [g for g in by.index
+                  if g not in ("none", "all", "traj_decoder")]
+        print(f"15b swap oracle: {len(swap) + 2} test passes, "
+              f"{dt / (len(swap) + 2):.3f} s a pass; tuned ADE {ade_t}, "
+              f"pretrained {ade_p}; groups {list(by.index)}")
+        check(ade_p != ade_t, "the perturbation does not matter")
+        check(by.loc["none", "ade"] == ade_t and by.loc["all", "ade"] == ade_p
+              and by.loc["traj_decoder", "ade"] == ade_p
+              and by.loc["traj_decoder", "fde"] == fde_p and others
+              and all(by.loc[g, "ade"] == ade_t for g in others),
+              "the swap oracle does not hold bit for bit")
+
+        # ---- (c) activations at full width
+        t0 = time.perf_counter()
+        acts = counted(lambda: capture_activations(model, one, None))
+        print(f"15c capture_activations: {len(acts)} maps, goal map "
+              f"{acts['goal_decoder.predictor_output'].shape}, "
+              f"{time.perf_counter() - t0:.2f} s host")
+        check(all(np.isfinite(a).all() for a in acts.values()),
+              "non-finite activations")
+        del acts, model
+        print(f"15a-c launches: {total} over {n_batches} eval batches")
+        check(total["softargmax_rows"] == n_batches
+              and total["fused_predict"] == n_batches
+              and all(v == 0 for k, v in total.items()
+                      if k not in ("softargmax_rows", "fused_predict")),
+              f"15a-c launched {total}, the code gives rows = fused = "
+              f"{n_batches}, others 0")
+
+        # ---- (d) two suites through the harness
+        torch.cuda.empty_cache()
+        suites = p15_suites(tmp)
+        for k, v in suites.items():
+            total[k] += v
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 15 launches: {total}; {time.perf_counter() - t_phase:.1f}"
+          f" s")
+    for k in ("softargmax_rows", "fused_predict"):
+        check(total[k] > 0, f"{k} never ran in phase 15")
+        check(suites.get(k, 0) > 0, f"{k} never ran in phase 15's suites")
+    return total
+
+
 def main():
     import torch
 
@@ -5322,11 +5690,19 @@ def main():
                                   fused_rec)
     print(f"resume phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 15. the eval payload, the evaluator tools and two suites of
+    # scripts/ through the harness
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p15 = analysis_path(torch, kernel_wrappers(), card, rows_rec, fused_rec)
+    print(f"analysis phase: {time.perf_counter() - t0:.1f} s")
+
     for r in records:
         r["p11_launches"] = p11[r["name"]] + cross[r["name"]]
         r["p12_launches"] = p12[r["name"]]
         r["p13_launches"] = p13[r["name"]]
         r["p14_launches"] = p14[r["name"]]
+        r["p15_launches"] = p15[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
         r["loop_launches"] = loop_launches[r["name"]]
         r["ymod_launches"] = ymod_launches[r["name"]]
@@ -5336,7 +5712,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "train_launches", "loop_launches", "ymod_launches",
             "serve_launches", "seg_launches", "res_launches", "p11_launches",
-            "p12_launches", "p13_launches", "p14_launches",
+            "p12_launches", "p13_launches", "p14_launches", "p15_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

@@ -311,7 +311,8 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
         goal_loss, traj_loss, goal_map, traj_map, new_state = forward(
             params, state, batch)
         loss = goal_loss + traj_loss
-        loss.backward()
+        if loss.requires_grad:  # else no leaf trains: the step updates
+            loss.backward()     # nothing, as mst_tpu's on an empty tree
         if shards is not None:
             shards.sum_([p.grad for p in optimizer.params
                          if p.grad is not None])
@@ -377,7 +378,8 @@ def _ttst_goals(generator, pred_waypoint_map, wp_sigmoid_hw, scfg):
     return goals.transpose(0, 1)
 
 
-def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
+def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
+                   collect_samples: bool = False):
     """The multi-goal eval step.
 
     eval_step(params, state, batch, generator) -> dict of per-trajectory
@@ -405,6 +407,14 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
     global batch's outputs on every rank: 'ade', 'fde', 'mask' and
     'best_traj' gathered in global row order, the sums summed over the
     ranks.
+
+    collect_samples: eval_step also returns the visualization payload
+    (mst_tpu/train/steps.py:341-356, 595-603; reference evaluate.py:75-80,
+    240-245): 'goal_map', the f32 goal logits (B, H, W, pred_len) NHWC,
+    'goal_sigmoid_map' = sigmoid(goal_map / temperature), and
+    'waypoint_samples' (B, n_wp, K, 2), gathered like 'best_traj' on a
+    mesh; eval_step.forward then returns the goal logits third. Off, the
+    step and its parts are what they are without it.
     """
     n_wp = len(scfg.waypoints)
     waypoints = list(scfg.waypoints)
@@ -451,6 +461,8 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
             waypoint_samples = torch.cat([ws, goal_rep], dim=2)
         else:
             waypoint_samples = goal_samples  # (K, B, 1, 2)
+        if collect_samples:
+            return features, waypoint_samples, pred_goal_map
         return features, waypoint_samples
 
     def prepredictor(params, features):
@@ -531,11 +543,24 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
 
     @torch.no_grad()
     def eval_step(params, state, batch, generator):
-        features, waypoint_samples = forward(params, state, batch,
-                                             generator)
-        return global_outputs(decode_and_score(
+        fwd = forward(params, state, batch, generator)
+        features, waypoint_samples = fwd[0], fwd[1]
+        out = global_outputs(decode_and_score(
             params, features, waypoint_samples, batch["traj"],
             batch["mask"], batch.get("homography")))
+        if collect_samples:
+            goal_map = fwd[2]
+            payload = {
+                "goal_map": goal_map,
+                "goal_sigmoid_map": torch.sigmoid(goal_map
+                                                  / scfg.temperature),
+                # (K, B, n_wp, 2) -> (B, n_wp, K, 2), evaluate.py:243-245
+                "waypoint_samples": waypoint_samples.permute(1, 2, 0, 3)}
+            if shards is not None:
+                payload = {k: shards.gather_rows(v.contiguous())
+                           for k, v in payload.items()}
+            out.update(payload)
+        return out
 
     eval_step.forward = torch.no_grad()(forward)
     eval_step.prepredictor = prepredictor

@@ -147,8 +147,12 @@ def save_params(path, model_params, params_dict):
     write_checkpoint(path, *checkpoint_arrays(model_params, params_dict))
 
 
-def checkpoint_arrays(model_params, params_dict):
-    """What save_params writes -> (the flat numpy arrays, the metadata)."""
+def checkpoint_arrays(model_params, params_dict, allow_empty=False):
+    """What save_params writes -> (the flat numpy arrays, the metadata).
+    allow_empty: a strategy whose selection holds no leaf (mosa_1 on 0-4
+    of the fusion network, whose convs are keyed scene/motion/fusion)
+    gives an empty delta, as mst_tpu's save does; else that raises, as a
+    sign that setup_training was not called."""
     train_net = params_dict.get("train_net", "train")
     flat = io.flatten(model_params)
     if train_net in ("all", "train"):
@@ -156,7 +160,7 @@ def checkpoint_arrays(model_params, params_dict):
                 if not k.startswith("segmentation")}
     else:
         flat = {k: v for k, v in flat.items() if v.requires_grad}
-        if not flat:
+        if not flat and not allow_empty:
             raise ValueError(f"train_net={train_net!r}: no leaf requires "
                              "grad; call setup_training first")
     return io.params_to_numpy(flat), {k: params_dict.get(k)
@@ -245,7 +249,7 @@ class Experiment:
         freeze.set_trainable(self.model_params, p.get("train_net", "train"),
                              p.get("position", ()), p.get("ynet_bias", False),
                              p.get("network"))
-        return checkpoint_arrays(self.model_params, p)
+        return checkpoint_arrays(self.model_params, p, allow_empty=True)
 
     def _written(self, write, *args):
         """write(*args) on rank 0 of the mesh alone (always without one),
@@ -439,10 +443,14 @@ class Experiment:
         return out
 
     # -- evaluation (reference trainer.py:295-352) ---------------------------
-    def _eval_step(self, eval_k_chunk=None, for_validation=False):
+    def _eval_step(self, eval_k_chunk=None, for_validation=False,
+                   collect_samples=False):
         over = {} if eval_k_chunk is None else {"eval_k_chunk": eval_k_chunk}
-        return make_eval_step(self.mcfg, config_lib.step_config(
-            self.params, for_validation, **over), self.mesh)
+        scfg = config_lib.step_config(self.params, for_validation, **over)
+        if collect_samples:
+            return make_eval_step(self.mcfg, scfg, self.mesh,
+                                  collect_samples=True)
+        return make_eval_step(self.mcfg, scfg, self.mesh)
 
     def _eval_shrinker(self, make_step):
         """The out-of-memory ladder of the K-sample decode (trainer.py:
@@ -468,7 +476,7 @@ class Experiment:
         return state, shrink
 
     def _evaluate(self, items, eval_step, stream, shrink,
-                  collect_preds=False):
+                  collect_preds=False, collect_samples=False):
         """items: [(batch, device batch)] -> (ADE, FDE, metrics rows, trajs)
         over the real rows (trainer.py:891-1017), the global batch's on a
         mesh (the eval step gathers them). Batch i draws from its
@@ -476,11 +484,17 @@ class Experiment:
         torch.cuda.OutOfMemoryError the batch is retried, with the same
         draws, one rung down the shrink ladder. The metrics rows are numpy
         columns metaId, sceneId (each row's own in a cross-scene batch),
-        ade, fde."""
+        ade, fde. collect_samples (with collect_preds) adds each batch's
+        goal_map, goal_sigmoid_map and waypoint_sample rows to trajs, each
+        copied to the host as its batch is consumed."""
         batch_rows = []
         rows = {"metaId": [], "sceneId": [], "ade": [], "fde": []}
         trajs = ({"prediction": [], "metaId": [], "groundtruth": []}
                  if collect_preds else None)
+        if collect_preds and collect_samples:
+            # reference evaluate.py:75-80 visualization payload
+            trajs.update(goal_map=[], goal_sigmoid_map=[],
+                         waypoint_sample=[])
         for i, (batch, db) in enumerate(items):
             while True:
                 gen = torch.Generator(device=self.device).manual_seed(
@@ -514,20 +528,29 @@ class Experiment:
                 # raw-pixel ground truth (evaluate.py:281-283)
                 trajs["groundtruth"].append(
                     batch.trajectories[m] / self.params["resize_factor"])
+                if collect_samples:
+                    for key in ("goal_map", "goal_sigmoid_map"):
+                        trajs[key].append(out[key].cpu().numpy()[m])
+                    trajs["waypoint_sample"].append(
+                        out["waypoint_samples"].cpu().numpy()[m])
+            del out  # the next batch runs without this one's maps
         metrics = {k: np.concatenate(v) if v else np.zeros(0)
                    for k, v in rows.items()}
         return masked_means(batch_rows) + (metrics, trajs)
 
-    def test(self, tracks, image_path, return_preds=False, batches=None):
+    def test(self, tracks, image_path, return_preds=False,
+             return_samples=False, batches=None):
         """Multi-round stochastic eval (trainer.py:1019-1060): n_round
         rounds over the same batches, round e from stream 10_000 + e ->
         (average ADE, average FDE, each round's metrics rows, each round's
-        predictions or None). batches: optionally the prepared
-        SceneBatches."""
+        predictions or None). return_samples adds the goal maps and the
+        waypoint samples to the predictions (and implies return_preds).
+        batches: optionally the prepared SceneBatches."""
         p = self.params
         if batches is None:
             batches = self.prepare_data(tracks, image_path, "test")
-        es_state, es_shrink = self._eval_shrinker(self._eval_step)
+        es_state, es_shrink = self._eval_shrinker(
+            lambda kc: self._eval_step(kc, collect_samples=return_samples))
         self.eval_ADE, self.eval_FDE = [], []
         list_metrics, list_trajs = [], []
         print("TTST setting:", p.get("use_TTST", False))
@@ -538,7 +561,9 @@ class Experiment:
         for e in range(int(p.get("n_round", 1))):
             ade, fde, metrics, trajs = self._evaluate(
                 self._with_semantic(items, seg_cache), es_state["step"],
-                TEST_STREAM + e, es_shrink, collect_preds=return_preds)
+                TEST_STREAM + e, es_shrink,
+                collect_preds=return_preds or return_samples,
+                collect_samples=return_samples)
             list_metrics.append(metrics)
             list_trajs.append(trajs)
             print(f"Round {e}: \nTest ADE: {ade} \nTest FDE: {fde}")

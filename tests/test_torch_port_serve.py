@@ -405,3 +405,40 @@ def test_module_level_import_scan(tmp_path):
                     "    pass\ndef f():\n    import d\nclass K:\n"
                     "    import e\n")
     assert sorted(_module_level_imports(path)) == ["a", "b", "e"]
+
+
+def test_scripts_sandbox_shims_run_the_port(tmp_path):
+    """The suites' harness writes its shims at run time, out of the
+    scan's sight: they import no jax or mst_tpu, the modules they run are
+    the port's (mst_tpu_torch.train / .test), and the sandbox's python
+    turns `-m mst_tpu.<x>` into mst_tpu_torch.<x>, in a process where
+    jax and mst_tpu cannot be imported."""
+    import re
+    import subprocess
+    import sys
+
+    from mst_tpu_torch.utils import scripts_e2e
+
+    paths = scripts_e2e.write_shims(tmp_path, "cpu")
+    for name, path in paths.items():
+        for mod in _imports(path):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "mst_tpu"), \
+                f"{name} imports {mod}"
+    for name, module in (("train.py", "mst_tpu_torch.train"),
+                         ("test.py", "mst_tpu_torch.test")):
+        text = paths[name].read_text()
+        assert set(re.findall(r"'(mst_tpu\w*(?:\.\w+)*)'", text)) == \
+            {module}, name
+    env = scripts_e2e.suite_env(tmp_path)
+    listed = subprocess.run(
+        [str(paths["python"]), "-m", "mst_tpu.utils.scripts_e2e", "list"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert listed.returncode == 0, listed.stderr[-2000:]
+    assert listed.stdout.split() == scripts_e2e.experiment_scripts()
+    for mod in ("mst_tpu", "jax"):
+        blocked = subprocess.run(
+            [str(paths["python"]), "-c", f"import {mod}"], env=env,
+            capture_output=True, text=True, timeout=60)
+        assert blocked.returncode != 0
+        assert "may not be imported" in blocked.stderr
+    assert sys.executable in paths["python"].read_text().splitlines()[0]

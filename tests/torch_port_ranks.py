@@ -124,12 +124,15 @@ def train_steps(mesh, train_net="train", n_steps=N_STEPS):
             "state": numpy_tree(state)}
 
 
-def eval_outputs(mesh, seed=3, waypoint_samples=None):
+def eval_outputs(mesh, seed=3, waypoint_samples=None, collect_samples=False,
+                 ttst=True):
     """One eval step with TTST and CWS on, on the rank's rows, drawing
     from a generator seeded `seed` -> its outputs (global on a mesh) and
     its forward's waypoint samples (the rank's rows). With
     waypoint_samples (the global batch's, numpy), the decode and score
-    run on their rows instead of the forward's draws."""
+    run on their rows instead of the forward's draws. collect_samples:
+    the step's sample payload too (goal maps, waypoint samples); ttst
+    False: CWS on sampled goals, without TTST."""
     from mst_tpu_torch import config
     from mst_tpu_torch.parallel import mesh as mesh_lib
     from mst_tpu_torch.train.steps import make_eval_step
@@ -137,13 +140,15 @@ def eval_outputs(mesh, seed=3, waypoint_samples=None):
     params = step_params()
     weights, state = model(params)
     # the injected samples replace the forward's draws: no TTST to draw
-    scfg = config.step_config(params, use_ttst=waypoint_samples is None)
-    step = make_eval_step(config.ynet_config(params), scfg, mesh)
+    scfg = config.step_config(params,
+                              use_ttst=ttst and waypoint_samples is None)
+    step = make_eval_step(config.ynet_config(params), scfg, mesh,
+                          collect_samples=collect_samples)
     b = local_rows(batch(), mesh)
     if waypoint_samples is None:
         out = step(weights, state, b, torch.Generator().manual_seed(seed))
-        _, wps = step.forward(weights, state, b,
-                              torch.Generator().manual_seed(seed))
+        wps = step.forward(weights, state, b,
+                           torch.Generator().manual_seed(seed))[1]
     else:
         feats, _ = step.forward(weights, state, b,
                                 torch.Generator().manual_seed(seed))
@@ -166,6 +171,12 @@ def case_serial(mesh):
 
 def case_eval(mesh):
     return eval_outputs(mesh)
+
+
+def case_samples(mesh):
+    """The eval step with its sample payload (collect_samples), CWS on
+    sampled goals."""
+    return eval_outputs(mesh, collect_samples=True, ttst=False)
 
 
 def case_injected_eval(mesh):
