@@ -267,6 +267,7 @@ import contextlib
 import ctypes
 import io as io_text
 import json
+import math
 import os
 import re
 import shutil
@@ -4485,7 +4486,8 @@ def p14_steps(torch, mesh, out_path, n_steps=P14_STEPS, n_evals=1):
     arrays to out_path: the leaves after the first P14_STEPS steps and
     those steps' gradients, the serial state, the eval outputs and the
     draws. n_evals > 1 repeats the pass on the same draws, the report's
-    val_ms the last's."""
+    val_ms and val_peak (its peak device memory above what was allocated
+    as it began) the last's."""
     import numpy as np
 
     from mst_tpu_torch import io
@@ -4540,6 +4542,8 @@ def p14_steps(torch, mesh, out_path, n_steps=P14_STEPS, n_evals=1):
             source = gen if mesh is not None else sampling.Rows(gen, 0, B,
                                                                 B)
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             # eval_step's three parts, to keep the rows' samples
             feats, wps = eval_step.forward(weights, state, batch, source)
@@ -4547,6 +4551,7 @@ def p14_steps(torch, mesh, out_path, n_steps=P14_STEPS, n_evals=1):
                 weights, feats, wps, batch["traj"], batch["mask"]))
             torch.cuda.synchronize()
             report["val_ms"] = 1e3 * (time.perf_counter() - t0)
+            report["val_peak"] = torch.cuda.max_memory_allocated() - base
             sampling.Rows._narrow = narrow  # the first pass's draws
     finally:
         sampling.Rows._narrow = narrow
@@ -4609,10 +4614,12 @@ def p14_train_cli(torch, args):
 def mesh_rank_main(job_json):
     """One rank of phase 14 (P14_RANK): job 'cli' runs the train CLI's
     flows with --mesh_shape 1 (a world of 1 on NCCL), job 'mesh' the world
-    of 2's steps, validation, checkpoint save and grid on its mesh (gloo on
-    the one card), job 'steps' the steps and validation alone on a world of
-    any size (mesh_scaling). Prints 'P14 ' + its report, with its kernel
-    launches."""
+    of 2's steps, validation, checkpoint save, spatial eval (p14_spatial
+    and the test CLI, p14_spatial_cli, on a (1, 2) ('data', 'space') mesh
+    of the same world) and grid on its mesh (gloo on the one card), job
+    'steps' the steps and validation alone on a world of any size and job
+    'spatial' the spatial eval on a (1, world) mesh (mesh_scaling). Prints
+    'P14 ' + its report, with its kernel launches."""
     import torch
 
     job = json.loads(job_json)
@@ -4634,6 +4641,11 @@ def mesh_rank_main(job_json):
                                                       f"a1_{tag}"),
                 flags + ["--mesh_shape", "1"]))
             report[tag] = {"text": text, **seen}
+        report["backend"] = torch.distributed.get_backend()
+    elif job["kind"] == "spatial":
+        shape = tuple(job["shape"])
+        report["spatial"] = p14_spatial(torch, wrappers, os.path.join(
+            job["tmp"], f"spatial_rank{rank}.npz"), shape)
         report["backend"] = torch.distributed.get_backend()
     elif job["kind"] == "steps":
         world = int(os.environ["WORLD_SIZE"])
@@ -4665,7 +4677,13 @@ def mesh_rank_main(job_json):
         from mst_tpu_torch import grid
 
         del named, opt, tree
-        release(torch)  # the steps' cached blocks go before the grid's
+        release(torch)  # the steps' cached blocks go before the spatial
+        report["spatial"] = p14_spatial(torch, wrappers, os.path.join(
+            job["tmp"], f"spatial_rank{rank}.npz"))
+        release(torch)  # and the spatial pass's before the test CLI's
+        report["spatial_cli"] = p14_spatial_cli(torch, wrappers,
+                                                job["test"])
+        release(torch)  # and the test CLI's before the grid's
         t0 = time.perf_counter()
         buf = io_text.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -4847,8 +4865,9 @@ def mesh_scaling(torch, card, worlds=(2, 4), n_steps=P14_SCALE_STEPS):
     1 as 14b holds the world of 2 (hold_world); the largest world's ranks
     each see their own card alone, and must still take NCCL. Then the
     step's and the pass's ms of every world: strong scaling of one global
-    batch. Needs
-    max(worlds) cards; on a host with four:
+    batch; and the same TTST pass on a (1, max(worlds)) ('data', 'space')
+    mesh over NCCL, a card a rank, against the world of 1 (hold_spatial).
+    Needs max(worlds) cards; on a host with four:
 
         python3 -c 'import chip_smoke; chip_smoke.mesh_scaling_main()'
     -> {N: (median step ms past the first, TTST pass ms)}."""
@@ -4880,6 +4899,15 @@ def mesh_scaling(torch, card, worlds=(2, 4), n_steps=P14_SCALE_STEPS):
                   f"{[[round(x, 1) for x in r['step_ms']] for r in reps]}; "
                   f"the TTST pass by rank "
                   f"{[round(r['val_ms'], 1) for r in reps]}")
+        # the spatial eval over NCCL: one 'data' row of max(worlds) 'space'
+        # ranks, each on its own card
+        n = max(worlds)
+        release(torch)
+        reps = start_ranks(n, {"kind": "spatial", "tmp": tmp,
+                               "shape": [1, n]}, 900, own_card=True)()
+        check(all(r["backend"] == "nccl" for r in reps),
+              f"14 x{n} spatial: backends {[r['backend'] for r in reps]}")
+        hold_spatial(tmp, one, rep1, reps, card, (1, n), f"14 x{n} spatial")
     finally:
         torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4910,6 +4938,405 @@ def mesh_scaling_main():
     return 0
 
 
+# ---- phase 14e: the spatial ('data', 'space') mesh's eval
+P14_SPATIAL = (1, 2)     # data x space, in phase 14's world of 2
+PARTIAL_SHAPE = (160, 176, 480, 32)  # the eval decode tail's slab at S = 2
+# px: the ranks' merged partial statistics against the whole-map kernel on
+# the gathered activations, and the spatial pass's best_traj (its
+# coordinates are the merged statistics') against the world of 1's. Both
+# sides sum the same f32 terms in other orders, and take each pixel's
+# weight as ex2(l - m) against another running max m: l - m rounds to
+# 2^-24 of its size, which moves a weight by ln 2 x that (2^-22 for
+# ex2.approx itself), so peaked maps (large l) differ most. A weight's
+# relative error shifts the coordinate by at most the map's extent
+# (480 px, where an f32 ulp is 2^-15 px) times it: a few ulps at the
+# extent. merge_spread read at most 8 ulps (2.44e-4 px) over seeds, slab
+# counts and flat and peaked maps; the bar is 4x that, and a wrong merge
+# lands 4.6e4 bars off
+F32_ULP_AT_EXTENT = 2.0 ** -15
+P14_MERGE_ULPS = 32
+P14_MERGE_TOL = P14_MERGE_ULPS * F32_ULP_AT_EXTENT  # 9.77e-4 px
+MERGE_SEEDS = 4
+MERGE_SCALES = (0.3, 3.0)  # the predictor's weight scale: flat, peaked maps
+MERGE_WRONG = 100          # a wrong merge lands at least this many bars off
+P14_MEM_RATIO = 0.75     # a rank's eval-pass peak over the world of 1's;
+# predicted 0.5-0.6 (the K = 20 decode's maps halve; the goal logits'
+# waypoint channel, the samplers and the coarse levels stay whole)
+
+
+def partial_bound(R, H, W, C, P, elem_bytes=4):
+    """The partial variant reads x once and writes (R, P, 4) statistics;
+    the 2C operations a logit and its 8 of statistics, as fused_bound."""
+    return bound(R * H * W * C * elem_bytes + (C * P + P) * 4
+                 + R * P * 4 * 4, R * H * W * P * (2 * C + 8))
+
+
+def merge_spread(torch):
+    """The merge bar's readings: the spatial eval decode tail's whole map
+    (PARTIAL_SHAPE's rows x 2 = 352, f32, P = 12) for MERGE_SEEDS seeds at
+    each weight scale of MERGE_SCALES, cut into 2 and into 4 slabs, each
+    slab's partial statistics folded in slab order (online_stats.fold,
+    merge_ranks' arithmetic) against the whole-map kernel: the largest
+    difference in px and in f32 ulps of the coordinate itself. Two wrong
+    merges (the last slab's statistics dropped; every slab's y counted
+    from row 0) must land MERGE_WRONG bars off -> (largest px, largest
+    ulps, the nearest wrong merge's px)."""
+    from mst_tpu_torch.ops.kernels.fused_predict import (
+        fused_predictor_softargmax, fused_predictor_softargmax_partial)
+    from mst_tpu_torch.ops.kernels.online_stats import fold
+
+    R, rows, W, C = PARTIAL_SHAPE
+    H = 2 * rows
+    g = torch.Generator(device="cuda").manual_seed(23)
+    by_scale = dict.fromkeys(MERGE_SCALES, 0.0)
+    worst_ulps = 0.0
+    wrong = math.inf
+    for _ in range(MERGE_SEEDS):
+        for scale in MERGE_SCALES:
+            x = torch.randn((R, H, W, C), generator=g,
+                            device="cuda").relu_()
+            w = torch.randn((C, 12), generator=g, device="cuda") * scale
+            b = torch.randn((12,), generator=g, device="cuda")
+            whole = fused_predictor_softargmax(x, w, b)
+            ulp = torch.exp2(torch.floor(torch.log2(
+                whole.abs().clamp_min(1.0))) - 23)
+            for n in (2, 4):
+                parts, from0 = [], []
+                for lo in range(0, H, H // n):
+                    sl = x[:, lo:lo + H // n].contiguous()
+                    parts.append(fused_predictor_softargmax_partial(
+                        sl, w, b, lo))
+                    from0.append(fused_predictor_softargmax_partial(
+                        sl, w, b, 0))
+                d = (fold(parts) - whole).abs()
+                by_scale[scale] = max(by_scale[scale], float(d.max()))
+                worst_ulps = max(worst_ulps, float((d / ulp).max()))
+                for bad in (parts[:-1], from0):
+                    wrong = min(wrong, float((fold(bad) - whole).abs()
+                                             .max()))
+            del x
+    torch.cuda.empty_cache()
+    worst_px = max(by_scale.values())
+    print(f"merge spread ({MERGE_SEEDS} seeds x weight scales "
+          f"{MERGE_SCALES}, 2 and 4 slabs of {(R, H, W, C)}, P = 12): the "
+          f"merged statistics at most "
+          f"{ {k: f'{v:.3e}' for k, v in by_scale.items()} } px by weight "
+          f"scale, {worst_px:.3e} px = "
+          f"{worst_px / F32_ULP_AT_EXTENT:.2f} ulps at the map's extent "
+          f"({worst_ulps:.2f} ulps of the coordinate itself) off the "
+          f"whole-map kernel (bar {P14_MERGE_TOL:.3e} px = "
+          f"{P14_MERGE_ULPS} ulps); the nearest wrong merge {wrong:.3e} px "
+          f"off")
+    check(worst_px <= P14_MERGE_TOL,
+          f"merge spread: {worst_px:.3e} px over the bar")
+    check(wrong >= MERGE_WRONG * P14_MERGE_TOL,
+          f"merge spread: a wrong merge is only {wrong:.3e} px off")
+    return worst_px, worst_ulps, wrong
+
+
+def check_partial_kernel(torch):
+    """The partial-statistics variant of the fused kernel against its
+    plain version in f32 and bf16, each slab's own soft-argmax (fold of
+    its statistics, px) and its max statistic m (log2 units), on edge
+    cases at a row offset (ragged, an image smaller than a stage, odd
+    channels, a view off 16-byte alignment, P = 30); two and three slabs
+    of a map cut at uneven rows, merged in order (online_stats.fold),
+    against the whole-map kernel, and their spread (merge_spread); f16
+    refused; timed at the spatial eval decode tail's slab (PARTIAL_SHAPE,
+    P = 12, row0 176) beside its bound -> its record for the JSON
+    line."""
+    from mst_tpu_torch.ops.kernels.fused_predict import (
+        fused_predictor_softargmax, fused_predictor_softargmax_partial,
+        fused_predictor_softargmax_partial_plain)
+    from mst_tpu_torch.ops.kernels.online_stats import fold
+    from mst_tpu_torch.probes.serving_kernels import fused_inputs
+
+    partial, plain = (fused_predictor_softargmax_partial,
+                      fused_predictor_softargmax_partial_plain)
+    g = torch.Generator(device="cuda").manual_seed(17)
+
+    def case(R, H, W, C, P, dtype=torch.float32, offset=0):
+        buf = torch.randn(R * H * W * C + offset, generator=g, device="cuda")
+        x = buf.to(dtype)[offset:].view(R, H, W, C).relu_()
+        w = (torch.randn((C, P), generator=g, device="cuda") * 0.3).to(dtype)
+        return x, w, torch.randn((P,), generator=g, device="cuda")
+
+    err = 0.0
+    for dtype, tol in ((torch.float32, FUSED_TOL),
+                       (torch.bfloat16, FUSED_BF16_TOL)):
+        cases = [("ragged", case(3, 40, 56, 32, 12, dtype) + (96,)),
+                 ("one image smaller than a stage",
+                  case(1, 10, 20, 32, 12, dtype) + (7,)),
+                 ("odd channels", case(2, 24, 40, 6, 5, dtype) + (13,)),
+                 ("unaligned view", case(2, 40, 56, 32, 12, dtype, 1)
+                  + (40,)),
+                 ("P 30", case(2, 44, 60, 32, 30, dtype) + (22,))]
+        check(cases[3][1][0].data_ptr() % 16 != 0,
+              "the unaligned view is aligned")
+        label = f"partial statistics {str(dtype).split('.')[-1]}"
+        err = max(err, check_cases(
+            torch, label, lambda *a: fold([partial(*a)]),
+            lambda *a: fold([plain(*a)]), cases, tol))
+        m_err = max(float((partial(*a)[..., 0] - plain(*a)[..., 0]).abs()
+                          .max()) for _, a in cases)
+        check(m_err <= 1e-3, f"{label}: the max statistic m is {m_err} "
+              "off its plain version")
+        x, w, b = case(4, 40, 56, 32, 12, dtype)
+        whole = fused_predictor_softargmax(x, w, b)
+        for cuts in ((0, 17, 40), (0, 8, 21, 40)):
+            merged = fold([partial(x[:, lo:hi].contiguous(), w, b, lo)
+                           for lo, hi in zip(cuts[:-1], cuts[1:])])
+            e = float((merged - whole).abs().max())
+            print(f"{label}: slabs {cuts} merged against the whole-map "
+                  f"kernel: {e:.3e} px (tol {P14_MERGE_TOL})")
+            check(e <= P14_MERGE_TOL, f"{label}: merged slabs {cuts} off")
+            err = max(err, e)
+    err = max(err, merge_spread(torch)[0])
+    try:
+        partial(*(t.half() for t in case(2, 8, 8, 32, 12)), 0)
+        check(False, "the partial kernel took f16")
+    except ValueError:
+        pass
+    R, H, W, C = PARTIAL_SHAPE
+    x, w, b = fused_inputs(12, shape=PARTIAL_SHAPE)
+    err = max(err, check_cases(
+        torch, "partial statistics", lambda *a: fold([partial(*a)]),
+        lambda *a: fold([plain(*a)]),
+        [("the spatial decode tail's slab", (x, w, b, H))], FUSED_TOL))
+    rec = time_kernel(
+        torch, f"fused_predict_partial {PARTIAL_SHAPE} x ({C}, 12)",
+        lambda: partial(x, w, b, H), lambda: plain(x, w, b, H), 20, 3,
+        partial_bound(R, H, W, C, 12))
+    del x, w, b
+    torch.cuda.empty_cache()
+    return {"name": "fused_predict_partial", "route": "cuda",
+            "source": "mst_tpu_torch/csrc/fused_predict.cu",
+            "replaces": "mst_tpu/ops/pallas/fused_predict.py:109",
+            "max_abs_err": err, "library_ms": None,
+            **{k: rec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by")}}
+
+
+def p14_spatial(torch, wrappers, out_path, shape=P14_SPATIAL):
+    """(e) on this rank of phase 14's world of 2: 14b's K = 20 TTST pass
+    (the model as p14_model makes it, phase 6b's batch, the world of 1's
+    draws) on a `shape` ('data', 'space') mesh of the world, the rank
+    holding its slab of the scene map's rows, twice; the second pass
+    timed, its peak device memory above its start, and its kernel
+    launches counted (the counts of the job are restored after, with
+    them). Then, on the pass's decode
+    inputs: the ranks' merged partial statistics against the whole-map
+    kernel on the gathered activations, and the partial kernel against
+    its plain version in f32 and bf16 -> report; the outputs and the
+    waypoint samples to out_path."""
+    import numpy as np
+
+    from mst_tpu_torch.config import step_config, ynet_config
+    from mst_tpu_torch.ops.kernels.fused_predict import (
+        fused_predictor_softargmax, fused_predictor_softargmax_partial,
+        fused_predictor_softargmax_partial_plain)
+    from mst_tpu_torch.ops.kernels.online_stats import fold, merge_ranks
+    from mst_tpu_torch.parallel import mesh as mesh_lib
+    from mst_tpu_torch.train.steps import make_eval_step
+
+    H, W, B = 352, 480, 8
+    mesh = mesh_lib.mesh_from_shape(list(shape), ["data", "space"], "cuda")
+    slab = mesh_lib.space_slab(mesh, H)
+    params, weights, state, _, _ = p14_model(torch, "mosa_2")
+    batch = fine_tune_batch(torch, params, H, W, B)
+    batch["semantic"] = slab.take(batch["semantic"]).contiguous()
+    scfg = step_config(params)
+    eval_step = make_eval_step(ynet_config(params), scfg, mesh)
+    held = {k: w.launches for k, w in wrappers.items()}
+    report = {}
+    for i in range(2):
+        gen = torch.Generator("cuda").manual_seed(eval_seed_p14())
+        torch.cuda.synchronize()
+        if i:
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        feats, wps = eval_step.forward(weights, state, batch, gen)
+        out = eval_step.global_outputs(eval_step.decode_and_score(
+            weights, feats, wps, batch["traj"], batch["mask"]))
+        torch.cuda.synchronize()
+        report["ms"] = 1e3 * (time.perf_counter() - t0)
+    report["peak"] = torch.cuda.max_memory_allocated() - base
+    report["launches"] = {k: w.launches for k, w in wrappers.items()}
+    K = wps.shape[0]
+    report["chunks"] = K // (scfg.eval_k_chunk or K)
+    report["rows"] = [f.shape[1] for f in feats]
+    np.savez(out_path, wps=wps.cpu().numpy(),
+             **{k: v.cpu().numpy() for k, v in out.items()})
+    x, w, b = eval_step.prepredictor(weights, feats)(wps)
+    report["partial_shape"] = list(x.shape)
+    stats = fused_predictor_softargmax_partial(x, w, b, slab.lo)
+    merged = merge_ranks(stats, slab)
+    whole = fused_predictor_softargmax(slab.gather(x), w, b)
+    report["merge_err"] = float((merged - whole).abs().max())
+    for dtype, key in ((torch.float32, "plain_err"),
+                       (torch.bfloat16, "plain_err_bf16")):
+        xd, wd = x.to(dtype), w.to(dtype)
+        report[key] = float((fold([fused_predictor_softargmax_partial(
+            xd, wd, b, slab.lo)]) - fold([
+                fused_predictor_softargmax_partial_plain(
+                    xd, wd, b, slab.lo)])).abs().max())
+    for k, w in wrappers.items():  # the comparisons' launches do not count
+        w.launches = held[k] + report["launches"][k]
+    return report
+
+
+def hold_spatial(tmp, one, rep1, reps, card, shape=P14_SPATIAL,
+                 label="14e"):
+    """Phase 14e's checks of the spatial pass on each rank of the world of
+    2 (its report and spatial_rank<r>.npz in tmp) against the world of 1's
+    TTST pass of 14b (one, rep1): the waypoint samples bit-equal, ade and
+    fde within P14_VAL_RTOL, best_traj within P14_MERGE_TOL model px; the
+    ranks' merged partial statistics within P14_MERGE_TOL of the
+    whole-map kernel; the partial kernel against its plain version; its
+    launches one a decode chunk on each rank, the whole-map fused kernel
+    none, the rows kernel (TTST's goal point) some; each rank's peak below
+    P14_MEM_RATIO of the world of 1's. `shape`: the ranks' ('data',
+    'space') mesh, one 'data' row. Prints them -> the partial variant's
+    {launches by rank, max error}."""
+    import numpy as np
+
+    from mst_tpu_torch.config import get_params
+
+    rf = get_params("sdd_shortterm_train.yaml")["resize_factor"]
+    valid = one["eval/mask"] > 0
+    val_err = px = 0.0
+    for r, rep in enumerate(reps):
+        sp = rep["spatial"]
+        out = p14_read(os.path.join(tmp, f"spatial_rank{r}.npz"))
+        check(np.array_equal(out["wps"], one["eval/wps"]),
+              f"{label}: rank {r}'s waypoint samples differ from the world "
+              f"of 1's ({int((out['wps'] != one['eval/wps']).sum())} "
+              "values)")
+        val_err = max(val_err, max(float(np.max(
+            np.abs(out[k][valid] - one[f"eval/{k}"][valid])
+            / one[f"eval/{k}"][valid])) for k in ("ade", "fde")))
+        px = max(px, float(np.abs(out["best_traj"] - one["eval/best_traj"])
+                           .max()) * rf)
+        launches = sp["launches"]
+        check(launches["fused_predict_partial"] == sp["chunks"] > 0
+              and launches["fused_predict"] == 0
+              and launches["softargmax_rows"] > 0,
+              f"{label}: rank {r}'s launches {launches}, {sp['chunks']} "
+              "decode chunk(s)")
+        check(sp["rows"][0] == 352 // shape[1],
+              f"{label}: rank {r}'s finest features hold {sp['rows'][0]} "
+              "rows")
+        check(sp["merge_err"] <= P14_MERGE_TOL
+              and sp["plain_err"] <= FUSED_TOL
+              and sp["plain_err_bf16"] <= FUSED_BF16_TOL,
+              f"{label}: rank {r}: merged {sp['merge_err']:.3e} px off the "
+              f"whole-map kernel, the kernel {sp['plain_err']:.3e} (f32) "
+              f"and {sp['plain_err_bf16']:.3e} (bf16) off its plain one")
+    check(val_err <= P14_VAL_RTOL and px <= P14_MERGE_TOL,
+          f"{label}: ADE/FDE {val_err:.3e} relative, best_traj {px:.3e} "
+          "model px off the world of 1's")
+    ratio = [rep["spatial"]["peak"] / rep1["val_peak"] for rep in reps]
+    check(max(ratio) < P14_MEM_RATIO,
+          f"{label}: a rank's eval-pass peak is {max(ratio):.3f} of the "
+          f"world of 1's (bar {P14_MEM_RATIO})")
+    sps = [rep["spatial"] for rep in reps]
+    print(f"{label}: the spatial eval on a {shape[0]} x {shape[1]} "
+          f"('data', 'space') mesh ({card}): rows a rank "
+          f"holds by level {sps[0]['rows']}; waypoint samples bit-equal to "
+          f"the world of 1's on every rank, ADE/FDE {val_err:.3e} relative, "
+          f"best_traj {px:.3e} model px; the partial variant on "
+          f"{sps[0]['partial_shape']}: launches by rank "
+          f"{[sp['launches']['fused_predict_partial'] for sp in sps]} "
+          f"({sps[0]['chunks']} decode chunk(s)), merged "
+          f"{max(sp['merge_err'] for sp in sps):.3e} px off the whole-map "
+          f"kernel, {max(sp['plain_err'] for sp in sps):.3e} (f32) and "
+          f"{max(sp['plain_err_bf16'] for sp in sps):.3e} px (bf16) off its "
+          f"plain version; eval-pass peak memory by rank "
+          f"{[round(sp['peak'] / 2**30, 3) for sp in sps]} GiB against the "
+          f"world of 1's {rep1['val_peak'] / 2**30:.3f} GiB, ratios "
+          f"{[round(x, 3) for x in ratio]} (bar {P14_MEM_RATIO}); the "
+          f"pass's ms by rank {[round(sp['ms'], 1) for sp in sps]} against "
+          f"the world of 1's {rep1['val_ms']:.1f} (its second pass each)")
+    return {"launches": [sp["launches"]["fused_predict_partial"]
+                         for sp in sps],
+            "max_abs_err": max(max(sp["merge_err"], sp["plain_err"],
+                                   sp["plain_err_bf16"]) for sp in sps)}
+
+
+def p14_spatial_cli(torch, wrappers, args, shape=P14_SPATIAL):
+    """(e) on this rank: the test CLI's main(), `python -m
+    mst_tpu_torch.test args --mesh_shape D S --mesh_axes data space`, on
+    a `shape` spatial mesh of the world, every kernel's count set to 0
+    just before it and read just after (the job's counts then add them)
+    -> {its stdout, its launches, host s}."""
+    from mst_tpu_torch import test as test_cli
+    from mst_tpu_torch.config import get_parser
+
+    held = {k: w.launches for k, w in wrappers.items()}
+    parsed = get_parser(False).parse_args(args + [
+        "--mesh_shape", *map(str, shape), "--mesh_axes", "data", "space"])
+    buf = io_text.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        _, launches = count_launches(wrappers,
+                                     lambda: test_cli.main(parsed))
+    torch.cuda.synchronize()
+    for k, w in wrappers.items():
+        w.launches = held[k] + launches[k]
+    return {"text": buf.getvalue(), "launches": launches,
+            "s": time.perf_counter() - t0}
+
+
+def test_metrics(text):
+    """The Test ADE / FDE values a test CLI printed, in order."""
+    return [float(v) for v in re.findall(r"Test [AF]DE: ([\d.eE+-]+)",
+                                         text)]
+
+
+def hold_spatial_cli(text1, launches1, secs1, reps, card, label="14e"):
+    """Phase 14e through the entry point: each rank's test CLI on the
+    spatial mesh (p14_spatial_cli) against the same CLI without a mesh in
+    this process (its stdout, launches and host s): every Test ADE / FDE
+    it prints (each round's and the average) within P14_VAL_RTOL; its
+    launches the world of 1's with the partial variant in the fused
+    kernel's place (one a decode chunk) and the rows kernel's (TTST's
+    goal point) unchanged -> the partial variant's launches by rank."""
+    want = test_metrics(text1)
+    check(want and all(map(math.isfinite, want)),
+          f"{label}: the world of 1's test CLI printed {want}")
+    expect = dict(launches1, fused_predict=0,
+                  fused_predict_partial=launches1["fused_predict"])
+    check(expect["fused_predict_partial"] > 0,
+          f"{label}: the world of 1's test CLI launched {launches1}")
+    err = 0.0
+    for r, rep in enumerate(reps):
+        cli = rep["spatial_cli"]
+        got = test_metrics(cli["text"])
+        check(len(got) == len(want), f"{label}: rank {r}'s test CLI "
+              f"printed {got}, the world of 1's {want}")
+        err = max(err, *(abs(g - w) / abs(w) for g, w in zip(got, want)))
+        check(cli["launches"] == expect,
+              f"{label}: rank {r}'s test CLI launched {cli['launches']}, "
+              f"expected {expect}")
+    check(err <= P14_VAL_RTOL, f"{label}: the test CLI's ADE/FDE "
+          f"{err:.3e} relative off the world of 1's")
+    ran = [{k: v for k, v in rep["spatial_cli"]["launches"].items() if v}
+           for rep in reps]
+    print(f"{label}: `python -m mst_tpu_torch.test --mesh_shape "
+          f"{' '.join(map(str, P14_SPATIAL))} --mesh_axes data space` "
+          f"(main() on each rank; {card}): Test ADE/FDE {got} on every "
+          f"rank, {err:.3e} relative off the same CLI without a mesh "
+          f"{want}; launches by rank {ran}, without a mesh "
+          f"{ {k: v for k, v in launches1.items() if v} }; host s by rank "
+          f"{[round(rep['spatial_cli']['s'], 1) for rep in reps]}, without "
+          f"a mesh {secs1:.1f}")
+    return [rep["spatial_cli"]["launches"]["fused_predict_partial"]
+            for rep in reps]
+
+
 def p14_read(path):
     import numpy as np
 
@@ -4933,8 +5360,19 @@ def mesh_path(torch, wrappers, card):
     (c) torch.distributed.checkpoint: saved by the world of 2, restored
         here;
     (d) the grid, 2 seeds x 1 lr, 1 epoch, one run a rank, against the
-        same grid in this process."""
+        same grid in this process;
+    (e) the spatial eval in the same world of 2, on a (1, 2) ('data',
+        'space') mesh: 14b's TTST pass with each rank holding half of
+        every map's rows (p14_spatial), against the world of 1's
+        (hold_spatial); then the test CLI's main() on that mesh over (a)'s
+        fine-tuned model with TTST on (p14_spatial_cli), against the same
+        CLI without a mesh here (hold_spatial_cli).
+    -> ({kernel: [launches on each rank]}, the partial variant's record:
+    its launches on each rank in (e)'s test CLI, and its errors)."""
+    import glob
+
     import numpy as np
+    import yaml
 
     from mst_tpu_torch import grid, io
     from mst_tpu_torch.config import get_params
@@ -4965,7 +5403,8 @@ def mesh_path(torch, wrappers, card):
         # ---- (b) the world of 1 in this process
         for w in wrappers.values():
             w.launches = 0
-        rep1, _, _ = p14_steps(torch, None, os.path.join(tmp, "w1.npz"))
+        rep1, _, _ = p14_steps(torch, None, os.path.join(tmp, "w1.npz"),
+                               n_evals=2)
         one = p14_read(os.path.join(tmp, "w1.npz"))
         p14_1 = {k: w.launches for k, w in wrappers.items()}
 
@@ -5014,11 +5453,30 @@ def mesh_path(torch, wrappers, card):
               f"{flows0['fused'][1]['per_replay']}; the world's launches "
               f"{ {k: v for k, v in cli['launches'].items() if v} }")
 
+        # ---- (e) the test CLI without a mesh, on the fine-tuned model of
+        # (a) with TTST on, to hold the spatial mesh's run against
+        with open(cfg) as f:
+            test_cfg = yaml.safe_load(f)
+        test_cfg["use_TTST"] = True
+        with open(os.path.join(tmp, "spatial.yaml"), "w") as f:
+            yaml.safe_dump(test_cfg, f)
+        (delta,) = glob.glob(os.path.join(tmp, "a0_loop",
+                                          "*__original.npz"))
+        test_args = ["--config_filename", os.path.join(tmp, "spatial.yaml"),
+                     "--batch_size", str(LOOP_B), "--dataset_path", "synth",
+                     "--load_data", "predefined", "--train_net", "mosa_2",
+                     "--position", *POSITIONS, "--pretrained_ckpt", base,
+                     "--tuned_ckpt", delta, "--n_round", "1", "--device",
+                     "cuda"]
+        test1, test1_s, test1_launches, _ = run_main(
+            "14e world of 1", "mst_tpu_torch.test", test_args, tmp,
+            wrappers)
+
         # ---- (b) the world of 2 on the one card, (c) its checkpoint and
         # (d) its grid; the world of 1's grid here meanwhile would share the
         # card, so it runs after
         release(torch)
-        wait2 = start_ranks(2, {"kind": "mesh", "tmp": tmp,
+        wait2 = start_ranks(2, {"kind": "mesh", "tmp": tmp, "test": test_args,
                                 "grid": grid_args + [
                                     "--ckpt_path", os.path.join(tmp, "g2"),
                                     "--log_dir", os.path.join(tmp, "g2l")]},
@@ -5032,6 +5490,9 @@ def mesh_path(torch, wrappers, card):
               f"{[round(r['val_ms'], 1) for r in reps]} (the two ranks share "
               f"one card and talk through the host: no scaling figure)")
         serial_bn_cost(torch, card)
+        spatial = hold_spatial(tmp, one, rep1, reps, card)
+        spatial["launches"] = hold_spatial_cli(test1, test1_launches,
+                                               test1_s, reps, card)
 
         # ---- (c) the world of 2's checkpoint restored in a world of 1
         saved = p14_read(os.path.join(tmp, "dcp_saved.npz"))
@@ -5080,7 +5541,7 @@ def mesh_path(torch, wrappers, card):
     print(f"phase 14 launches: world of 2 by rank {per_rank}; this "
           f"process's world of 1 {p14_1}; {time.perf_counter() - t_phase:.1f}"
           f" s")
-    return per_rank
+    return per_rank, spatial
 
 
 # ---------------------------------------------------------------------------
@@ -5484,7 +5945,8 @@ def main():
     # every launch: late in a long process it loses kernel records)
     records = [check_rows_kernel(torch), check_fused_kernel(torch)]
     bf16_records = check_bf16_kernels(torch)
-    for r in records + bf16_records:
+    partial_rec = check_partial_kernel(torch)
+    for r in records + bf16_records + [partial_rec]:
         print(f"{r['name']}: {r['ms']:.4f} ms (device {r['device_ms']:.4f} "
               f"ms), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -5680,8 +6142,16 @@ def main():
     # of 2 sharing the card on gloo, its checkpoint and its grid
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    p14 = mesh_path(torch, kernel_wrappers(), card)
+    p14, spatial = mesh_path(torch, kernel_wrappers(), card)
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    # the partial variant's main path is phase 14e's test CLI on the
+    # spatial mesh
+    partial_rec["launches"] = sum(spatial["launches"])
+    partial_rec["max_abs_err"] = max(partial_rec["max_abs_err"],
+                                     spatial["max_abs_err"])
+    check(all(spatial["launches"]), "fused_predict_partial never ran on a "
+          "rank of the spatial path")
+    records.append(partial_rec)
 
     # ---- 10. from raw annotations to a resumed run, and ETH
     torch.cuda.empty_cache()

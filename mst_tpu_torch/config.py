@@ -5,10 +5,12 @@ mst_tpu/train/trainer.py:312-351), with the JAX package's key vocabulary
 and flag surface, plus --device.
 
 Flags the port does not act on yet raise NotImplementedError instead of
-being dropped: the spatial mesh, --mesh_axes data space, from the
-Experiment, the CLIs and the grid (check_loop_ported); --mesh_shape N
-and --mesh_shape R D (--mesh_axes replica data) run data-parallel over
-the ranks torchrun starts (parallel/mesh.py). An unknown --compute_dtype
+being dropped: training on the spatial mesh, --mesh_axes data space,
+from the train CLI and Experiment.train (check_loop_ported; the grid
+refuses it as mst_tpu's does), whose eval runs (Experiment.test, the
+test CLI); --mesh_shape N and --mesh_shape R D (--mesh_axes replica
+data) run data-parallel over the ranks torchrun starts
+(parallel/mesh.py). An unknown --compute_dtype
 raises ValueError (parse_compute_dtype).
 --seg_cache_device_mb sizes a TPU-side cache and is accepted and unused.
 The segmentation backbone is used when its weight file exists
@@ -76,9 +78,10 @@ def get_parser(is_train: bool) -> argparse.ArgumentParser:
                              " data), one process a device under torchrun;"
                              " its product must be the world size")
     parser.add_argument("--mesh_axes", default=None, type=str, nargs="+",
-                        help="mesh axis names: data, or replica data; the"
-                             " spatial data space is not ported yet"
-                             " (raises)")
+                        help="mesh axis names: data, replica data, or"
+                             " data space (the spatial mesh: the scene"
+                             " maps' H over 'space'; eval only, training"
+                             " on it raises)")
     parser.add_argument("--compute_dtype", default="float32",
                         choices=["float32", "bfloat16"],
                         help="the convs' dtype; bfloat16 keeps f32 master "
@@ -228,11 +231,12 @@ def parse_compute_dtype(name) -> torch.dtype:
                          f"{sorted(_COMPUTE_DTYPES)}") from None
 
 
-def check_loop_ported(params: dict):
+def check_loop_ported(params: dict, training: bool = True):
     """Raise on what mst_tpu's Experiment loop takes and the port does not
-    act on yet: the spatial mesh (a 'space' axis in --mesh_axes). Then an
-    unknown compute dtype."""
-    if "space" in (params.get("mesh_axes") or ()):
+    act on yet: training on the spatial mesh (a 'space' axis in
+    --mesh_axes; an eval, training False, runs on it). Then an unknown
+    compute dtype."""
+    if training and "space" in (params.get("mesh_axes") or ()):
         raise NotImplementedError(SPATIAL_NOT_PORTED)
     parse_compute_dtype(params.get("compute_dtype", "float32"))
 

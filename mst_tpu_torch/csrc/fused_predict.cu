@@ -69,6 +69,14 @@
 // ops/kernels/fused_predict.py mirrors the work split (fused_work) and the
 // merge arithmetic (fused_split_reference) for the CPU tests;
 // chip_smoke.py holds the split against fused_predict_items.
+//
+// The partial-statistics variant (fused_predict_partial_launch) is the same
+// kernel over one H slab of a spatial mesh: x holds rows [row0, row0 + H)
+// of each map, each pixel's y is offset by row0, and the row's last block
+// writes the merged statistics (m, s, sx, sy) in log2 units in place of
+// finishing them, so that the 'space' ranks merge their slabs' statistics
+// (ops/kernels/online_stats.merge_ranks) into the whole map's soft-argmax.
+// Its bound is the same bytes: the slab's x read once.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -328,8 +336,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                          const typename Elem<kEB>::T* __restrict__ w,
                          const float* __restrict__ b,
                          float4* __restrict__ part, int* __restrict__ arrivals,
-                         float* __restrict__ out, int R, int HW, int W, int C,
-                         int P, float eps) {
+                         float* __restrict__ out, float4* __restrict__ stats,
+                         int R, int HW, int W, int C, int P, int row0,
+                         float eps) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = conv_wgmma::align_1024(smem_raw);
   const Layout L(C, P);
@@ -421,7 +430,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int i = 0; i < kPix; ++i) {
           const int f = s + px + 32 * i, y = f / W;
           fx[i] = static_cast<float>(f - y * W);
-          fy[i] = static_cast<float>(y);
+          fy[i] = static_cast<float>(y + row0);
         }
 #pragma unroll
         for (int p = 0; p < PC; ++p) {
@@ -469,10 +478,15 @@ __global__ void __launch_bounds__(kThreads, 1)
               __ldcg(part + static_cast<long long>(v + it.row) * P + tid);
           a = online_softmax::merge2(a, Stats{q.x, q.y, q.z, q.w});
         }
-        const float inv = 1.f / (a.s + eps);
-        float* o = out + (static_cast<long long>(it.row) * P + tid) * 2;
-        o[0] = a.sx * inv;
-        o[1] = a.sy * inv;
+        if (stats != nullptr) {  // the partial variant: the statistics
+          stats[static_cast<long long>(it.row) * P + tid] =
+              make_float4(a.m, a.s, a.sx, a.sy);
+        } else {
+          const float inv = 1.f / (a.s + eps);
+          float* o = out + (static_cast<long long>(it.row) * P + tid) * 2;
+          o[0] = a.sx * inv;
+          o[1] = a.sy * inv;
+        }
       }
       if (tid == 0) arrivals[it.row] = 0;
     }
@@ -507,7 +521,8 @@ struct Args {
   float4* part;
   int* arrivals;
   float* out;
-  int R, HW, W, C, P, blocks;
+  float4* stats;  // the partial variant's output, else nullptr
+  int R, HW, W, C, P, blocks, row0;
   float eps;
   cudaStream_t stream;
 };
@@ -520,7 +535,7 @@ cudaError_t launch(const CUtensorMap& map, const Args& a) {
   if (err != cudaSuccess) return err;
   kernel<<<a.blocks, kThreads, bytes, a.stream>>>(
       map, a.x, static_cast<const typename Elem<kEB>::T*>(a.w), a.b, a.part,
-      a.arrivals, a.out, a.R, a.HW, a.W, a.C, a.P, a.eps);
+      a.arrivals, a.out, a.stats, a.R, a.HW, a.W, a.C, a.P, a.row0, a.eps);
   return cudaGetLastError();
 }
 
@@ -602,8 +617,29 @@ int fused_predict_launch(const void* x, const void* w, const float* b,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a = {x, w, b, reinterpret_cast<float4*>(part), arrivals, out,
-                  R, HW, W, C, P, blocks, eps,
+                  nullptr, R, HW, W, C, P, blocks, 0, eps,
                   static_cast<cudaStream_t>(stream_ptr)};
+  return elem_bytes == 4 ? run<4>(a) : run<2>(a);
+}
+
+// The partial-statistics variant: x (R, HW, C) holds rows [row0, row0 +
+// HW / W) of each map; stats (R, P, 4) f32 gets each row's and channel's
+// (m, s, sx, sy) in log2 units, y offset by row0. The rest as
+// fused_predict_launch.
+int fused_predict_partial_launch(const void* x, const void* w,
+                                 const float* b, float* part, int* arrivals,
+                                 float* stats, int R, int HW, int W, int C,
+                                 int P, int elem_bytes, int blocks, int row0,
+                                 void* stream_ptr) {
+  const long long pixels = static_cast<long long>(R) * HW;
+  if (P < 1 || P > kMaxP || C < 1 || C > kMaxC || blocks < 1 ||
+      (elem_bytes != 4 && elem_bytes != 2) || pixels >= (1LL << 31) ||
+      row0 < 0 || row0 >= (1 << 24)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args a = {x, w, b, reinterpret_cast<float4*>(part), arrivals,
+                  nullptr, reinterpret_cast<float4*>(stats), R, HW, W, C, P,
+                  blocks, row0, 0.f, static_cast<cudaStream_t>(stream_ptr)};
   return elem_bytes == 4 ? run<4>(a) : run<2>(a);
 }
 

@@ -43,7 +43,8 @@ the mesh: rank i of n takes block i of the runs, padded to a multiple of
 n with duplicates of the last run, whose results are discarded, and
 sweeps its runs on its own card without collectives; every run's
 results are gathered to rank 0, which writes every run's files as a
-world of one would. The spatial mesh (--mesh_axes data space) raises.
+world of one would. The spatial mesh (--mesh_axes data space) exits
+with mst_tpu's SystemExit (mst_tpu/grid.py:321-324).
 
     torchrun --nproc_per_node 2 -m mst_tpu_torch.grid --mesh_shape 2 ...
 """
@@ -281,6 +282,10 @@ def run_grid(args):
     seconds, its epochs of programs (replays on a card) and their capture
     seconds, on this rank."""
     t0 = time.time()
+    if "space" in (args.mesh_axes or ()):
+        # mst_tpu's refusal (mst_tpu/grid.py:321-324)
+        raise SystemExit("the grid shards RUNS over the mesh; use a 1D "
+                         "--mesh_shape (no 'space' axis)")
     config_lib.check_loop_ported(vars(args))
     device = resolve_device(args.device)
     mesh = mesh_lib.mesh_from_shape(args.mesh_shape, args.mesh_axes, device)

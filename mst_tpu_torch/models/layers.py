@@ -6,6 +6,12 @@ contiguous NHWC tensor viewed as NCHW is exactly PyTorch's channels_last
 memory format, so the permutes below are free and the convs run
 channels_last. Weights are OIHW, PyTorch's own layout.
 
+On a spatial mesh a conv takes this rank's H slab of its input and a
+mesh.Slab of it (`slab`; None: the whole map): a k x k kernel reads
+(k - 1) / 2 halo rows of each neighbour's slab (parallel/halo.py) and
+pads only W, and H at the map's global top and bottom with zeros, which
+gives the whole map's conv on the slab's rows; a 1x1 conv needs no halo.
+
 A conv takes its input and weight in one dtype (f32, or bf16 under the
 steps' compute dtype) and raises TypeError otherwise, as
 lax.conv_general_dilated does. A batch norm follows JAX's promotion: in
@@ -27,17 +33,26 @@ def check_same_dtype(x, weight):
                         f"same dtype, got {x.dtype} and {weight.dtype}")
 
 
-def conv2d(x, weight, bias=None):
+def conv2d(x, weight, bias=None, slab=None):
     """SAME-padded stride-1 conv: x (N, H, W, Ci), weight (Co, Ci, k, k)
-    -> (N, H, W, Co)."""
+    -> (N, H, W, Co); with slab, x and the output are the slab's rows."""
     check_same_dtype(x, weight)
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding="same")
+    kh, kw = weight.shape[-2:]
+    if slab is None or kh == 1:
+        y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding="same")
+        return y.permute(0, 2, 3, 1)
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"a {kh}x{kw} conv on an H slab: the halo takes "
+                         "odd kernel sizes")
+    x = slab.exchange(x, (kh - 1) // 2)
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias,
+                 padding=(0, (kw - 1) // 2))
     return y.permute(0, 2, 3, 1)
 
 
-def conv_apply(params, x):
+def conv_apply(params, x, slab=None):
     """One conv of the parameter tree: 'weight' (+ 'bias')."""
-    return conv2d(x, params["weight"], params.get("bias"))
+    return conv2d(x, params["weight"], params.get("bias"), slab)
 
 
 def batchnorm_init(ch):
@@ -116,8 +131,9 @@ def lora_merged_weight(params, rank):
     return w + delta * (1.0 / rank)
 
 
-def lora_conv_apply(params, x, rank):
-    return conv2d(x, lora_merged_weight(params, rank), params.get("bias"))
+def lora_conv_apply(params, x, rank, slab=None):
+    return conv2d(x, lora_merged_weight(params, rank), params.get("bias"),
+                  slab)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,21 @@ axis. Parameters are a nested dict of tensors with the JAX package's names
 state is a second such tree: the serial adapters' batch-norm running
 statistics. The segmentation backbone is models/unet.py; its output is
 the semantic map (the steps run it, train/steps.py).
+
+On a spatial mesh the forward takes each pyramid level's mesh.Slab
+(`slabs`, mesh.Slab.levels: finest first, None where a level runs
+whole) and this rank's rows of the finest maps: every conv, pool and
+bilinear x2 then runs on its level's slab. The first level whose slab
+would hold odd rows (so that its own pool would straddle two ranks) runs
+whole on every rank, from its pooled slabs gathered over 'space'
+(ops/pooling.pool_down), and so do the coarser encoder levels and the
+decoders' matching levels; the decoders take their slab back at the
+upsample that returns to a sliced level. At 352 rows over two ranks the
+slabs run 176, 88, 44 and 22 rows, and levels 4 and 5 (22 and 11 rows)
+run whole: under 1/256 of the finest level's bytes, and no conv on an
+11-row slab, whose halo'd shape cuDNN was seen to sum otherwise than the
+whole map's. Eval mode only: train-mode batch norms over slabs are the
+next slice (they raise).
 """
 
 import dataclasses
@@ -19,7 +34,8 @@ from typing import Optional, Sequence
 import torch
 
 from mst_tpu_torch.models import layers
-from mst_tpu_torch.ops.pooling import max_pool_2x2, upsample_bilinear_2x
+from mst_tpu_torch.ops.pooling import (max_pool_2x2, pool_down,
+                                       upsample_bilinear_2x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -283,51 +299,62 @@ def tree_map(fn, tree):
 # forward
 # ---------------------------------------------------------------------------
 
-def _serial_apply(params, state, x, train):
+def _level(slabs, i):
+    """Level i's slab, None without slabs."""
+    return None if slabs is None else slabs[i]
+
+
+def _serial_apply(params, state, x, train, slab=None):
     """x + conv1x1(BN(x)) -> (y, new state)."""
     sp = params["serial_layer"]
+    if train and slab is not None:
+        from mst_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED
+        raise NotImplementedError(SPATIAL_NOT_PORTED)
     y, bn_state = layers.batchnorm_apply(sp["bn"], state["serial_layer"]["bn"],
                                          x, train)
-    return x + layers.conv_apply(sp["conv"], y), \
+    return x + layers.conv_apply(sp["conv"], y, slab), \
         {"serial_layer": {"bn": bn_state}}
 
 
-def _parallel_apply(convs, x):
+def _parallel_apply(convs, x, slab=None):
     """The sum of the parallel adapter's convs of x."""
-    return sum(layers.conv_apply(convs[i], x)
+    return sum(layers.conv_apply(convs[i], x, slab)
                for i in sorted(convs, key=int))
 
 
-def _conv_unit(params, state, cfg, level, x, train):
+def _conv_unit(params, state, cfg, level, x, train, slab=None):
     """One encoder conv unit (reference ynet.py:134-151) -> (y, new
     state)."""
     kind = cfg.conv_kind(level)
     if kind == "lora":
-        return layers.lora_conv_apply(params, x, cfg.lora_rank), state
-    out = layers.conv_apply(params, x)
+        return layers.lora_conv_apply(params, x, cfg.lora_rank,
+                                      slab), state
+    out = layers.conv_apply(params, x, slab)
     if kind == "plain":
         return out, state
     if "serial" in cfg.train_net:
-        return _serial_apply(params, state, out, train)
-    return out + _parallel_apply(params["parallel_layer"], x), state
+        return _serial_apply(params, state, out, train, slab)
+    return out + _parallel_apply(params["parallel_layer"], x, slab), state
 
 
-def _stage(params, state, cfg, level, x, train, pool):
-    """[max-pool,] conv0 + ReLU [, conv1 + ReLU] -> (y, new state)."""
+def _stage(params, state, cfg, level, x, train, pool, slabs=None, at=0):
+    """[max-pool,] conv0 + ReLU [, conv1 + ReLU] -> (y, new state); `at`
+    is the pyramid level of the stage's output (slabs[at] its slab)."""
     if pool:
-        x = max_pool_2x2(x)
+        x = pool_down(x, max_pool_2x2, _level(slabs, at - 1),
+                      _level(slabs, at))
     new_state = {}
     for name in ("conv0", "conv1"):
         if name in params:
             x, s = _conv_unit(params[name], state.get(name, {}), cfg, level,
-                              x, train)
+                              x, train, _level(slabs, at))
             x = torch.relu(x)
             if s:
                 new_state[name] = s
     return x, new_state
 
 
-def _encoder_apply(params, state, cfg, x, train):
+def _encoder_apply(params, state, cfg, x, train, slabs=None):
     """The plain encoder with its block adapters (reference
     ynet.py:213-283) -> (features, new state)."""
     stage_state, adapter_state = {}, dict(state.get("adapters", {}))
@@ -336,22 +363,27 @@ def _encoder_apply(params, state, cfg, x, train):
     for i in range(len(cfg.encoder_channels)):
         level = str(i)
         if i > 0:
-            x = max_pool_2x2(x)
+            x = pool_down(x, max_pool_2x2, _level(slabs, i - 1),
+                          _level(slabs, i))
         y, s = _stage(params["stages"][level],
                       state.get("stages", {}).get(level, {}), cfg, i, x,
-                      train, pool=False)
+                      train, pool=False, slabs=slabs, at=i)
         if s:
             stage_state[level] = s
         if level in adapters:
             if "serial" in cfg.train_net:
                 y, adapter_state[level] = _serial_apply(
-                    adapters[level], adapter_state[level], y, train)
+                    adapters[level], adapter_state[level], y, train,
+                    _level(slabs, i))
             else:
                 # the parallel adapter reads the stage's post-pool input
-                y = y + _parallel_apply(adapters[level]["parallel_layer"], x)
+                y = y + _parallel_apply(adapters[level]["parallel_layer"], x,
+                                        _level(slabs, i))
         features.append(y)
         x = y
-    features.append(max_pool_2x2(x))
+    n = len(cfg.encoder_channels)
+    features.append(pool_down(x, max_pool_2x2, _level(slabs, n - 1),
+                              _level(slabs, n)))
     new_state = {}
     if stage_state:
         new_state["stages"] = stage_state
@@ -360,20 +392,24 @@ def _encoder_apply(params, state, cfg, x, train):
     return features, new_state
 
 
-def _fusion_encoder_apply(params, state, cfg, scene_map, motion_map, train):
+def _fusion_encoder_apply(params, state, cfg, scene_map, motion_map, train,
+                          slabs=None):
     """YNetEncoderFusion.forward (reference ynet.py:369-395): the scene
     and motion branches, their outputs concatenated stage by stage, the
     fused stages on the last of them (each pooling first), then one
     max-pool -> (features, new state)."""
     new_state = {}
 
-    def run(group, level, x, first_pools):
+    def run(group, level, x, first):
+        """The stages of `group`, the first at pyramid level `first`
+        (pooling first when first > 0)."""
         outs, group_state = [], {}
         stages = params[group]
         for i in range(len(stages)):
             x, s = _stage(stages[str(i)],
                           state.get(group, {}).get(str(i), {}), cfg, level,
-                          x, train, pool=i > 0 or first_pools)
+                          x, train, pool=first + i > 0, slabs=slabs,
+                          at=first + i)
             if s:
                 group_state[str(i)] = s
             outs.append(x)
@@ -381,78 +417,95 @@ def _fusion_encoder_apply(params, state, cfg, scene_map, motion_map, train):
             new_state[group] = group_state
         return outs
 
-    scene = run("scene_stages", "scene", scene_map, False)
-    motion = run("motion_stages", "motion", motion_map, False)
+    scene = run("scene_stages", "scene", scene_map, 0)
+    motion = run("motion_stages", "motion", motion_map, 0)
     features = [torch.cat([s, m], dim=-1) for s, m in zip(scene, motion)]
-    features += run("fusion_stages", "fusion", features[-1], True)
-    features.append(max_pool_2x2(features[-1]))
+    features += run("fusion_stages", "fusion", features[-1], len(features))
+    n = len(features)
+    features.append(pool_down(features[-1], max_pool_2x2,
+                              _level(slabs, n - 1), _level(slabs, n)))
     return features, new_state
 
 
-def adapt_semantic(params, cfg: YNetConfig, semantic):
+def adapt_semantic(params, cfg: YNetConfig, semantic, slab=None):
     """The residual semantic adapter (reference ynet.py:554-559); identity
     without one."""
     if "semantic_adapter" not in params:
         return semantic
-    return layers.conv_apply(params["semantic_adapter"], semantic) + semantic
+    return layers.conv_apply(params["semantic_adapter"], semantic,
+                             slab) + semantic
 
 
-def _embedding_apply(params, x):
+def _embedding_apply(params, x, slab=None):
     for i in range(3):
-        x = torch.relu(layers.conv_apply(params[str(i)], x))
+        x = torch.relu(layers.conv_apply(params[str(i)], x, slab))
     return x
 
 
-def scene_embedding(params, x):
+def scene_embedding(params, x, slab=None):
     """The embed network's scene embedding (params holds it)."""
-    return _embedding_apply(params["scene_embedding"], x)
+    return _embedding_apply(params["scene_embedding"], x, slab)
 
 
-def motion_embedding(params, x):
+def motion_embedding(params, x, slab=None):
     """The embed network's motion embedding (params holds it)."""
-    return _embedding_apply(params["motion_embedding"], x)
+    return _embedding_apply(params["motion_embedding"], x, slab)
 
 
 def pred_features(params, state, cfg: YNetConfig, scene_map, motion_map,
-                  train=False):
+                  train=False, slabs=None):
     """Encoder: scene (B, H, W, Cs) + motion (B, H, W, obs_len) -> (the
     list of len(encoder_channels) + 1 NHWC feature maps, finest first; the
     new state) (reference ynet.py:570-575). train runs the batch norms on
     the batch's statistics and returns their moved running statistics:
     True for this process's rows, or a parallel.mesh.Shards for the
     global batch whose rows the mesh's ranks hold
-    (layers.batchnorm_apply)."""
+    (layers.batchnorm_apply). slabs: each level's mesh.Slab (the module
+    docstring), the maps the first one's rows."""
     enc_state = state.get("encoder", {})
     if cfg.network == "fusion":
         features, new_enc = _fusion_encoder_apply(
-            params["encoder"], enc_state, cfg, scene_map, motion_map, train)
+            params["encoder"], enc_state, cfg, scene_map, motion_map, train,
+            slabs)
     else:
         features, new_enc = _encoder_apply(
             params["encoder"], enc_state, cfg,
-            torch.cat([scene_map, motion_map], dim=-1), train)
+            torch.cat([scene_map, motion_map], dim=-1), train, slabs)
     new_state = dict(state)
     if new_enc:
         new_state["encoder"] = new_enc
     return features, new_state
 
 
-def _decoder_apply(d, features):
+def _up(x, slabs, level):
+    """The bilinear x2 from level + 1 to `level`, on the slabs."""
+    return upsample_bilinear_2x(x, _level(slabs, level + 1),
+                                _level(slabs, level))
+
+
+def _decoder_apply(d, features, slabs=None):
     """YNetDecoder.forward (reference ynet.py:453-471), coarsest last."""
     feats = features[::-1]
-    x = torch.relu(layers.conv_apply(d["center"]["0"], feats[0]))
-    x = torch.relu(layers.conv_apply(d["center"]["1"], x))
+    L = len(features)
+    top = _level(slabs, L - 1)
+    x = torch.relu(layers.conv_apply(d["center"]["0"], feats[0], top))
+    x = torch.relu(layers.conv_apply(d["center"]["1"], x, top))
     for i in range(len(d["blocks"])):
-        x = layers.conv_apply(d["upsample"][str(i)], upsample_bilinear_2x(x))
+        level = L - 2 - i
+        slab = _level(slabs, level)
+        x = layers.conv_apply(d["upsample"][str(i)], _up(x, slabs, level),
+                              slab)
         x = torch.cat([x, feats[i + 1]], dim=-1)
         blk = d["blocks"][str(i)]
-        x = torch.relu(layers.conv_apply(blk["0"], x))
-        x = torch.relu(layers.conv_apply(blk["1"], x))
+        x = torch.relu(layers.conv_apply(blk["0"], x, slab))
+        x = torch.relu(layers.conv_apply(blk["1"], x, slab))
     return layers.conv_apply(d["predictor"], x)
 
 
-def pred_goal(params, features):
-    """(B, H, W, pred_len) goal/waypoint heatmap logits."""
-    return _decoder_apply(params["goal_decoder"], features)
+def pred_goal(params, features, slabs=None):
+    """(B, H, W, pred_len) goal/waypoint heatmap logits (the finest
+    slab's rows with slabs)."""
+    return _decoder_apply(params["goal_decoder"], features, slabs)
 
 
 def pred_traj(params, features_with_waypoints):
@@ -462,7 +515,7 @@ def pred_traj(params, features_with_waypoints):
     return _decoder_apply(params["traj_decoder"], features_with_waypoints)
 
 
-def make_shared_pred_traj(params, features, n_wp: int):
+def make_shared_pred_traj(params, features, n_wp: int, slabs=None):
     """K-sample trajectory decoding with the encoder terms hoisted.
 
     Every first conv of the trajectory decoder sees
@@ -476,7 +529,8 @@ def make_shared_pred_traj(params, features, n_wp: int):
     predictor with its (C, pred_len) weight and (pred_len,) bias, the
     operands of the fused predictor + soft-argmax kernel
     (ops/kernels/fused_predict.py); the (K*B, H, W, pred_len) logits are
-    never formed.
+    never formed. slabs: each level's mesh.Slab, as pred_features takes
+    them; features, the pyramid and x are then the slabs' rows.
     """
     d = params["traj_decoder"]
     L = len(features)
@@ -485,12 +539,16 @@ def make_shared_pred_traj(params, features, n_wp: int):
     up_out = [d["upsample"][str(i)]["weight"].shape[0]
               for i in range(L - 1)]
 
-    def conv_slice(conv, x, lo, hi):
-        return layers.conv2d(x, conv["weight"][:, lo:hi])
+    def slab(i):
+        """The slab of decoder step i's level (i = 0: the coarsest)."""
+        return _level(slabs, L - 1 - i)
 
-    center_enc = conv_slice(d["center"]["0"], feats_rev[0], 0, enc_ch[0])
+    def conv_slice(conv, x, lo, hi, i):
+        return layers.conv2d(x, conv["weight"][:, lo:hi], slab=slab(i))
+
+    center_enc = conv_slice(d["center"]["0"], feats_rev[0], 0, enc_ch[0], 0)
     block_enc = [conv_slice(d["blocks"][str(i)]["0"], feats_rev[i + 1],
-                            up_out[i], up_out[i] + enc_ch[i + 1])
+                            up_out[i], up_out[i] + enc_ch[i + 1], i + 1)
                  for i in range(L - 1)]
 
     def plus_enc(y, enc):
@@ -501,22 +559,23 @@ def make_shared_pred_traj(params, features, n_wp: int):
     def decode(wp_pyramid):
         wp_rev = wp_pyramid[::-1]
         c0 = d["center"]["0"]
-        x = (plus_enc(conv_slice(c0, wp_rev[0], enc_ch[0], enc_ch[0] + n_wp),
-                      center_enc)
+        x = (plus_enc(conv_slice(c0, wp_rev[0], enc_ch[0], enc_ch[0] + n_wp,
+                                 0), center_enc)
              + c0["bias"])
         x = torch.relu(x)
-        x = torch.relu(layers.conv_apply(d["center"]["1"], x))
+        x = torch.relu(layers.conv_apply(d["center"]["1"], x, slab(0)))
         for i in range(L - 1):
             x = layers.conv_apply(d["upsample"][str(i)],
-                                  upsample_bilinear_2x(x))
+                                  _up(x, slabs, L - 2 - i), slab(i + 1))
             b0 = d["blocks"][str(i)]["0"]
             lo = up_out[i]
             hi = lo + enc_ch[i + 1]
-            y = (plus_enc(conv_slice(b0, x, 0, lo), block_enc[i])
-                 + conv_slice(b0, wp_rev[i + 1], hi, hi + n_wp)
+            y = (plus_enc(conv_slice(b0, x, 0, lo, i + 1), block_enc[i])
+                 + conv_slice(b0, wp_rev[i + 1], hi, hi + n_wp, i + 1)
                  + b0["bias"])
             x = torch.relu(y)
-            x = torch.relu(layers.conv_apply(d["blocks"][str(i)]["1"], x))
+            x = torch.relu(layers.conv_apply(d["blocks"][str(i)]["1"], x,
+                                             slab(i + 1)))
         pred = d["predictor"]
         P = pred["weight"].shape[0]
         return x, pred["weight"].reshape(P, -1).t().contiguous(), pred["bias"]

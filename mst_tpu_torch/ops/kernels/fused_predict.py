@@ -19,6 +19,13 @@ design notes are in the source. `fused_work`, `stage_pixels`,
 `group_width` and `pixels_per_thread` mirror its work split, and
 `fused_split_reference` runs that split with the kernel's merge
 arithmetic on the CPU.
+
+The partial-statistics variant (fused_predictor_softargmax_partial) runs
+the same kernel over one H slab of a spatial mesh: each row's statistics
+(m, s, sx, sy) in log2 units, y offset by the slab's first row, left
+unfinished for online_stats.merge_ranks to merge across the 'space'
+ranks. Its bound is the slab's bytes (0.52 ms of the 1.03 at R = 160,
+352 x 480, C = 32, f32, over two ranks).
 """
 
 import ctypes
@@ -205,6 +212,9 @@ def _library():
         fn.argtypes = ([ctypes.c_void_p] * 6 + [i32] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = i32
+        lib.fused_predict_partial_launch.argtypes = (
+            [ctypes.c_void_p] * 6 + [i32] * 8 + [ctypes.c_void_p])
+        lib.fused_predict_partial_launch.restype = i32
         lib.fused_predict_items.argtypes = [i32] * 4 + [ctypes.c_void_p, i32]
         for name, n in (("fused_predict_blocks", 2),
                         ("fused_predict_stage_pixels", 2),
@@ -258,51 +268,67 @@ def _fused_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return fused_predictor_softargmax_plain(x, weight, bias, eps)
 
 
-@_fused_op.register_kernel("cuda")
-def _fused_cuda(x, weight, bias, eps):
+def _operands(name, x, weight, bias):
+    """Raise unless the kernel takes these operands -> the bias as f32."""
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(
-            "fused_predictor_softargmax needs x (R, H, W, C) contiguous in "
-            f"NHWC order; got shape {tuple(x.shape)}, strides {x.stride()}")
+            f"{name} needs x (R, H, W, C) contiguous in NHWC order; got "
+            f"shape {tuple(x.shape)}, strides {x.stride()}")
     if x.dtype not in DTYPES:
-        raise ValueError(f"fused_predictor_softargmax: x is {x.dtype}; the "
-                         "kernel takes f32 or bf16")
+        raise ValueError(f"{name}: x is {x.dtype}; the kernel takes f32 or "
+                         "bf16")
     if bias.dtype == torch.bfloat16:
         bias = bias.float()
     R, H, W, C = x.shape
     P = weight.shape[-1]
-    for name, t, shape, dtype in (
+    for arg, t, shape, dtype in (
             ("x", x, (R, H, W, C), x.dtype),
             ("weight", weight, (C, P), x.dtype),
             ("bias", bias, (P,), torch.float32)):
         if (t.device != x.device or t.dtype != dtype
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(
-                f"fused_predictor_softargmax: {name} must be a contiguous "
-                f"{dtype} tensor of shape {shape} on {x.device}; got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+                f"{name}: {arg} must be a contiguous {dtype} tensor of "
+                f"shape {shape} on {x.device}; got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
     if not 1 <= P <= MAX_CHANNELS or not 1 <= C <= MAX_IN_CHANNELS:
-        raise ValueError(f"fused_predictor_softargmax: P={P}, C={C}; the "
-                         f"kernel takes P in [1, {MAX_CHANNELS}] and C in "
-                         f"[1, {MAX_IN_CHANNELS}]")
+        raise ValueError(f"{name}: P={P}, C={C}; the kernel takes P in "
+                         f"[1, {MAX_CHANNELS}] and C in [1, "
+                         f"{MAX_IN_CHANNELS}]")
+    return bias
+
+
+def _launch(name, launch, x, weight, bias, out, *tail):
+    """One launch of `launch` (fused_predict_launch or its partial
+    variant) on x's stream, writing `out`; tail: the arguments after the
+    block count."""
+    R, H, W, C = x.shape
+    P = weight.shape[-1]
     HW = H * W
     blocks = fused_blocks(R, HW, torch.cuda.get_device_properties(
         x.device).multi_processor_count)
     part = torch.empty((R + blocks - 1, P, 4), dtype=torch.float32,
                        device=x.device)
-    out = torch.empty((R, P, 2), dtype=torch.float32, device=x.device)
-    launch = _library().fused_predict_launch
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                      part.data_ptr(),
                      _arrivals(x.device, stream, R).data_ptr(),
                      out.data_ptr(), R, HW, W, C, P, x.element_size(),
-                     blocks, float(eps), stream)
+                     blocks, *tail, stream)
     if err != 0:
-        raise RuntimeError(f"fused_predict kernel launch failed: error {err}"
+        raise RuntimeError(f"{name} kernel launch failed: error {err}"
                            " (a cudaError_t; 999: no cuTensorMapEncodeTiled;"
                            " 1000 + CUresult: a refused tensor map)")
+
+
+@_fused_op.register_kernel("cuda")
+def _fused_cuda(x, weight, bias, eps):
+    bias = _operands("fused_predictor_softargmax", x, weight, bias)
+    out = torch.empty((x.shape[0], weight.shape[-1], 2), dtype=torch.float32,
+                      device=x.device)
+    _launch("fused_predict", _library().fused_predict_launch, x, weight,
+            bias, out, float(eps))
     launches.count(fused_predictor_softargmax, "launches_bf16"
                    if x.dtype == torch.bfloat16 else "launches")
     return out
@@ -335,3 +361,66 @@ def _fused_vmap(info, in_dims, x, weight, bias, eps):
 
 fused_predictor_softargmax.launches = 0
 fused_predictor_softargmax.launches_bf16 = 0
+
+
+# ---- the partial-statistics variant (an H slab of a spatial mesh)
+
+def fused_predictor_softargmax_partial_plain(x, weight, bias, row0: int):
+    """The plain version: x (R, H, W, C) holding rows [row0, row0 + H) of
+    each map, @ weight (C, P) + bias (P) -> (R, P, 4): each row's and
+    channel's (m, s, sx, sy) in log2 units (online_stats), y offset by
+    row0, in f32 from the operands' widened values."""
+    R, H, W, _ = x.shape
+    logits = (torch.einsum("rhwc,cp->rhwp", x.float(), weight.float())
+              + bias.float()) * ost.LOG2E
+    logits = logits.permute(0, 3, 1, 2).reshape(R, -1, H * W)  # (R, P, HW)
+    m = logits.amax(-1)
+    e = torch.exp2(logits - m[..., None])
+    ys = torch.arange(row0, row0 + H, dtype=torch.float32,
+                      device=x.device).repeat_interleave(W)
+    xs = torch.arange(W, dtype=torch.float32, device=x.device).repeat(H)
+    return torch.stack([m, e.sum(-1), (e * xs).sum(-1), (e * ys).sum(-1)],
+                       -1)
+
+
+def fused_predictor_softargmax_partial(x, weight, bias, row0: int):
+    """(R, H, W, C) activations of rows [row0, row0 + H), (C, P) weight,
+    (P,) bias -> (R, P, 4) f32 statistics (m, s, sx, sy) in log2 units.
+
+    The custom op mst_tpu_torch::fused_predictor_softargmax_partial: a
+    CPU tensor takes the plain version; a CUDA tensor launches the
+    partial variant of the fused kernel, on the operands
+    fused_predictor_softargmax takes (f32 or bf16), or raises. `launches`
+    counts its launches, both dtypes."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_predictor_softargmax_partial: unsupported "
+                         f"device {x.device}")
+    return _partial_op(x, weight, bias, int(row0))
+
+
+@torch.library.custom_op("mst_tpu_torch::fused_predictor_softargmax_partial",
+                         mutates_args=(), device_types="cpu")
+def _partial_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                row0: int) -> torch.Tensor:
+    return fused_predictor_softargmax_partial_plain(x, weight, bias, row0)
+
+
+@_partial_op.register_kernel("cuda")
+def _partial_cuda(x, weight, bias, row0):
+    name = "fused_predictor_softargmax_partial"
+    bias = _operands(name, x, weight, bias)
+    out = torch.empty((x.shape[0], weight.shape[-1], 4), dtype=torch.float32,
+                      device=x.device)
+    _launch("fused_predict partial", _library().fused_predict_partial_launch,
+            x, weight, bias, out, row0)
+    launches.count(fused_predictor_softargmax_partial)
+    return out
+
+
+@_partial_op.register_fake
+def _partial_fake(x, weight, bias, row0):
+    return x.new_empty((x.shape[0], weight.shape[-1], 4),
+                       dtype=torch.float32)
+
+
+fused_predictor_softargmax_partial.launches = 0

@@ -5,12 +5,16 @@ The CPU tests run the fused and rows kernels' work splits through these,
 in the kernels' order, and hold the result against the TPU kernels. A
 statistics tuple is (m, s, sx, sy), tensors of one shape: the running max
 of the logits scaled by log2(e), the mass sum 2^(l - m) and the moments of
-the x and y coordinates.
+the x and y coordinates. merge_ranks merges the 'space' ranks' statistics
+of a spatial mesh (the partial variant of the fused kernel, one H slab a
+rank) into the whole map's soft-argmax.
 """
 
 import math
 
 import torch
+
+from mst_tpu_torch.parallel import halo
 
 LOG2E = 1.4426950408889634
 
@@ -61,3 +65,24 @@ def finish(st, eps):
     """(sx, sy) / (s + eps) -> (..., 2)."""
     inv = 1.0 / (st[1] + eps)
     return torch.stack([st[2] * inv, st[3] * inv], -1)
+
+
+def merge_ranks(stats, slab, eps: float = 1e-6):
+    """stats (..., 4): this rank's (m, s, sx, sy) of its slab (mesh.Slab)
+    -> the whole map's soft-argmax (..., 2), the same bits on every
+    'space' rank: one all_reduce of a zero-filled (count, ..., 4) buffer
+    in which each rank fills its own slot (about 30 KB at K * B = 160
+    rows and P = 12), then merge2 folds the slots in rank order and
+    finish ends the merged statistics."""
+    buf = halo.gather(stats.unsqueeze(0), slab.index, slab.count,
+                      slab.group)
+    return fold(buf.unbind(0), eps)
+
+
+def fold(parts, eps: float = 1e-6):
+    """Statistics (..., 4) of a map's parts -> the map's soft-argmax
+    (..., 2): merge2 over the parts in their order, then finish."""
+    st = tuple(t.to(parts[0].device) for t in empty(parts[0].shape[:-1]))
+    for part in parts:
+        st = merge2(st, part.unbind(-1))
+    return finish(st, eps)

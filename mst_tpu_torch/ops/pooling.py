@@ -1,7 +1,11 @@
 """Pooling and resizing on NHWC tensors (counterpart of
 mst_tpu/ops/pooling.py): nn.MaxPool2d(2, 2), the AvgPool2d(2**i) waypoint
 pyramid and F.interpolate(scale_factor=2, bilinear, align_corners=False),
-run on the channels_last view."""
+run on the channels_last view.
+
+On a spatial mesh (a mesh.Slab of the input) the pools are exact on a
+slab whose first row and length are even, and the bilinear x2 reads one
+halo row of each neighbour's slab."""
 
 import torch
 import torch.nn.functional as F
@@ -24,19 +28,45 @@ def avg_pool_2x2(x):
     return _nhwc(F.avg_pool2d(_nchw(x), 2, 2))
 
 
-def avg_pool_pyramid(x, n_levels: int):
+def pool_down(x, pool, slab, next_slab):
+    """pool(x) from a level whose slab (None: whole) is `slab` to the
+    next, whose slab is `next_slab` (mesh.Slab.down). Where the next
+    level runs whole (next_slab None), the 'space' ranks gather: this
+    level before the pool when its slab's rows are odd, else the pooled
+    slabs."""
+    if slab is None or next_slab is not None:
+        return pool(x)
+    if slab.rows % 2:
+        return pool(slab.gather(x))
+    return slab.half().gather(pool(x))
+
+
+def avg_pool_pyramid(x, n_levels: int, slabs=None):
     """[x, avg2(x), avg4(x), ...] with n_levels entries (each level pools
-    the previous one by 2x2, exact for maps padded to 2**(n_levels-1))."""
+    the previous one by 2x2, exact for maps padded to 2**(n_levels-1)).
+    slabs: each level's mesh.Slab (mesh.Slab.levels), x the first's
+    rows; each entry is then its level's slab, or the whole level where
+    the slab is None (pool_down)."""
+    slabs = slabs or [None] * n_levels
     out = [x]
-    for _ in range(n_levels - 1):
-        x = avg_pool_2x2(x)
+    for i in range(n_levels - 1):
+        x = pool_down(x, avg_pool_2x2, slabs[i], slabs[i + 1])
         out.append(x)
     return out
 
 
-def upsample_bilinear_2x(x):
-    """(N, H, W, C) -> (N, 2H, 2W, C), half-pixel centres."""
-    return _Upsample2x.apply(x)
+def upsample_bilinear_2x(x, slab=None, out_slab=None):
+    """(N, H, W, C) -> (N, 2H, 2W, C), half-pixel centres. slab: x is
+    this slab's rows (its neighbours give a halo row each side; at the
+    map's global edges F.interpolate clamps, as on the whole map), and
+    the output is the slab twice as high; out_slab (x whole): the
+    output's rows of that slab."""
+    if slab is None:
+        y = _Upsample2x.apply(x)
+        return y if out_slab is None else out_slab.take(y)
+    xe = slab.exchange(x, 1, edge="none")
+    top = int(slab.index > 0)
+    return _Upsample2x.apply(xe).narrow(1, 2 * top, 2 * x.shape[1])
 
 
 class _Upsample2x(torch.autograd.Function):

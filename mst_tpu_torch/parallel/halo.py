@@ -1,0 +1,64 @@
+"""The collectives of a mesh's ranks: the halo exchange of a map's edge
+rows between a spatial mesh's H neighbours (mesh.Slab), and the gather of
+equal blocks to the whole tensor (the slabs of a map, the rows of a
+batch, the ranks' partial statistics). XLA's GSPMD adds these to mst_tpu's
+program (collective-permutes for the halos, all-gathers where a level
+runs whole); the port calls them where the model needs them
+(models/layers.conv2d, ops/pooling.upsample_bilinear_2x, the odd-slab
+levels of models/ynet.py, and the eval step).
+
+Each is one all_reduce over its ranks' group (the 'space' ranks for the
+maps) of a zero-filled buffer in which every rank fills its own slot: a
+sum of one value and zeros is exact, and it is what every backend does
+on CUDA tensors (gloo gathers nothing on them, and its point-to-point
+calls are not known to take them), so it serves the card's standard
+run, two ranks sharing one card over gloo, and NCCL alike. An exchange
+of k rows moves a buffer of count x 2 x N x k x W x C elements through
+the all_reduce: at the finest level of the eval decode (K * B = 160, 480
+columns, 32 channels, k = 1, two ranks, f32) 39.3 MB a conv.
+"""
+
+import torch
+import torch.distributed as dist
+
+
+def exchange(x, slab, k, edge="zero"):
+    """x (N, rows, W, C), this rank's slab -> its k rows above and below
+    taken from the H neighbours' slabs: (N, rows + 2k, W, C). At the
+    global top and bottom, edge 'zero' puts k rows of zeros (a SAME
+    conv's padding) and 'none' nothing, so the map then starts or ends
+    there (F.interpolate's own clamp at the map's edge)."""
+    n, rows = x.shape[0], x.shape[1]
+    if not 0 < k <= rows:
+        raise ValueError(f"a halo of {k} rows needs slabs of at least {k} "
+                         f"rows; this one has {rows}")
+    buf = x.new_zeros((slab.count, 2, n, k, *x.shape[2:]))
+    buf[slab.index, 0] = x[:, :k]
+    buf[slab.index, 1] = x[:, rows - k:]
+    dist.all_reduce(buf, group=slab.group)
+    parts = []
+    if slab.index > 0:
+        parts.append(buf[slab.index - 1, 1])
+    elif edge == "zero":
+        parts.append(torch.zeros_like(buf[slab.index, 0]))
+    parts.append(x)
+    if slab.index < slab.count - 1:
+        parts.append(buf[slab.index + 1, 0])
+    elif edge == "zero":
+        parts.append(torch.zeros_like(buf[slab.index, 0]))
+    return torch.cat(parts, 1)
+
+
+def gather(x, index, count, group, dim=0):
+    """Each rank's block of a tensor along dim (block `index` of `count`
+    equal blocks, over the ranks of `group`) -> the whole tensor, the same
+    bits on every rank: the 'space' ranks' slabs of a map (mesh.Slab), a
+    'data' row's batch rows (mesh.Shards.gather_rows), a rank's partial
+    statistics (online_stats.merge_ranks)."""
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * count
+    out = x.new_zeros(shape)
+    out.narrow(dim, index * n, n).copy_(x)
+    dist.all_reduce(out, group=group)
+    return out

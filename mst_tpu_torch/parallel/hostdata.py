@@ -7,9 +7,12 @@ and feeds only its block of rows:
   contiguous block: rank index i of count owns block i, as
   mesh.Shards.rows places them);
 - take_local: a global batch cut to a rank's rows, scene-level arrays
-  kept whole;
+  kept whole (on a spatial mesh, Experiment cuts each scene map to the
+  rank's H slab with mesh.Slab.take);
 - shard_batch_global: a rank's rows as its tensors, after checking that
-  they are a rank's share of the global batch.
+  they are a rank's share of the global batch;
+- check_spatial_hosts: mst_tpu's refusal of a spatial mesh across
+  hosts.
 
 mst_tpu's prefetch_to_device has no counterpart: the port's loop uploads
 every batch once a run, before its first epoch (Experiment's
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from mst_tpu_torch.parallel.mesh import REPLICATED_KEYS
+from mst_tpu_torch.parallel.mesh import REPLICATED_KEYS, batch_shard_count
 
 
 def _rank_and_world():
@@ -54,13 +57,30 @@ def take_local(batch: dict, process_index=None, process_count=None):
             for k, v in batch.items()}
 
 
+def check_spatial_hosts(hosts):
+    """Raise mst_tpu's refusal (mst_tpu/parallel/hostdata.py:84-100) when
+    the ranks of a spatial mesh, given each rank's hostname, span several
+    hosts: mst_tpu has no per-host scene loader for it, and the port adds
+    no feature that mst_tpu lacks."""
+    if len(set(hosts)) > 1:
+        raise NotImplementedError(
+            "multi-host spatial meshes are not supported by "
+            "shard_batch_global: the 'space' axis would span "
+            "processes and corrupt the scene-map assembly. "
+            "Run the spatial axis within one host (e.g. "
+            "'data' over hosts x 'space' over local chips is "
+            "also unsupported until a per-host scene loader "
+            "exists) or use a non-spatial mesh across hosts.")
+
+
 def shard_batch_global(mesh, local_batch: dict, global_batch_size=None):
     """A rank's rows (arrays) -> its CPU tensors. global_batch_size, when
     given, pins the global row count, so that a batch which does not split
     over the ranks, or rows that are not one rank's share, fail here with
     mst_tpu's messages rather than as a shape error later. Scene-level
-    keys are whole on every rank."""
-    n_proc = 1 if mesh is None else mesh.mesh.numel()
+    keys are whole on every rank. The batch splits over the mesh's batch axes
+    (the 'space' ranks of a row hold the same rows)."""
+    n_proc = 1 if mesh is None else batch_shard_count(mesh)
     out = {}
     for k, v in local_batch.items():
         v = np.asarray(v)

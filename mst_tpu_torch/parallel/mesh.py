@@ -12,16 +12,21 @@ masked BCE's count, the gradients, the metric sums, the per-row outputs,
 and the serial adapters' train-mode batch statistics).
 
 A mesh is a torch.distributed DeviceMesh with mst_tpu's axis names,
-('data',) or ('replica', 'data'), whose ranks are the whole world: the
-product of --mesh_shape must equal the world size. The hybrid mesh is
-node-aware, as mst_tpu's is slice-aware: each 'replica' row takes its
-ranks from one host. The backend follows from the devices: NCCL when
+('data',), ('replica', 'data') or ('data', 'space'), whose ranks are the
+whole world: the product of --mesh_shape must equal the world size. The
+hybrid mesh is node-aware, as mst_tpu's is slice-aware: each 'replica'
+row takes its ranks from one host. The spatial mesh splits the batch over
+'data' and the scene maps' H over 'space' (Slab: a rank's rows of every
+map, and the collectives of the 'space' ranks, parallel/halo.py); each
+'data' row takes its 'space' ranks from one host, as mst_tpu's takes its
+chips from one slice. The backend follows from the devices: NCCL when
 each rank has a card of its own, gloo on the CPU, and gloo on CUDA
 tensors when two ranks hold one card (NCCL refuses two ranks on one
 device), which the ranks find by comparing their cards' uuids. A
 failed init raises; nothing falls back.
 
-The spatial ('data', 'space') mesh is not ported yet (SPATIAL_NOT_PORTED).
+On the spatial mesh the port evaluates (Experiment.test, the test CLI);
+training on it is the next slice (SPATIAL_NOT_PORTED).
 """
 
 import contextlib
@@ -35,17 +40,20 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from mst_tpu_torch.parallel import halo
+
 # scene-level batch keys: every rank holds them whole; every other key is
 # per row and splits over the ranks (hostdata.take_local,
 # pad_batch_to_multiple)
 REPLICATED_KEYS = ("semantic", "image", "homography")
 
 SPATIAL_NOT_PORTED = (
-    "--mesh_axes data space (the spatial mesh) is not ported yet; it is "
-    "the next slice of the port: the halo exchanges of the 3x3 convs, the "
-    "bilinear x2 and the rasterizer, and an H-sharded soft-argmax that "
-    "merges the kernels' online statistics across ranks. Use --mesh_shape "
-    "N or --mesh_shape R D (--mesh_axes replica data)")
+    "training on the spatial mesh (--mesh_axes data space) is not ported "
+    "yet; it is the next slice of the port: the halo exchange's backward, "
+    "train-mode batch norms over H slabs, the BCE and top-1 reductions, "
+    "--fused and cross-scene batching. The spatial mesh evaluates "
+    "(Experiment.test, python -m mst_tpu_torch.test); train with "
+    "--mesh_shape N or --mesh_shape R D (--mesh_axes replica data)")
 
 
 def world_size():
@@ -197,12 +205,31 @@ def make_hybrid_mesh(n_replicas=None, per_replica=None,
                       mesh_dim_names=tuple(axis_names))
 
 
+def make_spatial_mesh(data, space, device="cuda"):
+    """A ('data', 'space') mesh (mst_tpu/parallel/mesh.py:88-128): the
+    batch splits over 'data', the scene maps' H over 'space'. A halo
+    exchange crosses 'space' at every conv, the batch's reductions cross
+    'data' once a step, so each 'data' row takes its 'space' ranks from
+    one host (hybrid_layout of the ranks' hostnames; rows may share a
+    host). A world that spans several hosts raises (hostdata.
+    check_spatial_hosts, mst_tpu's refusal)."""
+    from mst_tpu_torch.parallel.hostdata import check_spatial_hosts
+
+    init_process_group(device)
+    check_world((data, space))
+    hosts = hostnames()
+    check_spatial_hosts(hosts)
+    layout = hybrid_layout(hosts, data, space)
+    return DeviceMesh(torch.device(device).type, torch.as_tensor(layout),
+                      mesh_dim_names=("data", "space"))
+
+
 def mesh_from_shape(mesh_shape, axis_names=None, device="cuda"):
     """--mesh_shape (and --mesh_axes) to a mesh: one value -> a 1-D 'data'
-    mesh, two -> the hybrid (replica, data) mesh; None -> no mesh. The
-    spatial ('data', 'space') mesh raises NotImplementedError; a shape
-    that is not the world raises ValueError before any process group
-    starts."""
+    mesh, two -> the hybrid (replica, data) mesh, or the spatial
+    ('data', 'space') mesh when --mesh_axes says so; None -> no mesh. A
+    shape that is not the world raises ValueError before any process
+    group starts."""
     if mesh_shape is None:
         return None
     shape = tuple(int(s) for s in mesh_shape)
@@ -211,9 +238,7 @@ def mesh_from_shape(mesh_shape, axis_names=None, device="cuda"):
         if len(names) != len(shape):
             raise ValueError(
                 f"--mesh_axes {names} must match --mesh_shape {shape}")
-        if names == ("data", "space"):
-            raise NotImplementedError(SPATIAL_NOT_PORTED)
-        if names not in (("data",), ("replica", "data")):
+        if names not in (("data",), ("replica", "data"), ("data", "space")):
             raise ValueError(
                 f"unsupported --mesh_axes {names}: expected 'data', "
                 "'replica data', or 'data space'")
@@ -222,29 +247,43 @@ def mesh_from_shape(mesh_shape, axis_names=None, device="cuda"):
     check_world(shape)
     if len(shape) == 1:
         return make_mesh(shape, device=device)
+    if axis_names is not None and tuple(axis_names) == ("data", "space"):
+        return make_spatial_mesh(*shape, device=device)
     return make_hybrid_mesh(*shape, device=device)
 
 
+def is_spatial(mesh):
+    """Whether the mesh splits the scene maps' H (a 'space' axis)."""
+    return mesh is not None and "space" in mesh.mesh_dim_names
+
+
 def batch_axes(mesh):
-    """The mesh axes the batch splits over: all of a non-spatial mesh's."""
+    """The mesh axes the batch splits over: all but 'space'."""
     return tuple(a for a in mesh.mesh_dim_names if a != "space")
+
+
+def axis_size(mesh, name):
+    """The size of the mesh's axis `name`."""
+    return mesh.size(mesh.mesh_dim_names.index(name))
 
 
 def batch_shard_count(mesh):
     """How many blocks the batch splits into."""
-    return math.prod(mesh.size(mesh.mesh_dim_names.index(a))
-                     for a in batch_axes(mesh))
+    return math.prod(axis_size(mesh, a) for a in batch_axes(mesh))
 
 
 class Shards:
     """This rank's block of the batch over a mesh, and the reductions a
     step makes over the ranks (batch_shards). The block is the rank's
-    place in the mesh, row-major over its axes (index of count); the
-    reductions run over the whole world, which a non-spatial mesh covers.
-    Every rank holds the same number of rows."""
+    place in the mesh's batch axes, row-major (index of count); the
+    reductions run over `group`: the whole world (None), which a
+    non-spatial mesh covers, or a spatial mesh's 'data' ranks, so that
+    the 'space' ranks of a row, which hold the same rows, count them
+    once. Every rank holds the same number of rows."""
 
-    def __init__(self, index, count):
+    def __init__(self, index, count, group=None):
         self.index, self.count = int(index), int(count)
+        self.group = group
 
     def rows(self, n_local):
         """This rank's rows [lo, hi) of the global batch, given its own
@@ -254,7 +293,7 @@ class Shards:
 
     def all_reduce(self, t):
         """t summed over the ranks, in place -> t."""
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=self.group)
         return t
 
     def sum_(self, tensors):
@@ -267,17 +306,14 @@ class Shards:
     def sum_differentiable(self, t):
         """t summed over the ranks, as an autograd op whose backward sums
         the gradient over the ranks."""
-        return _SumOverRanks.apply(t)
+        return _SumOverRanks.apply(t, self.group)
 
     def gather_rows(self, t):
         """This rank's rows of t (axis 0) -> the global batch's rows in
         global order, on every rank: each rank places its rows in zeros
         and one sum joins them, which every backend can do on CUDA
         tensors (gloo gathers none)."""
-        lo, hi = self.rows(t.shape[0])
-        out = t.new_zeros((t.shape[0] * self.count, *t.shape[1:]))
-        out[lo:hi] = t
-        return self.all_reduce(out)
+        return halo.gather(t, self.index, self.count, self.group)
 
 
 class _SumOverRanks(torch.autograd.Function):
@@ -285,24 +321,109 @@ class _SumOverRanks(torch.autograd.Function):
     gradients: each rank's input feeds every rank's output."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
+        ctx.group = group
         out = t.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 def batch_shards(mesh):
-    """The Shards of this rank on a mesh (None for None)."""
+    """The Shards of this rank on a mesh (None for None): on a spatial
+    mesh its 'data' coordinate, over the 'data' ranks of its 'space'
+    column."""
     if mesh is None:
         return None
+    if is_spatial(mesh):
+        return Shards(mesh.get_local_rank("data"), axis_size(mesh, "data"),
+                      mesh.get_group("data"))
     ranks = mesh.mesh.flatten().tolist()
     return Shards(ranks.index(dist.get_rank()), len(ranks))
+
+
+def check_spatial_scene(mesh, key, value):
+    """Raise unless a scene map's H (axis 1) divides the mesh's 'space'
+    count (mst_tpu/parallel/mesh.py:189-203, its message); nothing on a
+    mesh without one."""
+    if not is_spatial(mesh):
+        return
+    s = axis_size(mesh, "space")
+    h = np.shape(value)[1]
+    if h % s != 0:
+        raise ValueError(
+            f"scene map '{key}' height {h} does not divide the mesh's "
+            f"'space' axis ({s}); pick a space count that divides the "
+            f"/32-padded scene heights (powers of two <= 32 always do)")
+
+
+class Slab:
+    """This rank's rows [lo, hi) of a map of global height `height` on a
+    spatial mesh: 'space' rank `index` of `count` holds block `index` of
+    height // count rows, at the finest level and at each coarser one
+    whose slab has even rows (levels, down). `group` is the 'space'
+    ranks' process group, over which the exchanges of parallel/halo.py
+    run."""
+
+    def __init__(self, index, count, group, height):
+        if height % count:
+            raise ValueError(f"a map of height {height} does not split "
+                             f"over {count} 'space' ranks")
+        self.index, self.count, self.group = int(index), int(count), group
+        self.height = int(height)
+        self.rows = self.height // self.count
+        self.lo, self.hi = self.index * self.rows, (self.index + 1) * \
+            self.rows
+
+    def half(self):
+        """The slab of a 2x2 pool of this one (its rows must be even)."""
+        return Slab(self.index, self.count, self.group, self.height // 2)
+
+    def down(self):
+        """The slab of the next coarser level, or None where that level
+        runs whole on every 'space' rank (ops/pooling.pool_down): when
+        this slab's rows are odd, a pool would straddle two ranks; when
+        the pooled slab's rows would be odd, its own pool would. The
+        levels coarser than the first whole one are whole too."""
+        if self.rows % 4:
+            return None
+        return self.half()
+
+    def levels(self, n):
+        """[this slab, the next level's, ...]: n entries, None from the
+        first level that runs whole."""
+        out = [self]
+        while len(out) < n:
+            out.append(None if out[-1] is None else out[-1].down())
+        return out
+
+    def take(self, x, dim=1):
+        """This slab's rows of a whole map (dim: H)."""
+        return x.narrow(dim, self.lo, self.rows)
+
+    def gather(self, x, dim=1):
+        """Every 'space' rank's slab (dim: H) -> the whole map, on every
+        one of them (halo.gather)."""
+        return halo.gather(x, self.index, self.count, self.group, dim)
+
+    def exchange(self, x, k, edge="zero"):
+        """x with k rows of each H neighbour's slab above and below
+        (halo.exchange)."""
+        return halo.exchange(x, self, k, edge)
+
+
+def space_slab(mesh, height):
+    """This rank's Slab of a map of global height `height` on a spatial
+    mesh; None on any other mesh (or none)."""
+    if not is_spatial(mesh):
+        return None
+    return Slab(mesh.get_local_rank("space"), axis_size(mesh, "space"),
+                mesh.get_group("space"), height)
 
 
 def capturable(mesh):

@@ -50,11 +50,12 @@ class Bf16Count:
 
 
 def kernel_wrappers():
-    """{kernel name: its wrapper} for all six kernels, and the two
-    serving kernels' bf16 instantiations (Bf16Count); each one's
-    `launches` counts the launches of its kernel."""
-    from mst_tpu_torch.ops.kernels.fused_predict import \
-        fused_predictor_softargmax
+    """{kernel name: its wrapper} for all six kernels, the two serving
+    kernels' bf16 instantiations (Bf16Count) and the partial-statistics
+    variant of the fused kernel (the spatial mesh's decode tail); each
+    one's `launches` counts the launches of its kernel."""
+    from mst_tpu_torch.ops.kernels.fused_predict import (
+        fused_predictor_softargmax, fused_predictor_softargmax_partial)
     from mst_tpu_torch.ops.kernels.softargmax_rows import softargmax2d_rows
     from mst_tpu_torch.probes import chain_probe, conv_probe
 
@@ -62,7 +63,8 @@ def kernel_wrappers():
             "fused_predict": fused_predictor_softargmax,
             **dict(conv_probe.KERNELS), **dict(chain_probe.KERNELS),
             "softargmax_rows_bf16": Bf16Count(softargmax2d_rows),
-            "fused_predict_bf16": Bf16Count(fused_predictor_softargmax)}
+            "fused_predict_bf16": Bf16Count(fused_predictor_softargmax),
+            "fused_predict_partial": fused_predictor_softargmax_partial}
 
 
 def max_abs_diff(a, b):

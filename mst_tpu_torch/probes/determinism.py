@@ -28,8 +28,9 @@ from mst_tpu_torch.train.trainer import setup_training
 H, W, B, STEPS = 352, 480, 8, 3
 
 
-def interpolate_backward(x):
-    """The upsample with F.interpolate's own (atomicAdd) backward."""
+def interpolate_backward(x, slab=None, out_slab=None):
+    """The upsample with F.interpolate's own (atomicAdd) backward (on the
+    whole map: the probe runs without a mesh)."""
     return pooling._nhwc(F.interpolate(pooling._nchw(x), scale_factor=2,
                                        mode="bilinear", align_corners=False))
 

@@ -6,7 +6,11 @@ Restores a whole checkpoint or a base + delta pair and runs the
 multi-round stochastic test; mst_tpu's flags plus --device (cuda, which
 must exist, or cpu). Over a mesh, under torchrun, as the train CLI
 (`torchrun --nproc_per_node N -m mst_tpu_torch.test --mesh_shape N ...`;
-only rank 0 prints).
+only rank 0 prints), and over the spatial mesh, which splits each scene
+map's H over 'space' as well:
+
+    torchrun --nproc_per_node D*S -m mst_tpu_torch.test \
+        --mesh_shape D S --mesh_axes data space ...
 """
 
 import time
@@ -22,7 +26,7 @@ from mst_tpu_torch.utils.seeding import set_random_seeds
 def main(args):
     tic = time.time()
     device = resolve_device(args.device)
-    config_lib.check_loop_ported(vars(args))
+    config_lib.check_loop_ported(vars(args), training=False)
     mesh = mesh_lib.mesh_from_shape(args.mesh_shape, args.mesh_axes, device)
     set_random_seeds(args.seed)
     params = config_lib.get_params(args=args)

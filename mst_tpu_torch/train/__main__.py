@@ -12,6 +12,9 @@ unless --device cpu; only rank 0 prints):
     torchrun --nproc_per_node N -m mst_tpu_torch.train --mesh_shape N ...
     torchrun --nnodes R --nproc_per_node D ... --mesh_shape R D \\
         --mesh_axes replica data
+
+The spatial mesh (--mesh_axes data space) raises NotImplementedError:
+training on it is the next slice (its eval runs through the test CLI).
 """
 
 import time

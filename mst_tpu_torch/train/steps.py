@@ -44,6 +44,17 @@ global row order, on every rank; and each row's eval draws are the ones
 it draws in one process (sampling.Rows). The segmentation backbone runs
 on the scene maps, which every rank holds whole, so its train-mode
 statistics are the global batch's already.
+
+On a spatial ('data', 'space') mesh the eval step splits the scene maps'
+H over 'space' as well (mesh.Slab): a rank holds its 'data' block of rows
+and rows [s H / S, (s + 1) H / S) of every scene map and every finest
+activation, the encoder and both decoders run on the slabs
+(models/ynet.py), the waypoint channels of the goal logits are gathered
+to whole H, and TTST, CWS and the samplers run on them whole and
+unchanged on every rank; the trajectory decode ends in the partial
+variant of the fused kernel, whose statistics the 'space' ranks merge
+(ops/kernels/online_stats.merge_ranks). Training on it is the next slice
+(make_train_step raises).
 """
 
 import functools
@@ -59,13 +70,15 @@ from mst_tpu_torch.models import ynet as ynet_lib
 from mst_tpu_torch.models.unet import unet_apply
 from mst_tpu_torch.ops.heatmap import (rasterize_dist_nhwc,
                                        rasterize_gaussian_nhwc)
-from mst_tpu_torch.ops.kernels.fused_predict import \
-    fused_predictor_softargmax
+from mst_tpu_torch.ops.kernels.fused_predict import (
+    fused_predictor_softargmax, fused_predictor_softargmax_partial)
+from mst_tpu_torch.ops.kernels.online_stats import merge_ranks
 from mst_tpu_torch.ops.kmeans import batched_kmeans
 from mst_tpu_torch.ops.pooling import avg_pool_pyramid
 from mst_tpu_torch.ops.sampling import Key, Rows, sample_heatmap
 from mst_tpu_torch.ops.softargmax import (softargmax2d_auto,
                                           softargmax_on_prob_map)
+from mst_tpu_torch.parallel import mesh as mesh_lib
 from mst_tpu_torch.parallel.mesh import batch_shards
 from mst_tpu_torch.train.losses import bce_with_logits
 
@@ -145,7 +158,7 @@ def _compute_params(params, scfg):
 
 
 def _prepare_inputs(mcfg, scfg, params, semantic, traj, train=False,
-                    seg_bn_state=None, scene_idx=None):
+                    seg_bn_state=None, scene_idx=None, slab=None):
     """semantic (N, H, W, C) with N 1, B or S, and traj (B, T, 2) ->
     (semantic through the semantic adapter, swapped if asked, as B maps;
     observed distance maps (B, H, W, obs_len); the backbone's batch-norm
@@ -160,9 +173,11 @@ def _prepare_inputs(mcfg, scfg, params, semantic, traj, train=False,
     segmentation_* strategies train its leaves), and in a train step past
     e_unfreeze (segment_train_mode) on the batch's statistics, whose
     running-statistic updates are returned (else {}). Each output goes
-    through its embedding on the embed network."""
+    through its embedding on the embed network. slab (a mesh.Slab):
+    semantic holds the slab's rows of the scene maps (the whole image when
+    the backbone runs here: its output is cut to the slab), and both
+    outputs are the slab's rows."""
     B = traj.shape[0]
-    H, W = semantic.shape[-3], semantic.shape[-2]
     semantic = semantic.to(scfg.compute_dtype)
     seg_updates = {}
     if scfg.segment_in_step and "segmentation" in params:
@@ -174,19 +189,22 @@ def _prepare_inputs(mcfg, scfg, params, semantic, traj, train=False,
             semantic = unet_apply(params["segmentation"], semantic,
                                   scfg.use_features_only,
                                   bn_state=seg_bn_state)
-    semantic = ynet_lib.adapt_semantic(params, mcfg, semantic)
+        if slab is not None:
+            semantic = slab.take(semantic, -3)
+    H, W = semantic.shape[-3], semantic.shape[-2]
+    semantic = ynet_lib.adapt_semantic(params, mcfg, semantic, slab)
     if scfg.swap_semantic:
         semantic = swap_pavement_terrain(semantic)
     if scene_idx is not None:
         semantic = semantic[scene_idx]
     elif semantic.shape[0] != B:
         semantic = semantic.expand(B, *semantic.shape[1:])
-    observed_map = rasterize_dist_nhwc(traj[:, :scfg.obs_len], H, W,
-                                       scfg.template_size).to(
-                                           scfg.compute_dtype)
+    observed_map = rasterize_dist_nhwc(
+        traj[:, :scfg.obs_len], H, W, scfg.template_size,
+        0 if slab is None else slab.lo).to(scfg.compute_dtype)
     if mcfg.network == "embed":
-        semantic = ynet_lib.scene_embedding(params, semantic)
-        observed_map = ynet_lib.motion_embedding(params, observed_map)
+        semantic = ynet_lib.scene_embedding(params, semantic, slab)
+        observed_map = ynet_lib.motion_embedding(params, observed_map, slab)
     return semantic, observed_map, seg_updates
 
 
@@ -234,6 +252,8 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
     the ranks between the backward and the optimizer's step, and the
     losses and metric sums are the global batch's on every rank.
     """
+    if mesh_lib.is_spatial(mesh):
+        raise NotImplementedError(mesh_lib.SPATIAL_NOT_PORTED)
     waypoints = list(scfg.waypoints)
     n_levels = len(mcfg.encoder_channels) + 1
     dtype = scfg.compute_dtype
@@ -408,6 +428,12 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
     'best_traj' gathered in global row order, the sums summed over the
     ranks.
 
+    On a spatial ('data', 'space') mesh the rows are the rank's 'data'
+    block and batch['semantic'] holds the rank's H slab of the scene maps
+    (the whole image when the step runs the backbone, segment_in_step:
+    it segments the whole scene and cuts its slab); the outputs are the
+    same global ones on every rank (the module docstring).
+
     collect_samples: eval_step also returns the visualization payload
     (mst_tpu/train/steps.py:341-356, 595-603; reference evaluate.py:75-80,
     240-245): 'goal_map', the f32 goal logits (B, H, W, pred_len) NHWC,
@@ -418,7 +444,18 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
     """
     n_wp = len(scfg.waypoints)
     waypoints = list(scfg.waypoints)
+    n_levels = len(mcfg.encoder_channels) + 1
     shards = batch_shards(mesh)
+    spatial = mesh_lib.is_spatial(mesh)
+
+    def slabs_of(rows, whole=False):
+        """Each pyramid level's mesh.Slab (mesh.Slab.levels) of maps of
+        which this rank holds `rows` rows (whole: all of them); None off a
+        spatial mesh."""
+        if not spatial:
+            return None
+        height = rows if whole else rows * mesh_lib.axis_size(mesh, "space")
+        return mesh_lib.space_slab(mesh, height).levels(n_levels)
 
     def forward(params, state, batch, generator):
         generator = draw_source(generator)
@@ -427,16 +464,24 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
             n = traj.shape[0]
             generator = Rows(generator, *shards.rows(n), n * shards.count)
         params = _compute_params(params, scfg)
+        slabs = slabs_of(batch["semantic"].shape[-3], whole=(
+            scfg.segment_in_step and "segmentation" in params))
         semantic, observed_map, _ = _prepare_inputs(
             mcfg, scfg, params, batch["semantic"], traj,
             seg_bn_state=state.get("segmentation_bn"),
-            scene_idx=batch.get("scene_idx"))
+            scene_idx=batch.get("scene_idx"),
+            slab=None if slabs is None else slabs[0])
         features, _ = ynet_lib.pred_features(params, state, mcfg, semantic,
-                                             observed_map)
+                                             observed_map, slabs=slabs)
         # the goal logits in f32: sigmoid, sampling, TTST and CWS stay f32
         pred_goal_map = ynet_lib.pred_goal(
-            params, features).float()  # (B, H, W, pred)
+            params, features, slabs).float()  # (B, H, W, pred)
+        if slabs is not None and collect_samples:
+            pred_goal_map = slabs[0].gather(pred_goal_map)  # for the payload
         pred_waypoint_map = take(pred_goal_map, waypoints, -1)  # (B,H,W,n_wp)
+        if slabs is not None and not collect_samples:
+            # the samplers, TTST and CWS run on the whole channels
+            pred_waypoint_map = slabs[0].gather(pred_waypoint_map)
         pred_wp_sigmoid = torch.sigmoid(pred_waypoint_map / scfg.temperature)
         # (B, n_wp, H, W) for the samplers
         wp_sigmoid_hw = pred_wp_sigmoid.permute(0, 3, 1, 2)
@@ -469,28 +514,38 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
         """-> inputs(chunk): waypoint samples (Kc, B, n_wp, 2) -> the
         trajectory decoder's 1x1 predictor input (Kc*B, H, W, C) with its
         (C, pred_len) weight and (pred_len,) bias, all in the compute
-        dtype, the encoder terms hoisted once for all chunks."""
+        dtype, the encoder terms hoisted once for all chunks. On a spatial
+        mesh the input is the rank's slab of rows."""
         H, W = features[0].shape[1], features[0].shape[2]
+        slabs = slabs_of(features[0].shape[1])
+        row0 = 0 if slabs is None else slabs[0].lo
         decode = ynet_lib.make_shared_pred_traj(
-            _compute_params(params, scfg), features, n_wp)
+            _compute_params(params, scfg), features, n_wp, slabs)
 
         def inputs(chunk):
             Kc, B = chunk.shape[0], chunk.shape[1]
             flat = chunk.reshape(Kc * B, n_wp, 2)
-            wmap = rasterize_dist_nhwc(flat, H, W, scfg.template_size)
+            wmap = rasterize_dist_nhwc(flat, H, W, scfg.template_size, row0)
             return decode(avg_pool_pyramid(wmap.to(scfg.compute_dtype),
-                                           len(features)))
+                                           len(features), slabs))
         return inputs
 
     def decode_trajs(params, features, waypoint_samples):
         """All K decodes against the shared encoder features ->
         (K, B, pred_len, 2) model-space trajectories. The tail (1x1
         predictor + soft-argmax) is the fused kernel: the logits never
-        reach memory."""
+        reach memory. On a spatial mesh it is the kernel's partial
+        variant on the rank's slab, whose statistics the 'space' ranks
+        merge (merge_ranks)."""
         inputs = prepredictor(params, features)
+        slabs = slabs_of(features[0].shape[1])
 
         def decode_chunk(chunk):
-            pts = fused_predictor_softargmax(*inputs(chunk))
+            if slabs is None:
+                pts = fused_predictor_softargmax(*inputs(chunk))
+            else:
+                pts = merge_ranks(fused_predictor_softargmax_partial(
+                    *inputs(chunk), slabs[0].lo), slabs[0])
             return pts.reshape(chunk.shape[0], chunk.shape[1],
                                scfg.pred_len, 2)
 
@@ -532,7 +587,8 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
 
     def global_outputs(out):
         """decode_and_score's outputs on this rank's rows -> the global
-        batch's (themselves without a mesh)."""
+        batch's (themselves without a mesh), reduced over the 'data'
+        ranks of a spatial mesh (Shards' group)."""
         if shards is None:
             return out
         sums = shards.all_reduce(torch.stack(

@@ -34,8 +34,12 @@ keeps its block of rows (parallel/hostdata.py); the steps reduce over the
 ranks (train/steps.py), so every rank holds the same weights, losses and
 validation rows, and takes the same decisions. Rank 0 alone writes the
 checkpoints, _weights.npz, the metrics log and the training state, each
-followed by a barrier; every rank reads a state to resume. Not ported:
-the spatial mesh (config.check_loop_ported raises on it).
+followed by a barrier; every rank reads a state to resume. On the
+spatial ('data', 'space') mesh the batch size rounds up by 'data' alone,
+each rank holds its slab of every scene map's H (the backbone, where
+there is one, segments the whole scene and the slab is cut from its
+map), and test() runs the spatial eval step; training on it (train(),
+--fused) and cross-scene batching are the next slice and raise.
 
 The segmentation backbone (when its file exists) turns each scene's
 image into its semantic map once a pass and a cache (_semantic_for):
@@ -207,7 +211,7 @@ class Experiment:
 
     def __init__(self, params: dict, images=None, device=None, mesh=None):
         self.params = dict(params)
-        config_lib.check_loop_ported(self.params)
+        config_lib.check_loop_ported(self.params, training=False)
         self.device = resolve_device(device or self.params.get("device"))
         if mesh is None:
             mesh = mesh_lib.mesh_from_shape(self.params.get("mesh_shape"),
@@ -215,6 +219,9 @@ class Experiment:
                                             self.device)
         self.mesh = mesh
         self.shards = mesh_lib.batch_shards(mesh)
+        if mesh_lib.is_spatial(mesh) and self.params.get(
+                "cross_scene_batching"):
+            raise NotImplementedError(mesh_lib.SPATIAL_NOT_PORTED)
         self.mcfg = config_lib.ynet_config(self.params)
         self.division_factor = 2 ** len(self.params["encoder_channels"])
         self.seed = int(self.params.get("seed", 1))
@@ -273,7 +280,9 @@ class Experiment:
         'test' give BucketedBatches instead, except on eth (its homography
         is a scene's) or when allow_bucketed is False (trainer.py:
         160-176). On a mesh the batch size rounds up to a multiple of the
-        ranks (trainer.py:150-159), so every batch splits over them."""
+        ranks of its batch axes (trainer.py:150-159; 'data' alone on a
+        spatial mesh, trainer.py:151-156), so every batch splits over
+        them."""
         p = self.params
         batch_size = int(p["batch_size"])
         if self.mesh is not None:
@@ -332,7 +341,10 @@ class Experiment:
         once as 'image', with a cross-scene batch's 'scene_idx' and on eth
         the scene's homography; _with_semantic adds the semantic map. The
         per-row arrays are this rank's rows on a mesh (every row without
-        one; hostdata.take_local and shard_batch_global)."""
+        one; hostdata.take_local and shard_batch_global). On a spatial
+        mesh an image whose height does not divide the 'space' ranks
+        raises (mesh.check_spatial_scene), and without a backbone only the
+        rank's slab of it is uploaded (the semantic map is the image)."""
         images, homographies = {}, {}
         index, count = ((self.shards.index, self.shards.count)
                         if self.mesh is not None else (0, 1))
@@ -340,9 +352,14 @@ class Experiment:
         for b in batches:
             bucketed = isinstance(b, scenes_lib.BucketedBatch)
             if b.scene_id not in images:
-                images[b.scene_id] = torch.tensor(
-                    b.image if bucketed else b.image[None],
-                    device=self.device)
+                image = torch.as_tensor(b.image if bucketed
+                                        else b.image[None])
+                mesh_lib.check_spatial_scene(self.mesh, "image", image)
+                slab = mesh_lib.space_slab(self.mesh, image.shape[1])
+                if slab is not None and "segmentation" not in \
+                        self.model_params:
+                    image = slab.take(image)
+                images[b.scene_id] = image.to(self.device, copy=True)
                 if self._is_eth():
                     homographies[b.scene_id] = torch.tensor(
                         self._homography_for(b.scene_id),
@@ -402,7 +419,8 @@ class Experiment:
         identity backbone (trainer.py:229-290). A cross-scene group's
         scene_id is its scene-ids tuple and its image the (S, H, W, C)
         stack, so the stack segments once; n_segmented counts scene
-        maps."""
+        maps. On a spatial mesh the backbone segments the whole scene and
+        the cache keeps the rank's slab of its map."""
         if raw:
             return image
         if scene_id not in cache:
@@ -413,6 +431,9 @@ class Experiment:
                         self.mcfg.use_features_only,
                         bn_state=self.model_state.get("segmentation_bn"))
                 self.n_segmented += image.shape[0]
+                slab = mesh_lib.space_slab(self.mesh, sem.shape[1])
+                if slab is not None:
+                    sem = slab.take(sem)
                 source = "segmentation backbone output"
             else:
                 sem = image
@@ -771,7 +792,10 @@ class Experiment:
         line, also appended to self.epoch_log) adds n_steps, the host
         seconds of its steps (ending in the epoch's one metrics read) and
         of its validation; self.prepare_seconds is the data preparation
-        and upload before the first epoch."""
+        and upload before the first epoch. On a spatial mesh (with or
+        without --fused) it raises: training there is the next slice."""
+        if mesh_lib.is_spatial(self.mesh):
+            raise NotImplementedError(mesh_lib.SPATIAL_NOT_PORTED)
         p = self.params
         t0 = time.time()
         rng = np.random.default_rng(self.seed)

@@ -14,26 +14,36 @@ vmaps its one run where the world of one vmaps both, and the batched
 LoRA weights' grouped convs round otherwise), the metadata equal, one
 metrics line an epoch with the validation within 1e-5 relative; the
 printed epoch, test and grid lines equal.
+
+Adam's first updates are about lr x sign(g), so an element whose
+gradient is mostly rounding can take the other sign in the world of 2
+(whose all-reduce sums in another order) and move by up to 2 lr a step
+(tests/test_spatial_sharding.py:124-138 spells it out for mst_tpu). In
+the loop flow the world of one records, for each trainable leaf, the
+elements whose |g| fell under SIG of the leaf's max |g| at some step
+(chip_smoke.py's P14_SIG rule): those may be off by up to 2 lr a step,
+every other element is held at the leaf bar, and at most FLIP_SHARE of a
+file's elements may need the looser bound.
 """
 
 import json
 import os
 import re
 
-import cv2
 import numpy as np
 import pytest
 import torch
-import yaml
 
-from mst_tpu.data.synthetic import make_synthetic_dataset
-from mst_tpu_torch import config
-from mst_tpu_torch.train import trainer
+from mst_tpu_torch import io
+from mst_tpu_torch.train import optim, trainer
 from tests import torch_port_ranks as ranks
 
 RTOL = 1e-5
 LEAF_TOL = {"loop": 1e-5, "fused": 1e-5, "grid": 1e-4}  # of a leaf's max
 FLOWS = tuple(LEAF_TOL)
+SIG = 1e-3  # |g| under SIG x the leaf's max |g| at some step: may flip
+FLIP_SHARE = 0.02  # of a file's elements, at most, off by more than the bar
+LR = float(ranks.LOOP_ARGS[ranks.LOOP_ARGS.index("--lr") + 1])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -46,45 +56,86 @@ def threads():
 
 @pytest.fixture(scope="module")
 def flows(tmp_path_factory):
-    """2 scenes of 10 tracks as jpgs (64 x 96), predefined 14 / 3 / 3
-    pickles, synth.yaml (a 2-stage model, a checkpoint and a training
-    state every epoch) and a full base checkpoint; then the world of 2
-    (started first) and the world of one -> (root, world of 2's outputs
-    on each rank, the world of one's)."""
+    """The loop world (torch_port_ranks.write_loop_world), then the world
+    of 2 (started first) and the world of one -> (root, world of 2's
+    outputs on each rank, the world of one's, its runs' small-gradient
+    records)."""
     root = tmp_path_factory.mktemp("loop")
-    df, images = make_synthetic_dataset(seed=0, n_scenes=2, n_traj=10,
-                                        total_len=20, img_hw=(64, 96))
-    for scene, im in images.items():
-        name, idx = scene.split("_")
-        d = root / "data/sdd/raw/annotations" / name / f"video{idx}"
-        d.mkdir(parents=True)
-        cv2.imwrite(str(d / "reference.jpg"), (im * 255).astype(np.uint8))
-    ddir = root / "data/sdd/filter/synth"
-    ddir.mkdir(parents=True)
-    ids = df.metaId.unique()
-    for split, part in (("train", ids[:14]), ("val", ids[14:17]),
-                        ("test", ids[17:])):
-        df[df.metaId.isin(part)].to_pickle(ddir / f"{split}.pkl")
-    cfg = config.get_params("sdd_shortterm_train.yaml")
-    cfg = {k: cfg[k] for k in ("resize_factor", "waypoints", "temperature",
-                               "loss_scale", "kernlen", "nsig", "use_TTST",
-                               "rel_threshold", "use_CWS", "obs_len",
-                               "pred_len", "use_raw_data", "data_dir",
-                               "dataset_name")}
-    cfg.update(encoder_channels=[8, 8], decoder_channels=[8, 8],
-               n_semantic_classes=3, n_goal=4, n_traj=1, save_every_n=1)
-    (root / "synth.yaml").write_text(yaml.safe_dump(cfg))
     cwd = os.getcwd()
     os.chdir(root)
     try:
-        trainer.Experiment(config.get_params(
-            "synth.yaml", {"device": "cpu", "seed": 0})).save_params(
-                "base.npz")
+        ranks.write_loop_world(root)
         handle = ranks.start(root / "ranks", [2], ["loop"])
-        one = ranks.loop_flows("w1", [])
+        with pytest.MonkeyPatch.context() as mp:
+            small = record_small_gradients(mp)
+            one = ranks.loop_flows("w1", [])
     finally:
         os.chdir(cwd)
-    return root, ranks.finish(handle)["loop"], one
+    return root, ranks.finish(handle)["loop"], one, small
+
+
+def record_small_gradients(mp):
+    """Patch the trainer's setup_training and Adam's step so that each
+    run of this process records, under its ckpt_path's name, the count of
+    its optimizer steps and, by the flat key of each trainable leaf in
+    the checkpoints' layout (io.params_to_numpy), the elements whose |g|
+    fell under SIG of the leaf's max |g| at some step -> the records."""
+    records = {}
+    setup, step = trainer.setup_training, optim.Adam.step
+
+    def recording_setup(model_params, params_dict, steps_per_epoch):
+        out = setup(model_params, params_dict, steps_per_epoch)
+        out["optimizer"].small = records.setdefault(
+            os.path.basename(str(params_dict["ckpt_path"])), {
+                "keys": {id(v): k for k, v in
+                         io.flatten(model_params).items()},
+                "masks": {}, "steps": 0})
+        return out
+
+    def recording_step(self):
+        rec = getattr(self, "small", None)
+        if rec is not None:
+            rec["steps"] += 1
+            for p in self.params:
+                if p.grad is not None:
+                    g = p.grad.abs()
+                    key = rec["keys"][id(p)]
+                    low = g < SIG * g.max()
+                    rec["masks"][key] = rec["masks"].get(
+                        key, torch.zeros_like(low)) | low
+        return step(self)
+
+    mp.setattr(trainer, "setup_training", recording_setup)
+    mp.setattr(optim.Adam, "step", recording_step)
+    return records
+
+
+def leaf_key(name):
+    """A checkpoint key's trainable leaf (the training state's
+    trainable/, best/ and snap/<i>/ keys hold leaves too)."""
+    parts = name.split("/")
+    if parts[0] in ("trainable", "best"):
+        return "/".join(parts[1:])
+    if parts[0] == "snap":
+        return "/".join(parts[2:])
+    return name
+
+
+def assert_leaf_held(x, y, key, label, flow, small=None):
+    """x within LEAF_TOL[flow] of y's max; but with small (the world of
+    one's (masks, steps)), where its gradient may have flipped sign (the
+    mask of key's leaf), within 2 lr a step -> how many elements needed
+    that bound."""
+    bar = LEAF_TOL[flow] * max(np.abs(y).max(), 1e-12)
+    mask = None if small is None else small[0].get(leaf_key(key))
+    if mask is None:
+        np.testing.assert_allclose(x, y, rtol=0, atol=bar, err_msg=label)
+        return 0
+    d = np.abs(x.astype(np.float64) - y)
+    over = d > bar
+    assert not (over & ~mask).any(), (label, float(d[~mask].max()))
+    assert float(d[mask].max(initial=0.0)) <= 2 * LR * small[1], label
+    return int(over.sum())
 
 
 def files(d):
@@ -94,21 +145,27 @@ def files(d):
 
 @pytest.mark.parametrize("flow", FLOWS)
 def test_rank_zero_writes_the_world_of_ones_files(flows, flow):
-    root, _, _ = flows
+    root, _, _, records = flows
     w1, w2 = root / f"w1_{flow}", root / f"w2_{flow}"
     names = files(w1)
     assert names == files(w2) and any(n.endswith(".npz") for n in names)
+    small = None
+    if flow == "loop":  # the flow whose elements may flip (the docstring)
+        rec = records[f"w1_{flow}"]
+        assert rec["steps"] > 0 and rec["masks"]
+        small = ({k: v > 0.5 for k, v in io.params_to_numpy(
+            {k: m.float() for k, m in rec["masks"].items()}).items()},
+            rec["steps"])
     for name in names:
         a, b = w2 / name, w1 / name
         if name.endswith(".npz"):
             with np.load(a) as x, np.load(b) as y:
                 assert sorted(x.files) == sorted(y.files)
-                for k in y.files:
-                    np.testing.assert_allclose(
-                        x[k], y[k], rtol=0,
-                        atol=LEAF_TOL[flow] * max(np.abs(y[k]).max(),
-                                                  1e-12),
-                        err_msg=f"{name}: {k}")
+                flipped = sum(assert_leaf_held(x[k], y[k], k,
+                                               f"{name}: {k}", flow, small)
+                              for k in y.files)
+                size = sum(y[k].size for k in y.files)
+                assert flipped <= FLIP_SHARE * size, (name, flipped, size)
         elif name.endswith("metrics.jsonl"):
             got = [json.loads(line) for line in a.read_text().splitlines()]
             want = [json.loads(line) for line in b.read_text().splitlines()]
@@ -139,7 +196,7 @@ def lines(text):
 def test_every_rank_prints_the_world_of_ones_results(flows):
     """Each rank's printed lines are the world of one's, but for the grid
     runs' own lines, which rank 0 alone prints (before the summary)."""
-    _, got, one = flows
+    _, got, one, _ = flows
     for r, rank_out in enumerate(got):
         for flow in FLOWS:
             want = lines(one[flow])

@@ -402,8 +402,9 @@ def test_unported_loop_flags_raise(tmp_path, flag, over):
     --resume, the eth dataset, --cross_scene_batching, --remat and
     --fused (an Experiment builds; remat reaches its step config), and
     the data-parallel mesh, whose --mesh_shape must be the world (2 in a
-    world of 1 raises ValueError, naming both). The spatial mesh
-    (--mesh_axes data space) still raises NotImplementedError."""
+    world of 1 raises ValueError, naming both), and the spatial mesh
+    (--mesh_axes data space), on which an Experiment builds (to evaluate)
+    and train() raises NotImplementedError, naming the next slice."""
     if flag in ("resume", "eth", "cross_scene_batching", "remat", "fused"):
         exp = trainer.Experiment(loop_params(tmp_path, **over))
         assert all(exp.params[k] == v for k, v in over.items())
@@ -425,6 +426,15 @@ def test_unported_loop_flags_raise(tmp_path, flag, over):
         with pytest.raises(ValueError, match="mesh_shape 2 spans 2 ranks "
                            "but the world has 1"):
             trainer.Experiment(loop_params(tmp_path, **over))
+        return
+    if flag == "mesh_axes":  # a world of 1 in this process, then gone
+        try:
+            exp = trainer.Experiment(loop_params(tmp_path, **over))
+            assert exp.mesh.mesh_dim_names == ("data", "space")
+            with pytest.raises(NotImplementedError, match="next slice"):
+                exp.train(None, None, None, None, "spatial")
+        finally:
+            torch.distributed.destroy_process_group()
         return
     with pytest.raises(NotImplementedError, match=flag):
         trainer.Experiment(loop_params(tmp_path, **over))
@@ -550,16 +560,18 @@ def test_cli_raises_on_unported_flags(workdir, monkeypatch):
     monkeypatch.chdir(workdir)
     # --resume, --remat, --cross_scene_batching and --fused are ported: the
     # parser takes them into the params, and --compute_dtype bfloat16 too;
-    # so is the data-parallel mesh; the spatial mesh still raises
-    # (config.check_loop_ported)
+    # so is the data-parallel mesh; the spatial mesh evaluates and raises
+    # for training (config.check_loop_ported)
     args = config.get_parser(True).parse_args(
         COMMON + ["--resume", "--remat", "--cross_scene_batching",
                   "--fused", "--compute_dtype", "bfloat16"])
     params = config.get_params(args=args)
     assert params["resume"] is params["remat"] is params["fused"] is True
     config.check_loop_ported({**params, "mesh_shape": [2]})
+    spatial = {**params, "mesh_shape": [2, 2],
+               "mesh_axes": ["data", "space"]}
     with pytest.raises(NotImplementedError, match="mesh_shape"):
-        config.check_loop_ported({**params, "mesh_shape": [2, 2],
-                                  "mesh_axes": ["data", "space"]})
+        config.check_loop_ported(spatial)
+    config.check_loop_ported(spatial, training=False)
     assert params["cross_scene_batching"] is True
     assert config.step_config(params).compute_dtype == torch.bfloat16

@@ -286,7 +286,8 @@ def test_grid_refusals(workdir, monkeypatch):
     """No full base checkpoint: each seed's own random frozen base, which
     the grid refuses to share; seeds whose few-shot subsets batch to
     different shapes; a --mesh_shape that is not the world (2 in a world
-    of 1); the spatial mesh (--mesh_axes data space), not ported."""
+    of 1); the spatial mesh (--mesh_axes data space), with mst_tpu's
+    SystemExit (mst_tpu/grid.py:321-324)."""
     monkeypatch.chdir(workdir)
     with pytest.raises(SystemExit, match="frozen parameters"):
         run_grid(COMMON + GRID + ["--ckpt_path", "refused"])
@@ -300,7 +301,8 @@ def test_grid_refusals(workdir, monkeypatch):
     with pytest.raises(ValueError, match="mesh_shape 2 spans 2 ranks"):
         run_grid(COMMON + GRID + ["--pretrained_ckpt", "base.npz",
                                   "--mesh_shape", "2"])
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
+    with pytest.raises(SystemExit, match="the grid shards RUNS over the "
+                       "mesh; use a 1D --mesh_shape \\(no 'space' axis\\)"):
         run_grid(COMMON + GRID + ["--pretrained_ckpt", "base.npz",
                                   "--mesh_shape", "2", "2", "--mesh_axes",
                                   "data", "space"])
