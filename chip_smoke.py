@@ -4375,6 +4375,7 @@ P14_PX_TOL = 1e-4       # their samples, and best_traj, model px
 # last bits between batch sizes): at most this share of the valid rows
 P14_MOVED_SHARE = 0.34
 P14_EPOCHS = 2          # the CLI flows of the world of 1 (a)
+P14_CLI_LR = "3e-3"     # the CLI flows' learning rate
 P14_SCALE_STEPS = 10    # mesh_scaling's steps a world
 # a rank of phase 14's worlds, run from the checkout's root
 P14_RANK = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
@@ -4482,7 +4483,8 @@ def p14_steps(torch, mesh, out_path, n_steps=P14_STEPS, n_evals=1):
     one K = 20 TTST validation pass at full width on this rank's rows (on
     the model as p14_model makes it: the steps' weights differ between
     worlds in their last bits), each row's draws recorded (sampling.Rows)
-    -> report (losses, ms);
+    -> report (losses, ms, the last of the P14_STEPS steps' peak device
+    memory above what was allocated as it began);
     arrays to out_path: the leaves after the first P14_STEPS steps and
     those steps' gradients, the serial state, the eval outputs and the
     draws. n_evals > 1 repeats the pass on the same draws, the report's
@@ -4502,10 +4504,15 @@ def p14_steps(torch, mesh, out_path, n_steps=P14_STEPS, n_evals=1):
     step = make_train_step(ynet_config(params), step_config(params), mesh)
     for i in range(n_steps):
         torch.cuda.synchronize()
+        if i == P14_STEPS - 1:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         state, m = step(weights, state, opt, batch)
         torch.cuda.synchronize()
         report["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        if i == P14_STEPS - 1:  # a step's peak above what it starts on
+            report["step_peak"] = torch.cuda.max_memory_allocated() - base
         report["losses"].append(float(m["loss"]))
         if i < P14_STEPS:
             arrays.update({f"grad{i}/{k}": v.grad.cpu().numpy()
@@ -4570,29 +4577,57 @@ def eval_seed_p14():
     return eval_seed(1, 0, 0)
 
 
+# 14a's flows in a world of 1 on NCCL: {tag: flags}; each against the same
+# flow without a mesh (A0_FLOWS[A1_BASE[tag]])
+A0_FLOWS = {"loop": [], "fused": ["--fused"]}
+A1_SPATIAL = ["--mesh_shape", "1", "1", "--mesh_axes", "data", "space"]
+A1_FLOWS = {"loop": ["--mesh_shape", "1"],
+            "fused": ["--fused", "--mesh_shape", "1"],
+            "spatial": A1_SPATIAL, "spatial_fused": ["--fused"] + A1_SPATIAL}
+A1_BASE = {"loop": "loop", "fused": "fused", "spatial": "loop",
+           "spatial_fused": "fused"}
+
+
 def p14_cli_args(cfg, base, ckpt, flags):
     return ["--config_filename", cfg, "--batch_size", str(LOOP_B),
             "--dataset_path", "synth", "--load_data", "predefined",
             "--fine_tune", "--train_net", "mosa_2", "--position",
             *POSITIONS, "--pretrained_ckpt", base, "--n_epoch",
-            str(P14_EPOCHS), "--n_train_batch", "2", "--lr", "3e-3",
+            str(P14_EPOCHS), "--n_train_batch", "2", "--lr", P14_CLI_LR,
             "--ckpt_path", ckpt, "--metrics_jsonl",
             os.path.join(ckpt, "metrics.jsonl"), "--device",
             "cuda"] + flags
 
 
-def p14_train_cli(torch, args):
+def p14_train_cli(torch, args, record_grads=False):
     """The train CLI in this process -> (its stdout, whether its --fused
-    runner captured a graph, a replay's launches)."""
+    runner captured a graph, a replay's launches; with record_grads, each
+    optimizer step's |gradient| of each trainable leaf, {path: [numpy
+    array a step]}, as 'grads')."""
+    from mst_tpu_torch import io
     from mst_tpu_torch.config import get_parser
-    from mst_tpu_torch.train import trainer
+    from mst_tpu_torch.train import optim, trainer
     from mst_tpu_torch.train.__main__ import main as train_main
 
-    seen = {}
-    train = trainer.Experiment.train
+    seen, steps = {}, []
+    train, adam_step = trainer.Experiment.train, optim.Adam.step
+
+    def recorded(self):
+        steps.append([p.grad.abs().cpu().numpy() for p in self.params])
+        return adam_step(self)
 
     def hooked(self, *a, **k):
-        out = train(self, *a, **k)
+        if record_grads:
+            optim.Adam.step = recorded
+        try:
+            out = train(self, *a, **k)
+        finally:
+            optim.Adam.step = adam_step
+        if record_grads:  # the optimizer's leaves, in set_trainable's order
+            names = [k for k, v in io.flatten(self.model_params).items()
+                     if v.requires_grad]
+            seen["grads"] = {k: [g[i] for g in steps]
+                             for i, k in enumerate(names)}
         runner = self.fused_runner
         seen.update(fused=runner is not None, captured=bool(
             runner is not None and runner.graph is not None), per_replay={
@@ -4613,12 +4648,16 @@ def p14_train_cli(torch, args):
 
 def mesh_rank_main(job_json):
     """One rank of phase 14 (P14_RANK): job 'cli' runs the train CLI's
-    flows with --mesh_shape 1 (a world of 1 on NCCL), job 'mesh' the world
-    of 2's steps, validation, checkpoint save, spatial eval (p14_spatial
-    and the test CLI, p14_spatial_cli, on a (1, 2) ('data', 'space') mesh
-    of the same world) and grid on its mesh (gloo on the one card), job
-    'steps' the steps and validation alone on a world of any size and job
-    'spatial' the spatial eval on a (1, world) mesh (mesh_scaling). Prints
+    flows with --mesh_shape 1 and with --mesh_shape 1 1 --mesh_axes data
+    space (A1_FLOWS; a world of 1 on NCCL), job 'mesh' the world of 2's
+    steps, validation, checkpoint save, spatial eval (p14_spatial and the
+    test CLI, p14_spatial_cli, on a (1, 2) ('data', 'space') mesh of the
+    same world), spatial training (p14_spatial_steps and the train CLI,
+    p14_spatial_train_cli, on that mesh) and grid on its mesh (gloo on the
+    one card), job
+    'steps' the steps and validation alone on a world of any size, job
+    'spatial' the spatial eval on a (1, world) mesh and job
+    'spatial_train' its train steps and train CLI (mesh_scaling). Prints
     'P14 ' + its report, with its kernel launches."""
     import torch
 
@@ -4635,17 +4674,26 @@ def mesh_rank_main(job_json):
     rank = int(os.environ["RANK"])
     report = {"rank": rank}
     if job["kind"] == "cli":
-        for tag, flags in (("loop", []), ("fused", ["--fused"])):
+        for tag, flags in A1_FLOWS.items():
             text, seen = p14_train_cli(torch, p14_cli_args(
                 job["cfg"], job["base"], os.path.join(job["tmp"],
-                                                      f"a1_{tag}"),
-                flags + ["--mesh_shape", "1"]))
+                                                      f"a1_{tag}"), flags))
             report[tag] = {"text": text, **seen}
         report["backend"] = torch.distributed.get_backend()
     elif job["kind"] == "spatial":
         shape = tuple(job["shape"])
         report["spatial"] = p14_spatial(torch, wrappers, os.path.join(
             job["tmp"], f"spatial_rank{rank}.npz"), shape)
+        report["backend"] = torch.distributed.get_backend()
+    elif job["kind"] == "spatial_train":
+        shape = tuple(job["shape"])
+        report["spatial_train"] = p14_spatial_steps(
+            torch, wrappers, os.path.join(job["tmp"],
+                                          f"spatial_train_rank{rank}.npz"),
+            shape)
+        release(torch)
+        report["spatial_train_cli"] = p14_spatial_train_cli(
+            torch, wrappers, job["train"], shape)
         report["backend"] = torch.distributed.get_backend()
     elif job["kind"] == "steps":
         world = int(os.environ["WORLD_SIZE"])
@@ -4683,7 +4731,14 @@ def mesh_rank_main(job_json):
         release(torch)  # and the spatial pass's before the test CLI's
         report["spatial_cli"] = p14_spatial_cli(torch, wrappers,
                                                 job["test"])
-        release(torch)  # and the test CLI's before the grid's
+        release(torch)  # and the test CLI's before the spatial steps'
+        report["spatial_train"] = p14_spatial_steps(
+            torch, wrappers, os.path.join(job["tmp"],
+                                          f"spatial_train_rank{rank}.npz"))
+        release(torch)
+        report["spatial_train_cli"] = p14_spatial_train_cli(
+            torch, wrappers, job["train"])
+        release(torch)  # and the train CLIs' before the grid's
         t0 = time.perf_counter()
         buf = io_text.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -4866,7 +4921,10 @@ def mesh_scaling(torch, card, worlds=(2, 4), n_steps=P14_SCALE_STEPS):
     each see their own card alone, and must still take NCCL. Then the
     step's and the pass's ms of every world: strong scaling of one global
     batch; and the same TTST pass on a (1, max(worlds)) ('data', 'space')
-    mesh over NCCL, a card a rank, against the world of 1 (hold_spatial).
+    mesh over NCCL, a card a rank, against the world of 1 (hold_spatial),
+    then 14f's train steps on that mesh (hold_spatial_steps) and the
+    train CLI's --fused on it over phase 6c's scenes, captured with its
+    halo all-reduces (ms and peak by rank).
     Needs max(worlds) cards; on a host with four:
 
         python3 -c 'import chip_smoke; chip_smoke.mesh_scaling_main()'
@@ -4908,6 +4966,41 @@ def mesh_scaling(torch, card, worlds=(2, 4), n_steps=P14_SCALE_STEPS):
         check(all(r["backend"] == "nccl" for r in reps),
               f"14 x{n} spatial: backends {[r['backend'] for r in reps]}")
         hold_spatial(tmp, one, rep1, reps, card, (1, n), f"14 x{n} spatial")
+        # its train steps, and the train CLI's --fused on it, whose graph
+        # captures the halo all_reduces of the forward and the backward
+        release(torch)
+        from mst_tpu_torch.config import get_params
+        from mst_tpu_torch.data import splits
+        from mst_tpu_torch.train.trainer import Experiment
+
+        images, train, val, test = loop_data()
+        cfg = write_grid_world(os.path.join(tmp, "world"), images,
+                               splits.limit_samples(train, 2, LOOP_B), val,
+                               test)
+        base = os.path.join(tmp, "base.npz")
+        Experiment(get_params(cfg, {"seed": 0}),
+                   device="cuda").save_params(base)
+        release(torch)
+        reps = start_ranks(n, {"kind": "spatial_train", "tmp": tmp,
+                               "shape": [1, n], "train": {
+                                   "fused": p14_cli_args(
+                                       cfg, base, os.path.join(tmp, "f4"),
+                                       ["--n_epoch", "2", "--fused"])}},
+                           900, own_card=True)()
+        hold_spatial_steps(tmp, one, rep1, reps, card, (1, n),
+                           f"14 x{n} spatial train")
+        clis = [rep["spatial_train_cli"]["fused"] for rep in reps]
+        check(all(c["captured"] for c in clis),
+              f"14 x{n} spatial --fused: not captured on every rank")
+        secs = [r["epoch_seconds"]
+                for r in epoch_records(os.path.join(tmp, "f4"))]
+        print(f"14 x{n} spatial --fused ({card}; NCCL, a card a rank): the "
+              f"train CLI's 2 epochs captured as a CUDA graph on every "
+              f"rank, epoch s {[round(x, 4) for x in secs]} (the chunk's "
+              f"mean), host s by rank {[round(c['s'], 1) for c in clis]}, "
+              f"peak by rank {[round(c['peak'] / 2**30, 3) for c in clis]} "
+              f"GiB, launches by rank "
+              f"{[{k: v for k, v in c['launches'].items() if v} for c in clis]}")
     finally:
         torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4962,6 +5055,98 @@ MERGE_WRONG = 100          # a wrong merge lands at least this many bars off
 P14_MEM_RATIO = 0.75     # a rank's eval-pass peak over the world of 1's;
 # predicted 0.5-0.6 (the K = 20 decode's maps halve; the goal logits'
 # waypoint channel, the samplers and the coarse levels stay whole)
+
+
+# a spatial train step's trajectory maps on a rank at S = 2: B = 8 x P = 12
+# rows of 176 x 480
+STEP_SLAB = (96, 176, 480)
+
+
+def rows_partial_bound(R, HW, elem_bytes=4):
+    """The rows kernel's partial variant reads the logits once and writes
+    (R, 4) statistics; 8 operations a logit, as the whole-map kernel's."""
+    return bound(R * HW * elem_bytes + R * 4 * 4, R * HW * 8)
+
+
+def check_rows_partial_kernel(torch):
+    """The partial-statistics variant of the rows kernel against its plain
+    version in f32 and bf16 (each row's own soft-argmax, the fold of its
+    statistics, px, and its max statistic m), on edge cases at a row
+    offset (a train step's rows, a view off 16-byte alignment, H*W % 4 !=
+    0, rows shorter than the cluster, a peaked map); two and three slabs
+    of maps cut at uneven rows, merged in order (online_stats.fold,
+    merge_ranks' arithmetic), against the whole-map kernel within
+    P14_MERGE_TOL; f16 refused; timed at a spatial train step's slab of
+    its trajectory maps (STEP_SLAB, row0 176) beside its bound -> its
+    record for the JSON line."""
+    from mst_tpu_torch.ops.kernels.online_stats import fold
+    from mst_tpu_torch.ops.kernels.softargmax_rows import (
+        softargmax2d_rows, softargmax2d_rows_partial,
+        softargmax2d_rows_partial_plain)
+
+    partial, plain = (softargmax2d_rows_partial,
+                      softargmax2d_rows_partial_plain)
+    g = torch.Generator(device="cuda").manual_seed(19)
+
+    def maps(shape, dtype=torch.float32, offset=0):
+        buf = torch.randn(math.prod(shape) + offset, generator=g,
+                          device="cuda") * 3
+        return buf.to(dtype)[offset:].view(shape)
+
+    err = 0.0
+    for dtype, tol in ((torch.float32, ROWS_TOL),
+                       (torch.bfloat16, ROWS_BF16_TOL)):
+        peaked = torch.full((1, 32, 64), -30.0, device="cuda", dtype=dtype)
+        peaked[0, 17, 42] = 30.0
+        cases = [("a train step's rows", maps((12, 44, 60), dtype), 44),
+                 ("unaligned view", maps((3, 37, 53), dtype, 1), 37),
+                 ("H*W % 4 != 0", maps((3, 37, 53), dtype), 74),
+                 ("rows shorter than the cluster", maps((5, 3, 5), dtype),
+                  9),
+                 ("peaked", peaked, 100)]
+        check(cases[1][1].data_ptr() % 16 != 0,
+              "the unaligned view is aligned")
+        label = f"rows partial statistics {str(dtype).split('.')[-1]}"
+        err = max(err, check_cases(
+            torch, label, lambda x, r: fold([partial(x, r)]),
+            lambda x, r: fold([plain(x, r)]),
+            [(n, (x, r)) for n, x, r in cases], tol))
+        m_err = max(float((partial(x, r)[..., 0] - plain(x, r)[..., 0])
+                          .abs().max()) for _, x, r in cases)
+        check(m_err <= 1e-3, f"{label}: the max statistic m is {m_err} "
+              "off its plain version")
+        x = maps((6, 40, 56), dtype)
+        whole = softargmax2d_rows(x)
+        for cuts in ((0, 17, 40), (0, 8, 21, 40)):
+            merged = fold([partial(x[:, lo:hi].contiguous(), lo)
+                           for lo, hi in zip(cuts[:-1], cuts[1:])])
+            e = float((merged - whole).abs().max())
+            print(f"{label}: slabs {cuts} merged against the whole-map "
+                  f"kernel: {e:.3e} px (tol {P14_MERGE_TOL})")
+            check(e <= P14_MERGE_TOL, f"{label}: merged slabs {cuts} off")
+            err = max(err, e)
+    try:
+        partial(maps((2, 8, 8)).half(), 0)
+        check(False, "the rows partial kernel took f16")
+    except ValueError:
+        pass
+    R, H, W = STEP_SLAB
+    x = maps(STEP_SLAB)
+    err = max(err, check_cases(
+        torch, "rows partial statistics", lambda *a: fold([partial(*a)]),
+        lambda *a: fold([plain(*a)]),
+        [("a spatial step's trajectory slab", (x, H))], ROWS_TOL))
+    rec = time_kernel(torch, f"softargmax_rows_partial {STEP_SLAB}",
+                      lambda: partial(x, H), lambda: plain(x, H), 200, 20,
+                      rows_partial_bound(R, H * W))
+    del x
+    torch.cuda.empty_cache()
+    return {"name": "softargmax_rows_partial", "route": "cuda",
+            "source": "mst_tpu_torch/csrc/softargmax_rows.cu",
+            "replaces": "mst_tpu/ops/pallas/softargmax.py:63",
+            "max_abs_err": err, "library_ms": None,
+            **{k: rec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by")}}
 
 
 def partial_bound(R, H, W, C, P, elem_bytes=4):
@@ -5337,6 +5522,313 @@ def hold_spatial_cli(text1, launches1, secs1, reps, card, label="14e"):
             for rep in reps]
 
 
+# ---- phase 14f: training on the spatial ('data', 'space') mesh
+P14F_EPOCHS = 1  # the train CLI's epochs on the spatial mesh (14f)
+
+
+def p14_spatial_steps(torch, wrappers, out_path, shape=P14_SPATIAL):
+    """(f) on this rank: 14b's P14_STEPS mosa_2 steps and a serial-adapter
+    step (the models as p14_model makes them, phase 6b's batch) on a
+    `shape` ('data', 'space') mesh of the world, the rank holding its
+    'data' block of the rows and its slab of the scene map's rows; every
+    kernel's count set to 0 just before the steps and read just after
+    (the job's counts add them); each step's ms and the last mosa_2
+    step's peak device memory above its start. Then, on the last state's
+    maps (outside the counts): the rows kernel's partial variant against
+    its plain version in f32 and bf16, and the ranks' merged statistics
+    against the whole-map rows kernel on the gathered maps -> report; the
+    leaves after the mosa_2 steps, their gradients and the serial state
+    to out_path."""
+    import numpy as np
+
+    from mst_tpu_torch import io
+    from mst_tpu_torch.config import step_config, ynet_config
+    from mst_tpu_torch.ops.kernels.online_stats import fold, merge_ranks
+    from mst_tpu_torch.ops.kernels.softargmax_rows import (
+        softargmax2d_rows, softargmax2d_rows_partial,
+        softargmax2d_rows_partial_plain)
+    from mst_tpu_torch.parallel import mesh as mesh_lib
+    from mst_tpu_torch.train.steps import make_train_step
+
+    H, W, B = 352, 480, 8
+    mesh = mesh_lib.mesh_from_shape(list(shape), ["data", "space"], "cuda")
+    slab = mesh_lib.space_slab(mesh, H)
+    shards = mesh_lib.batch_shards(mesh)
+    params, weights, state, opt, named = p14_model(torch, "mosa_2")
+    batch = fine_tune_batch(torch, params, H, W, B)
+    lo, hi = shards.rows(B // shards.count)
+    batch = {k: slab.take(v).contiguous() if k == "semantic" else v[lo:hi]
+             for k, v in batch.items()}
+    step = make_train_step(ynet_config(params), step_config(params), mesh)
+    sparams, sweights, sstate, sopt, _ = p14_model(torch, "serial")
+    sstep = make_train_step(ynet_config(sparams), step_config(sparams),
+                            mesh)
+    held = {k: w.launches for k, w in wrappers.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    arrays, report = {}, {"losses": [], "step_ms": []}
+    for i in range(P14_STEPS):
+        torch.cuda.synchronize()
+        if i == P14_STEPS - 1:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state, m = step(weights, state, opt, batch)
+        torch.cuda.synchronize()
+        report["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        report["losses"].append(float(m["loss"]))
+        arrays.update({f"grad{i}/{k}": v.grad.cpu().numpy()
+                       for k, v in named.items()})
+    report["step_peak"] = torch.cuda.max_memory_allocated() - base
+    report["n"] = float(m["n"])
+    arrays.update({f"leaf/{k}": v.detach().cpu().numpy()
+                   for k, v in named.items()})
+    sstate, sm = sstep(sweights, sstate, sopt, batch)
+    report["serial_loss"] = float(sm["loss"])
+    arrays.update({f"state/{k}": v.cpu().numpy()
+                   for k, v in io.flatten(sstate).items()})
+    torch.cuda.synchronize()
+    report["launches"] = {k: w.launches for k, w in wrappers.items()}
+    report["rows"] = list(batch["semantic"].shape[1:3])
+    np.savez(out_path, **arrays)
+    with torch.no_grad():
+        _, _, goal_map, traj_map, _ = step.forward(weights, state, batch)
+    maps = traj_map.permute(0, 3, 1, 2).contiguous()  # (B, P, rows, W)
+    report["maps_shape"] = list(maps.shape)
+    merged = merge_ranks(softargmax2d_rows_partial(maps, slab.lo), slab)
+    whole = softargmax2d_rows(slab.gather(maps, 2))  # (B, P, H, W)
+    report["merge_err"] = float((merged - whole).abs().max())
+    for dtype, key in ((torch.float32, "plain_err"),
+                       (torch.bfloat16, "plain_err_bf16")):
+        md = maps.to(dtype)
+        report[key] = float((fold([softargmax2d_rows_partial(
+            md, slab.lo)]) - fold([softargmax2d_rows_partial_plain(
+                md, slab.lo)])).abs().max())
+    for k, w in wrappers.items():  # the comparisons' launches do not count
+        w.launches = held[k] + report["launches"][k]
+    return report
+
+
+def hold_spatial_steps(tmp, one, rep1, reps, card, shape=P14_SPATIAL,
+                       label="14f"):
+    """Phase 14f's checks of the spatial train steps on each rank (its
+    report's 'spatial_train' and spatial_train_rank<r>.npz in tmp) against
+    the world of 1's 14b steps (one, rep1), 14b's bars: the losses within
+    P14_LOSS_RTOL, the leaves the same on every rank and within
+    P14_LEAF_TOL of their max where every step's |g| is above P14_SIG of
+    its max, the serial step's loss and BN statistics; the rows kernel's
+    partial variant twice a step on each rank, the whole-map rows kernel
+    and every other kernel never; the partial kernel against its plain
+    version (ROWS_TOL, ROWS_BF16_TOL) and the ranks' merged statistics
+    against the whole-map kernel (P14_MERGE_TOL). Prints them, with each
+    rank's step ms and peak against the world of 1's -> {launches by
+    rank, max error}."""
+    import numpy as np
+
+    sts = [rep["spatial_train"] for rep in reps]
+    n_steps = P14_STEPS + 1  # and the serial step
+    for r, st in enumerate(sts):
+        want = dict.fromkeys(st["launches"], 0)
+        want["softargmax_rows_partial"] = 2 * n_steps
+        check(st["launches"] == want, f"{label}: rank {r}'s steps launched "
+              f"{ {k: v for k, v in st['launches'].items() if v} }, the "
+              f"code gives {2 * n_steps} rows partial and nothing else")
+        check(st["rows"][0] == 352 // shape[1],
+              f"{label}: rank {r}'s scene slab holds {st['rows']}")
+        check(st["merge_err"] <= P14_MERGE_TOL
+              and st["plain_err"] <= ROWS_TOL
+              and st["plain_err_bf16"] <= ROWS_BF16_TOL,
+              f"{label}: rank {r}: merged {st['merge_err']:.3e} px off the "
+              f"whole-map kernel, the kernel {st['plain_err']:.3e} (f32) and "
+              f"{st['plain_err_bf16']:.3e} (bf16) off its plain one")
+    loss_err = max(abs(a - b) / abs(b) for st in sts
+                   for a, b in zip(st["losses"], rep1["losses"]))
+    check(loss_err <= P14_LOSS_RTOL and all(
+        st["n"] == rep1["n"] for st in sts),
+          f"{label}: losses {loss_err:.3e} off the world of 1's")
+    outs = [p14_read(os.path.join(tmp, f"spatial_train_rank{r}.npz"))
+            for r in range(len(reps))]
+    leaf_err, flipped, n_el = 0.0, 0, 0
+    for k in (k for k in one if k.startswith("leaf/")):
+        name = k[len("leaf/"):]
+        sig = np.ones(one[k].shape, bool)
+        for i in range(P14_STEPS):
+            g = np.abs(one[f"grad{i}/{name}"])
+            sig &= g > P14_SIG * g.max()
+        for out in outs:
+            check(np.array_equal(out[k], outs[0][k]),
+                  f"{label}: the ranks' {name} differ")
+        d = np.abs(outs[0][k] - one[k]) / max(np.abs(one[k]).max(), 1e-12)
+        leaf_err = max(leaf_err, float(d[sig].max(initial=0.0)))
+        flipped += int((d[~sig] > P14_LEAF_TOL).sum())
+        n_el += d.size
+    check(leaf_err <= P14_LEAF_TOL,
+          f"{label}: leaves {leaf_err:.3e} of their max off the world of 1")
+    stat_err = max(float(np.abs(out[k].astype(np.float64) - one[k]).max())
+                   for out in outs for k in one if k.startswith("state/"))
+    check(stat_err <= P14_STAT_TOL,
+          f"{label}: serial BN statistics {stat_err:.3e} off")
+    serial_err = max(abs(st["serial_loss"] - rep1["serial_loss"])
+                     / abs(rep1["serial_loss"]) for st in sts)
+    check(serial_err <= P14_LOSS_RTOL, f"{label}: serial loss {serial_err}")
+    ratio = [st["step_peak"] / rep1["step_peak"] for st in sts]
+    print(f"{label}: {P14_STEPS} mosa_2 steps and a serial step on a "
+          f"{shape[0]} x {shape[1]} ('data', 'space') mesh ({card}), each "
+          f"rank holding {sts[0]['rows'][0]} of 352 rows: losses "
+          f"{loss_err:.3e} relative off the world of 1's, leaves "
+          f"{leaf_err:.3e} of their max where |g| > {P14_SIG} max|g| "
+          f"({flipped} of {n_el} other elements off by more), the same on "
+          f"every rank; serial BN statistics {stat_err:.3e}, its loss "
+          f"{serial_err:.3e}; the rows kernel's partial variant on "
+          f"{sts[0]['maps_shape']}: launches by rank "
+          f"{[st['launches']['softargmax_rows_partial'] for st in sts]}, "
+          f"merged {max(st['merge_err'] for st in sts):.3e} px off the "
+          f"whole-map kernel, {max(st['plain_err'] for st in sts):.3e} (f32)"
+          f" and {max(st['plain_err_bf16'] for st in sts):.3e} px (bf16) off "
+          f"its plain version; step ms by rank "
+          f"{[[round(x, 1) for x in st['step_ms']] for st in sts]} against "
+          f"the world of 1's {[round(x, 1) for x in rep1['step_ms']]}; a "
+          f"step's peak by rank "
+          f"{[round(st['step_peak'] / 2**30, 3) for st in sts]} GiB against "
+          f"the world of 1's {rep1['step_peak'] / 2**30:.3f} GiB, ratios "
+          f"{[round(x, 3) for x in ratio]}")
+    return {"launches": [st["launches"]["softargmax_rows_partial"]
+                         for st in sts],
+            "max_abs_err": max(max(st["merge_err"], st["plain_err"],
+                                   st["plain_err_bf16"]) for st in sts)}
+
+
+def p14_spatial_train_cli(torch, wrappers, flows, shape=P14_SPATIAL):
+    """(f) on this rank: the train CLI's main() on a `shape` spatial mesh
+    of the world, once for each of flows ({tag: its arguments}), every
+    kernel's count set to 0 just before each and read just after (the
+    job's counts then add them) -> {tag: {its stdout, launches, whether
+    --fused captured, host s, peak device memory}}."""
+    held = {k: w.launches for k, w in wrappers.items()}
+    out = {}
+    mesh_args = ["--mesh_shape", *map(str, shape), "--mesh_axes", "data",
+                 "space"]
+    for tag, args in flows.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (text, seen), launches = count_launches(
+            wrappers, lambda: p14_train_cli(torch, args + mesh_args))
+        torch.cuda.synchronize()
+        out[tag] = {"text": text, "launches": launches,
+                    "captured": seen.get("captured", False),
+                    "s": time.perf_counter() - t0,
+                    "peak": torch.cuda.max_memory_allocated()}
+        for k in held:
+            held[k] += launches[k]
+    for k, w in wrappers.items():
+        w.launches = held[k]
+    return out
+
+
+def delta_leaves(ckpt):
+    """The delta a train CLI saved under ckpt (its *__original.npz)."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(ckpt, "*__original.npz"))
+    return p14_read(path)
+
+
+def epoch_records(ckpt):
+    """The metrics log a train CLI wrote under ckpt, one record an
+    epoch."""
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+# a train CLI's delta against the same run's without a mesh, on the
+# elements whose |g| stays above P14_SIG of its leaf's max: within this
+# many lr a step. Adam moves such an element by lr x m / sqrt(v), which a
+# gradient off by d (of max |g|) turns by at most about lr x d / P14_SIG;
+# the steps agree to d = 1e-5 (the CPU's bars), so 1e-2 lr a step. 14b's
+# bar is in units of a leaf's max instead, which for a delta that starts
+# at zero (lora_B) is a few lr after a few steps.
+P14_SIG_LR = 1e-2
+
+
+def hold_trained(label, ckpt, ckpt0, grads, lr):
+    """A train CLI run's files under ckpt against the same run's under
+    ckpt0 (without a mesh): bit-equal, or each epoch's val ADE/FDE within
+    P14_VAL_RTOL and the saved delta's leaves by the P14_SIG rule, with
+    the run without a mesh's gradients (grads, {path: [|g| a step]}):
+    within P14_SIG_LR lr a step where every step's |g| is above P14_SIG
+    of its max, within 2 lr a step elsewhere -> (which held, the largest
+    val error, the largest error on the significant elements in lr a
+    step)."""
+    import numpy as np
+
+    a, b = delta_leaves(ckpt), delta_leaves(ckpt0)
+    check(a.keys() == b.keys() == grads.keys(),
+          f"{label}: the deltas' leaves differ: {sorted(a)[:4]}")
+    recs, recs0 = epoch_records(ckpt), epoch_records(ckpt0)
+    check(len(recs) == len(recs0) > 0,
+          f"{label}: {len(recs)} epochs logged, {len(recs0)} without a mesh")
+    val_err = max(abs(r[k] - r0[k]) / abs(r0[k]) for r, r0 in zip(recs, recs0)
+                  for k in ("val_ade", "val_fde"))
+    if all(np.array_equal(a[k], b[k]) for k in b) and val_err == 0.0:
+        return "bit-equal", 0.0, 0.0
+    n_steps = len(next(iter(grads.values())))
+    leaf_err, of_max, n_sig, n_el = 0.0, 0.0, 0, 0
+    for k, gs in grads.items():
+        sig = np.logical_and.reduce([g > P14_SIG * g.max() for g in gs])
+        d = np.abs(a[k] - b[k])
+        leaf_err = max(leaf_err, float(d[sig].max(initial=0.0))
+                       / (lr * n_steps))
+        of_max = max(of_max, float(d[sig].max(initial=0.0))
+                     / max(float(np.abs(b[k]).max()), 1e-12))
+        n_sig, n_el = n_sig + int(sig.sum()), n_el + d.size
+        check(float(d.max()) <= 2 * lr * n_steps,
+              f"{label}: {k} moved {float(d.max()):.3e}, over 2 lr a step")
+    print(f"{label}: the delta's significant elements ({n_sig} of {n_el}) "
+          f"{leaf_err:.3e} lr a step ({of_max:.3e} of their leaf's max) "
+          f"off the run without a mesh over {n_steps} steps")
+    check(val_err <= P14_VAL_RTOL and leaf_err <= P14_SIG_LR,
+          f"{label}: val ADE/FDE {val_err:.3e} relative, leaves "
+          f"{leaf_err:.3e} lr a step off the run without a mesh")
+    return "the P14_SIG rule", val_err, leaf_err
+
+
+def hold_spatial_train_cli(tmp, flows0, reps, card, label="14f"):
+    """Phase 14f through the entry point: each flow of the train CLI on
+    the spatial mesh (p14_spatial_train_cli; rank 0 wrote f2_<tag>)
+    against the same flow without a mesh in this process (flows0, which
+    wrote f0_<tag>; its loop's gradients): hold_trained; the rows
+    kernel's partial variant launched on each rank, the whole-map rows
+    kernel only where TTST samples the test's goal maps; --fused eager
+    on gloo."""
+    lr = float(P14_CLI_LR)
+    grads = flows0["loop"][1]["grads"]
+    for tag in flows0:
+        how, val_err, leaf_err = hold_trained(
+            f"{label} {tag}", os.path.join(tmp, f"f2_{tag}"),
+            os.path.join(tmp, f"f0_{tag}"), grads, lr)
+        for r, rep in enumerate(reps):
+            cli = rep["spatial_train_cli"][tag]
+            check(cli["launches"]["softargmax_rows_partial"] > 0
+                  and cli["launches"]["fused_predict_partial"] > 0
+                  and cli["launches"]["fused_predict"] == 0
+                  and not cli["captured"],
+                  f"{label} {tag}: rank {r} launched {cli['launches']}, "
+                  f"captured {cli['captured']}")
+        ran = [{k: v for k, v in rep["spatial_train_cli"][tag][
+            "launches"].items() if v} for rep in reps]
+        print(f"{label} {tag}: `python -m mst_tpu_torch.train --mesh_shape "
+              f"{' '.join(map(str, P14_SPATIAL))} --mesh_axes data space"
+              f"{' --fused' if tag == 'fused' else ''}` (main() on each "
+              f"rank, {P14F_EPOCHS} epoch; {card}) against the same CLI "
+              f"without a mesh: {how} (val ADE/FDE {val_err:.3e} relative, "
+              f"the delta's significant leaves {leaf_err:.3e} lr a step); "
+              f"launches by "
+              f"rank {ran}; host s by rank "
+              f"{[round(rep['spatial_train_cli'][tag]['s'], 1) for rep in reps]}"
+              f", without a mesh {flows0[tag][2]:.1f}")
+
+
 def p14_read(path):
     import numpy as np
 
@@ -5366,9 +5858,17 @@ def mesh_path(torch, wrappers, card):
         every map's rows (p14_spatial), against the world of 1's
         (hold_spatial); then the test CLI's main() on that mesh over (a)'s
         fine-tuned model with TTST on (p14_spatial_cli), against the same
-        CLI without a mesh here (hold_spatial_cli).
-    -> ({kernel: [launches on each rank]}, the partial variant's record:
-    its launches on each rank in (e)'s test CLI, and its errors)."""
+        CLI without a mesh here (hold_spatial_cli);
+    (f) training on that mesh: 14b's steps (p14_spatial_steps) against
+        the world of 1's (hold_spatial_steps), then the train CLI's main()
+        on it, 1 epoch, plain and --fused (eager on gloo), against the
+        same CLI without a mesh here (hold_spatial_train_cli). (a) also
+        runs the spatial mesh (1, 1) with and without --fused in its
+        world of 1, whose graph captures the halo collectives.
+    -> ({kernel: [launches on each rank]}, the partial variants' record:
+    the fused kernel's launches on each rank in (e)'s test CLI, and its
+    errors; the rows kernel's launches on each rank in (f)'s steps, and
+    its errors)."""
     import glob
 
     import numpy as np
@@ -5411,8 +5911,9 @@ def mesh_path(torch, wrappers, card):
         # ---- (a) the CLI flows without a mesh here, then with
         # --mesh_shape 1 in a world of 1 on NCCL
         flows0 = {tag: p14_train_cli(torch, p14_cli_args(
-            cfg, base, os.path.join(tmp, f"a0_{tag}"), flags))
-            for tag, flags in (("loop", []), ("fused", ["--fused"]))}
+            cfg, base, os.path.join(tmp, f"a0_{tag}"), flags),
+            record_grads=tag == "loop")
+            for tag, flags in A0_FLOWS.items()}
         release(torch)
         wait1 = start_ranks(1, {"kind": "cli", "cfg": cfg, "base": base,
                                 "tmp": tmp}, 600)
@@ -5443,7 +5944,8 @@ def mesh_path(torch, wrappers, card):
                       for text in (flows0[tag][0], cli[tag]["text"])]
             check(epochs[0] == epochs[1] and epochs[0],
                   f"14a {tag}: the printed results differ: {epochs}")
-        check(cli["fused"]["captured"] and flows0["fused"][1]["captured"],
+        check(cli["fused"]["captured"] and flows0["fused"][1]["captured"]
+              and cli["spatial_fused"]["captured"],
               "14a: --fused did not capture a graph")
         print(f"14a: a world of 1 on NCCL (--mesh_shape 1): the train CLI "
               f"and --fused equal the runs without a mesh bit for bit "
@@ -5452,6 +5954,22 @@ def mesh_path(torch, wrappers, card):
               f"{cli['fused']['per_replay']}, without a mesh "
               f"{flows0['fused'][1]['per_replay']}; the world's launches "
               f"{ {k: v for k, v in cli['launches'].items() if v} }")
+        # the spatial (1, 1) mesh: the graph captures the halo exchanges'
+        # all_reduces, forward and backward
+        for tag in ("spatial", "spatial_fused"):
+            how, val_err, leaf_err = hold_trained(
+                f"14a {tag}", os.path.join(tmp, f"a1_{tag}"),
+                os.path.join(tmp, f"a0_{A1_BASE[tag]}"),
+                flows0["loop"][1]["grads"], float(P14_CLI_LR))
+            print(f"14a {tag}: `{' '.join(A1_FLOWS[tag])}` in the world of "
+                  f"1 on NCCL against the same flow without a mesh: {how} "
+                  f"(val ADE/FDE {val_err:.3e} relative, the delta's "
+                  f"significant leaves {leaf_err:.3e} lr a step); captured "
+                  f"{cli[tag]['captured']}, a replay's launches "
+                  f"{cli[tag]['per_replay']}")
+        check(cli["spatial_fused"]["per_replay"].get(
+            "softargmax2d_rows_partial.launches", 0) > 0,
+              "14a: the spatial --fused replay holds no rows partial launch")
 
         # ---- (e) the test CLI without a mesh, on the fine-tuned model of
         # (a) with TTST on, to hold the spatial mesh's run against
@@ -5472,11 +5990,27 @@ def mesh_path(torch, wrappers, card):
             "14e world of 1", "mst_tpu_torch.test", test_args, tmp,
             wrappers)
 
+        # ---- (f) the train CLI without a mesh, 1 epoch, to hold the
+        # spatial mesh's runs against (the loop's gradients recorded)
+        train_flows = {tag: p14_cli_args(
+            cfg, base, os.path.join(tmp, f"f2_{tag}"),
+            ["--n_epoch", str(P14F_EPOCHS)] + flags)
+            for tag, flags in A0_FLOWS.items()}
+        flows_f0 = {}
+        for tag, flags in A0_FLOWS.items():
+            t0 = time.perf_counter()
+            text, seen = p14_train_cli(torch, p14_cli_args(
+                cfg, base, os.path.join(tmp, f"f0_{tag}"),
+                ["--n_epoch", str(P14F_EPOCHS)] + flags),
+                record_grads=tag == "loop")
+            flows_f0[tag] = (text, seen, time.perf_counter() - t0)
+
         # ---- (b) the world of 2 on the one card, (c) its checkpoint and
         # (d) its grid; the world of 1's grid here meanwhile would share the
         # card, so it runs after
         release(torch)
         wait2 = start_ranks(2, {"kind": "mesh", "tmp": tmp, "test": test_args,
+                                "train": train_flows,
                                 "grid": grid_args + [
                                     "--ckpt_path", os.path.join(tmp, "g2"),
                                     "--log_dir", os.path.join(tmp, "g2l")]},
@@ -5493,6 +6027,10 @@ def mesh_path(torch, wrappers, card):
         spatial = hold_spatial(tmp, one, rep1, reps, card)
         spatial["launches"] = hold_spatial_cli(test1, test1_launches,
                                                test1_s, reps, card)
+        steps_f = hold_spatial_steps(tmp, one, rep1, reps, card)
+        spatial["train_launches"] = steps_f["launches"]
+        spatial["train_max_abs_err"] = steps_f["max_abs_err"]
+        hold_spatial_train_cli(tmp, flows_f0, reps, card)
 
         # ---- (c) the world of 2's checkpoint restored in a world of 1
         saved = p14_read(os.path.join(tmp, "dcp_saved.npz"))
@@ -5946,7 +6484,8 @@ def main():
     records = [check_rows_kernel(torch), check_fused_kernel(torch)]
     bf16_records = check_bf16_kernels(torch)
     partial_rec = check_partial_kernel(torch)
-    for r in records + bf16_records + [partial_rec]:
+    rows_partial_rec = check_rows_partial_kernel(torch)
+    for r in records + bf16_records + [partial_rec, rows_partial_rec]:
         print(f"{r['name']}: {r['ms']:.4f} ms (device {r['device_ms']:.4f} "
               f"ms), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -6139,7 +6678,8 @@ def main():
     print(f"serialized program phase: {time.perf_counter() - t0:.1f} s")
 
     # ---- 14. data parallelism over a mesh: a world of 1 on NCCL, a world
-    # of 2 sharing the card on gloo, its checkpoint and its grid
+    # of 2 sharing the card on gloo, its checkpoint and its grid, and the
+    # spatial mesh's eval (14e) and training (14f) in that world
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     p14, spatial = mesh_path(torch, kernel_wrappers(), card)
@@ -6152,6 +6692,14 @@ def main():
     check(all(spatial["launches"]), "fused_predict_partial never ran on a "
           "rank of the spatial path")
     records.append(partial_rec)
+    # the rows kernel's partial variant's main path is phase 14f's spatial
+    # train steps
+    rows_partial_rec["launches"] = sum(spatial["train_launches"])
+    rows_partial_rec["max_abs_err"] = max(rows_partial_rec["max_abs_err"],
+                                          spatial["train_max_abs_err"])
+    check(all(spatial["train_launches"]), "softargmax_rows_partial never "
+          "ran on a rank of the spatial train path")
+    records.append(rows_partial_rec)
 
     # ---- 10. from raw annotations to a resumed run, and ETH
     torch.cuda.empty_cache()

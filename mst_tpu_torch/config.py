@@ -4,14 +4,12 @@ the dataset paths (counterpart of mst_tpu/config.py:26-306 and
 mst_tpu/train/trainer.py:312-351), with the JAX package's key vocabulary
 and flag surface, plus --device.
 
-Flags the port does not act on yet raise NotImplementedError instead of
-being dropped: training on the spatial mesh, --mesh_axes data space,
-from the train CLI and Experiment.train (check_loop_ported; the grid
-refuses it as mst_tpu's does), whose eval runs (Experiment.test, the
-test CLI); --mesh_shape N and --mesh_shape R D (--mesh_axes replica
-data) run data-parallel over the ranks torchrun starts
-(parallel/mesh.py). An unknown --compute_dtype
-raises ValueError (parse_compute_dtype).
+--mesh_shape N and --mesh_shape R D (--mesh_axes replica data) run
+data-parallel over the ranks torchrun starts, and --mesh_shape D S
+--mesh_axes data space trains and evaluates on the spatial mesh
+(parallel/mesh.py; the grid refuses it as mst_tpu's does). An unknown
+--compute_dtype raises ValueError (parse_compute_dtype,
+check_loop_ported).
 --seg_cache_device_mb sizes a TPU-side cache and is accepted and unused.
 The segmentation backbone is used when its weight file exists
 (has_backbone).
@@ -27,7 +25,6 @@ import torch
 import yaml
 
 from mst_tpu_torch.models.ynet import YNetConfig
-from mst_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED
 from mst_tpu_torch.train.steps import CWSParams, StepConfig
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "configs")
@@ -80,8 +77,7 @@ def get_parser(is_train: bool) -> argparse.ArgumentParser:
     parser.add_argument("--mesh_axes", default=None, type=str, nargs="+",
                         help="mesh axis names: data, replica data, or"
                              " data space (the spatial mesh: the scene"
-                             " maps' H over 'space'; eval only, training"
-                             " on it raises)")
+                             " maps' H over 'space')")
     parser.add_argument("--compute_dtype", default="float32",
                         choices=["float32", "bfloat16"],
                         help="the convs' dtype; bfloat16 keeps f32 master "
@@ -231,13 +227,9 @@ def parse_compute_dtype(name) -> torch.dtype:
                          f"{sorted(_COMPUTE_DTYPES)}") from None
 
 
-def check_loop_ported(params: dict, training: bool = True):
+def check_loop_ported(params: dict):
     """Raise on what mst_tpu's Experiment loop takes and the port does not
-    act on yet: training on the spatial mesh (a 'space' axis in
-    --mesh_axes; an eval, training False, runs on it). Then an unknown
-    compute dtype."""
-    if training and "space" in (params.get("mesh_axes") or ()):
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    act on: an unknown compute dtype."""
     parse_compute_dtype(params.get("compute_dtype", "float32"))
 
 

@@ -32,6 +32,13 @@
 //   (cooperative_groups::this_cluster(), map_shared_rank, cluster.sync())
 //   and writes (sx, sy) / (s + eps).
 //
+// The partial-statistics variant (softargmax_rows_partial_launch) is the
+// same kernel over one H slab of a spatial mesh: each row holds rows
+// [row0, row0 + H) of its map, each logit's y is offset by row0, and the
+// cluster's merge stops before the soft-argmax: rank 0 writes the row's
+// (m, s, sx, sy) in log2 units, which the 'space' ranks merge
+// (ops/kernels/online_stats.merge_ranks) into the whole map's.
+//
 // ops/kernels/softargmax_rows.py mirrors the split (row_split) and the
 // merge arithmetic (rows_split_reference) for the CPU tests;
 // chip_smoke.py holds the split against softargmax_rows_slice.
@@ -107,17 +114,19 @@ __host__ __device__ inline Slice row_split(int HW, int lead, int cluster,
   return s;
 }
 
-__device__ __forceinline__ void coords(int f, int W, float& fx, float& fy) {
+__device__ __forceinline__ void coords(int f, int W, int row0, float& fx,
+                                       float& fy) {
   const int y = f / W;
   fx = static_cast<float>(f - y * W);
-  fy = static_cast<float>(y);
+  fy = static_cast<float>(y + row0);
 }
 
 template <int kVec>
 __global__ void __launch_bounds__(kThreads)
     softargmax_rows_kernel(const void* __restrict__ x,
-                           float* __restrict__ out, int HW, int W,
-                           float eps) {
+                           float* __restrict__ out,
+                           float4* __restrict__ stats, int HW, int W,
+                           int row0, float eps) {
   using L = Logits<kVec>;
   using T = typename L::T;
   __shared__ Stats warp_stats[kWarps];
@@ -146,7 +155,7 @@ __global__ void __launch_bounds__(kThreads)
       float l[kVec], fx[kVec], fy[kVec];
 #pragma unroll
       for (int j = 0; j < kVec; ++j) l[j] = L::at(v[i], j) * kLog2e;
-      coords(f, W, fx[0], fy[0]);
+      coords(f, W, row0, fx[0], fy[0]);
 #pragma unroll
       for (int j = 1; j < kVec; ++j) {  // the next pixels, wrapping rows
         fx[j] = fx[j - 1] + 1.f;
@@ -163,7 +172,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (tid < sl.h1 - sl.h0) {  // the head or the tail: one logit a thread
     float l[1] = {L::one(xr + sl.h0 + tid) * kLog2e}, fx[1], fy[1];
-    coords(sl.h0 + tid, W, fx[0], fy[0]);
+    coords(sl.h0 + tid, W, row0, fx[0], fy[0]);
     online_softmax::push_group(st, l, fx, fy);
   }
 
@@ -181,9 +190,13 @@ __global__ void __launch_bounds__(kThreads)
     if (lane < kCluster) a = *cluster.map_shared_rank(&cta_stats, lane);
     a = online_softmax::warp_merge2(a);
     if (lane == 0) {
-      const float inv = 1.f / (a.s + eps);
-      out[2 * row] = a.sx * inv;
-      out[2 * row + 1] = a.sy * inv;
+      if (stats != nullptr) {  // the partial variant: the statistics
+        stats[row] = make_float4(a.m, a.s, a.sx, a.sy);
+      } else {
+        const float inv = 1.f / (a.s + eps);
+        out[2 * row] = a.sx * inv;
+        out[2 * row + 1] = a.sy * inv;
+      }
     }
   }
   cluster.sync();  // keep every CTA's shared memory until rank 0 has read it
@@ -218,8 +231,8 @@ cudaError_t setup() {
 }
 
 template <int kVec>
-cudaError_t launch(const void* x, float* out, int R, int HW, int W,
-                   float eps, cudaStream_t stream) {
+cudaError_t launch(const void* x, float* out, float4* stats, int R, int HW,
+                   int W, int row0, float eps, cudaStream_t stream) {
   cudaError_t err = setup<kVec>();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -233,8 +246,8 @@ cudaError_t launch(const void* x, float* out, int R, int HW, int W,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, softargmax_rows_kernel<kVec>, x, out, HW, W,
-                           eps);
+  err = cudaLaunchKernelEx(&cfg, softargmax_rows_kernel<kVec>, x, out, stats,
+                           HW, W, row0, eps);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -265,9 +278,30 @@ int softargmax_rows_launch(const void* x, float* out, int R, int HW, int W,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  return static_cast<int>(elem_bytes == 4
-                              ? launch<4>(x, out, R, HW, W, eps, stream)
-                              : launch<8>(x, out, R, HW, W, eps, stream));
+  return static_cast<int>(
+      elem_bytes == 4 ? launch<4>(x, out, nullptr, R, HW, W, 0, eps, stream)
+                      : launch<8>(x, out, nullptr, R, HW, W, 0, eps, stream));
+}
+
+// The partial-statistics variant: x (R, HW) holds rows [row0, row0 +
+// HW / W) of each map -> stats (R, 4) f32, each row's (m, s, sx, sy) in
+// log2 units, y offset by row0 (16-byte aligned). The rest as
+// softargmax_rows_launch.
+int softargmax_rows_partial_launch(const void* x, float* stats, int R,
+                                   int HW, int W, int elem_bytes, int row0,
+                                   void* stream_ptr) {
+  if (R < 1 || HW < 1 || W < 1 || (elem_bytes != 4 && elem_bytes != 2) ||
+      static_cast<long long>(R) * kCluster > 0x7fffffff || row0 < 0 ||
+      row0 >= (1 << 24) ||
+      (reinterpret_cast<uintptr_t>(stats) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  float4* st = reinterpret_cast<float4*>(stats);
+  return static_cast<int>(
+      elem_bytes == 4
+          ? launch<4>(x, nullptr, st, R, HW, W, row0, 0.f, stream)
+          : launch<8>(x, nullptr, st, R, HW, W, row0, 0.f, stream));
 }
 
 }  // extern "C"

@@ -94,7 +94,9 @@ def global_batch_norm(params, state, x, shards=None, momentum=0.1,
                       eps=1e-5):
     """Train-mode batchnorm_apply over a global batch whose rows the ranks
     of `shards` hold, x this rank's (every rank the same number; None: x
-    is the whole batch): the mean, then the biased variance about it, as
+    is the whole batch; on a spatial mesh's sliced level the blocks are
+    the ranks' rows of their slabs, mesh.Shards.spanning, and every block
+    is the same size): the mean, then the biased variance about it, as
     mst_tpu computes them, each a sum over the ranks (an autograd op, so
     the backward sums over the ranks too; what SyncBatchNorm computes),
     in the statistics' dtype. x keeps its dtype. The moved running

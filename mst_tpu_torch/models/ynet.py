@@ -24,8 +24,11 @@ upsample that returns to a sliced level. At 352 rows over two ranks the
 slabs run 176, 88, 44 and 22 rows, and levels 4 and 5 (22 and 11 rows)
 run whole: under 1/256 of the finest level's bytes, and no conv on an
 11-row slab, whose halo'd shape cuDNN was seen to sum otherwise than the
-whole map's. Eval mode only: train-mode batch norms over slabs are the
-next slice (they raise).
+whole map's. In train mode (a parallel.mesh.Shards) a batch norm at a
+sliced level takes its statistics over every rank of the world
+(Shards.spanning), and at a whole level over the 'data' ranks alone,
+whose 'space' ranks each hold the same map; the gradients flow back
+through the halo exchanges and gathers (parallel/halo.py).
 """
 
 import dataclasses
@@ -307,9 +310,8 @@ def _level(slabs, i):
 def _serial_apply(params, state, x, train, slab=None):
     """x + conv1x1(BN(x)) -> (y, new state)."""
     sp = params["serial_layer"]
-    if train and slab is not None:
-        from mst_tpu_torch.parallel.mesh import SPATIAL_NOT_PORTED
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    if slab is not None and train and train is not True:
+        train = train.spanning(slab)  # the slab's rows of the global batch
     y, bn_state = layers.batchnorm_apply(sp["bn"], state["serial_layer"]["bn"],
                                          x, train)
     return x + layers.conv_apply(sp["conv"], y, slab), \

@@ -11,6 +11,7 @@ kernel executions, whichever way a path reaches the card.
 """
 
 import collections
+import gc
 
 import torch
 
@@ -38,13 +39,26 @@ class Graph:
     def capture(self, fn, stream):
         """fn() captured on `stream` (the stream its warm-up ran on, where
         the wrappers' per-stream buffers already exist) -> fn's output,
-        whose tensors each replay rewrites in place."""
+        whose tensors each replay rewrites in place. Python's garbage
+        collector stays off while fn() is captured, and the capture
+        forbids unsafe CUDA calls in this thread only: a collection could
+        run the destructor of an object that holds CUDA resources (an
+        earlier run's graph, mesh or process group) inside the capture,
+        and NCCL's watchdog thread polls the events of the collectives
+        the warm-up enqueued, either of which invalidates a capture (seen
+        on the card in two of three runs of a spatial --fused epoch after
+        three other flows in one process, whose warm-up enqueues dozens
+        of halo all-reduces)."""
         _CAPTURED.clear()
+        gc.collect()
+        gc.disable()
         try:
-            with torch.cuda.graph(self.graph, stream=stream):
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode="thread_local"):
                 out = fn()
             self.per_replay = dict(_CAPTURED)
         finally:
+            gc.enable()
             _CAPTURED.clear()
         return out
 

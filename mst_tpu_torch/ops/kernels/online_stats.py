@@ -19,9 +19,13 @@ from mst_tpu_torch.parallel import halo
 LOG2E = 1.4426950408889634
 
 
-def empty(shape):
-    return (torch.full(shape, -math.inf), torch.zeros(shape),
-            torch.zeros(shape), torch.zeros(shape))
+def empty(shape, device=None):
+    """Statistics of nothing, made on `device` (a CUDA graph captures no
+    host-to-device copy)."""
+    return (torch.full(shape, -math.inf, device=device),
+            torch.zeros(shape, device=device),
+            torch.zeros(shape, device=device),
+            torch.zeros(shape, device=device))
 
 
 def _where(cond, a, b):
@@ -82,7 +86,7 @@ def merge_ranks(stats, slab, eps: float = 1e-6):
 def fold(parts, eps: float = 1e-6):
     """Statistics (..., 4) of a map's parts -> the map's soft-argmax
     (..., 2): merge2 over the parts in their order, then finish."""
-    st = tuple(t.to(parts[0].device) for t in empty(parts[0].shape[:-1]))
+    st = empty(parts[0].shape[:-1], parts[0].device)
     for part in parts:
         st = merge2(st, part.unbind(-1))
     return finish(st, eps)

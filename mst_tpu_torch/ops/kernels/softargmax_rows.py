@@ -17,6 +17,13 @@ merged through distributed shared memory; the design notes are in the
 source. Any H*W works (the TPU kernel needed H*W % 1024 == 0). `row_split`
 mirrors the kernel's split and `rows_split_reference` runs it with the
 kernel's merge arithmetic on the CPU.
+
+The partial-statistics variant (softargmax2d_rows_partial) is the same
+kernel on an H slab of a spatial mesh: a row holds rows [row0, row0 + H)
+of its map, and the kernel returns each row's (m, s, sx, sy) in log2
+units, y offset by row0, which the 'space' ranks merge
+(online_stats.merge_ranks). The train step's top-1 metrics run it on the
+rank's slab of the trajectory and goal maps.
 """
 
 import ctypes
@@ -53,17 +60,20 @@ def row_split(HW, lead, cluster, rank, vec=4):
     return head, h0, h1, v0, v1
 
 
-def _coords(f, W):
-    return (f % W).float(), (f // W).float()
+def _coords(f, W, row0=0):
+    return (f % W).float(), (f // W + row0).float()
 
 
 def rows_split_reference(x, lead0: int = 0, cluster: int = CLUSTER,
-                         eps: float = 1e-6):
+                         eps: float = 1e-6, row0: int = 0,
+                         partial: bool = False):
     """The kernel's reduction on the CPU: (..., H, W) f32 or bf16 logits
     whose first element sits lead0 logits past a 16-byte boundary, cut
     into the same ranks, threads and load rounds, pushed and merged in the
     kernel's order with its log2-unit arithmetic (online_stats) ->
-    (..., 2)."""
+    (..., 2). row0: the logits are rows [row0, row0 + H) of their maps
+    (y offset by it); partial: stop before the soft-argmax, as the
+    partial variant does -> (..., 4) statistics (m, s, sx, sy)."""
     H, W = x.shape[-2], x.shape[-1]
     HW = H * W
     vec = vec_width(x.dtype)
@@ -83,13 +93,13 @@ def rows_split_reference(x, lead0: int = 0, cluster: int = CLUSTER,
                     valid = idx < v1
                     f = head + vec * idx.clamp(max=max(v1 - 1, 0))
                     f4 = f[:, None] + torch.arange(vec)
-                    fx, fy = _coords(f4, W)
+                    fx, fy = _coords(f4, W, row0)
                     st = ost.push_group(st, row[f4.clamp(max=HW - 1)], fx,
                                         fy, valid)
             n = h1 - h0
             if n:
                 f = h0 + lanes.clamp(max=n - 1)
-                fx, fy = _coords(f, W)
+                fx, fy = _coords(f, W, row0)
                 st = ost.push_group(st, row[f][:, None], fx[:, None],
                                     fy[:, None], lanes < n)
             warps = ost.warp_merge2(
@@ -100,8 +110,10 @@ def rows_split_reference(x, lead0: int = 0, cluster: int = CLUSTER,
         lanes_c = tuple(torch.stack([s[k] for s in ranks]) for k in range(4))
         padded = tuple(torch.cat([t, e]) for t, e in zip(
             lanes_c, ost.empty((WARP - cluster,))))
-        out.append(ost.finish(ost.warp_merge2(padded, 0), eps))
-    return torch.stack(out).reshape(*x.shape[:-2], 2)
+        merged = ost.warp_merge2(padded, 0)
+        out.append(torch.stack(merged, -1) if partial
+                   else ost.finish(merged, eps))
+    return torch.stack(out).reshape(*x.shape[:-2], 4 if partial else 2)
 
 
 def _library():
@@ -116,6 +128,9 @@ def _library():
         lib.softargmax_rows_slice.restype = None
         lib.softargmax_rows_cluster.argtypes = []
         lib.softargmax_rows_cluster.restype = i32
+        lib.softargmax_rows_partial_launch.argtypes = [
+            ctypes.c_void_p] * 2 + [i32] * 5 + [ctypes.c_void_p]
+        lib.softargmax_rows_partial_launch.restype = i32
     return lib
 
 
@@ -155,12 +170,16 @@ def _rows_op(x: torch.Tensor, eps: float) -> torch.Tensor:
     return plain(x, eps)
 
 
+def _check_logits(name, x):
+    if x.dtype not in DTYPES or not x.is_contiguous() or x.dim() < 2:
+        raise ValueError(f"{name} needs a contiguous f32 or bf16 tensor of "
+                         f"(..., H, W); got {x.dtype}, shape "
+                         f"{tuple(x.shape)}, strides {x.stride()}")
+
+
 @_rows_op.register_kernel("cuda")
 def _rows_cuda(x, eps):
-    if x.dtype not in DTYPES or not x.is_contiguous() or x.dim() < 2:
-        raise ValueError("softargmax2d_rows needs a contiguous f32 or bf16 "
-                         f"tensor of (..., H, W); got {x.dtype}, shape "
-                         f"{tuple(x.shape)}, strides {x.stride()}")
+    _check_logits("softargmax2d_rows", x)
     H, W = x.shape[-2], x.shape[-1]
     R = x.numel() // (H * W)
     out = torch.empty((R, 2), dtype=torch.float32, device=x.device)
@@ -193,3 +212,82 @@ def _rows_vmap(info, in_dims, x, eps):
 
 softargmax2d_rows.launches = 0
 softargmax2d_rows.launches_bf16 = 0
+
+
+# ---- the partial-statistics variant (an H slab of a spatial mesh)
+
+def softargmax2d_rows_partial_plain(logits_hw_last, row0: int):
+    """The plain version: (..., H, W) f32 or bf16 logits of rows [row0,
+    row0 + H) of their maps -> (..., 4) f32, each row's (m, s, sx, sy) in
+    log2 units (online_stats), y offset by row0, from the widened
+    logits."""
+    x = logits_hw_last
+    H, W = x.shape[-2], x.shape[-1]
+    lg = x.float().reshape(-1, H * W) * ost.LOG2E
+    m = lg.amax(-1)
+    e = torch.exp2(lg - m[:, None])
+    ys = torch.arange(row0, row0 + H, dtype=torch.float32,
+                      device=x.device).repeat_interleave(W)
+    xs = torch.arange(W, dtype=torch.float32, device=x.device).repeat(H)
+    return torch.stack([m, e.sum(-1), (e * xs).sum(-1), (e * ys).sum(-1)],
+                       -1).reshape(*x.shape[:-2], 4)
+
+
+def softargmax2d_rows_partial(logits_hw_last, row0: int):
+    """(..., H, W) f32 or bf16 logits of rows [row0, row0 + H) of their
+    maps -> (..., 4) f32 statistics (m, s, sx, sy) in log2 units, y
+    offset by row0 (online_stats.merge_ranks merges the 'space' ranks').
+
+    The custom op mst_tpu_torch::softargmax2d_rows_partial: a CPU tensor
+    takes the plain version; a CUDA tensor launches the partial variant
+    of the rows kernel, which needs f32 or bf16 in a contiguous layout,
+    and raises otherwise. Under torch.func.vmap the runs fold into the
+    rows; a launch under CUDA-graph capture counts once each replay.
+    `launches` counts the f32 kernel's launches, `launches_bf16` the bf16
+    kernel's."""
+    if logits_hw_last.device.type not in ("cpu", "cuda"):
+        raise ValueError("softargmax2d_rows_partial: unsupported device "
+                         f"{logits_hw_last.device}")
+    return _partial_op(logits_hw_last, int(row0))
+
+
+@torch.library.custom_op("mst_tpu_torch::softargmax2d_rows_partial",
+                         mutates_args=(), device_types="cpu")
+def _partial_op(x: torch.Tensor, row0: int) -> torch.Tensor:
+    return softargmax2d_rows_partial_plain(x, row0)
+
+
+@_partial_op.register_kernel("cuda")
+def _partial_cuda(x, row0):
+    _check_logits("softargmax2d_rows_partial", x)
+    H, W = x.shape[-2], x.shape[-1]
+    R = x.numel() // (H * W)
+    out = torch.empty((R, 4), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().softargmax_rows_partial_launch(
+            x.data_ptr(), out.data_ptr(), R, H * W, W, x.element_size(),
+            int(row0), stream)
+    if err != 0:
+        raise RuntimeError(f"softargmax_rows partial kernel launch failed: "
+                           f"cudaError_t {err}")
+    launches.count(softargmax2d_rows_partial, "launches_bf16"
+                   if x.dtype == torch.bfloat16 else "launches")
+    return out.reshape(*x.shape[:-2], 4)
+
+
+@_partial_op.register_fake
+def _partial_fake(x, row0):
+    return x.new_empty((*x.shape[:-2], 4), dtype=torch.float32)
+
+
+@_partial_op.register_vmap
+def _partial_vmap(info, in_dims, x, row0):
+    """The runs are more rows, as the whole-map op's rule folds them."""
+    if in_dims[0] is None:
+        return _partial_op(x, row0), None
+    return _partial_op(x.movedim(in_dims[0], 0).contiguous(), row0), 0
+
+
+softargmax2d_rows_partial.launches = 0
+softargmax2d_rows_partial.launches_bf16 = 0

@@ -5,7 +5,7 @@ batch, the ranks' partial statistics). XLA's GSPMD adds these to mst_tpu's
 program (collective-permutes for the halos, all-gathers where a level
 runs whole); the port calls them where the model needs them
 (models/layers.conv2d, ops/pooling.upsample_bilinear_2x, the odd-slab
-levels of models/ynet.py, and the eval step).
+levels of models/ynet.py, and the eval and train steps).
 
 Each is one all_reduce over its ranks' group (the 'space' ranks for the
 maps) of a zero-filled buffer in which every rank fills its own slot: a
@@ -16,6 +16,18 @@ run, two ranks sharing one card over gloo, and NCCL alike. An exchange
 of k rows moves a buffer of count x 2 x N x k x W x C elements through
 the all_reduce: at the finest level of the eval decode (K * B = 160, 480
 columns, 32 channels, k = 1, two ranks, f32) 39.3 MB a conv.
+
+Both are autograd functions, so a train step differentiates through
+them (an in-place all_reduce on a buffer of the graph would hide the
+collective from autograd, and each halo row's gradient would stay on the
+rank that used it). The exchange's backward is the reverse exchange: the
+gradients of the k rows taken from each neighbour go back to it, in the
+same kind of zero-filled all_reduce, and are added onto its edge rows.
+The gather's backward sums the whole gradient over the group and keeps
+the rank's own block: where a level runs whole, every 'space' rank
+computes the same map and uses it only for its own slab's loss, so the
+map's true gradient is the sum of the ranks'. Every rank runs every
+backward collective, in the same order, as it runs the forward's.
 """
 
 import torch
@@ -27,26 +39,56 @@ def exchange(x, slab, k, edge="zero"):
     taken from the H neighbours' slabs: (N, rows + 2k, W, C). At the
     global top and bottom, edge 'zero' puts k rows of zeros (a SAME
     conv's padding) and 'none' nothing, so the map then starts or ends
-    there (F.interpolate's own clamp at the map's edge)."""
-    n, rows = x.shape[0], x.shape[1]
+    there (F.interpolate's own clamp at the map's edge). Differentiable:
+    the backward sends each halo row's gradient back to its owner; a
+    zero row's gradient is dropped."""
+    rows = x.shape[1]
     if not 0 < k <= rows:
         raise ValueError(f"a halo of {k} rows needs slabs of at least {k} "
                          f"rows; this one has {rows}")
-    buf = x.new_zeros((slab.count, 2, n, k, *x.shape[2:]))
-    buf[slab.index, 0] = x[:, :k]
-    buf[slab.index, 1] = x[:, rows - k:]
-    dist.all_reduce(buf, group=slab.group)
-    parts = []
-    if slab.index > 0:
-        parts.append(buf[slab.index - 1, 1])
-    elif edge == "zero":
-        parts.append(torch.zeros_like(buf[slab.index, 0]))
-    parts.append(x)
-    if slab.index < slab.count - 1:
-        parts.append(buf[slab.index + 1, 0])
-    elif edge == "zero":
-        parts.append(torch.zeros_like(buf[slab.index, 0]))
-    return torch.cat(parts, 1)
+    return _Exchange.apply(x, slab, k, edge)
+
+
+class _Exchange(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, slab, k, edge):
+        rows = x.shape[1]
+        ctx.slab, ctx.k, ctx.edge, ctx.rows = slab, k, edge, rows
+        buf = x.new_zeros((slab.count, 2, x.shape[0], k, *x.shape[2:]))
+        buf[slab.index, 0] = x[:, :k]
+        buf[slab.index, 1] = x[:, rows - k:]
+        dist.all_reduce(buf, group=slab.group)
+        parts = []
+        if slab.index > 0:
+            parts.append(buf[slab.index - 1, 1])
+        elif edge == "zero":
+            parts.append(torch.zeros_like(buf[slab.index, 0]))
+        parts.append(x)
+        if slab.index < slab.count - 1:
+            parts.append(buf[slab.index + 1, 0])
+        elif edge == "zero":
+            parts.append(torch.zeros_like(buf[slab.index, 0]))
+        return torch.cat(parts, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        slab, k, rows = ctx.slab, ctx.k, ctx.rows
+        top = k if slab.index > 0 or ctx.edge == "zero" else 0
+        # slot [j, 1]: the gradient of rank j's last k rows, which rank
+        # j + 1 took as its top halo; slot [j, 0]: of its first k rows,
+        # which rank j - 1 took as its bottom halo
+        buf = g.new_zeros((slab.count, 2, g.shape[0], k, *g.shape[2:]))
+        if slab.index > 0:
+            buf[slab.index - 1, 1] = g[:, :k]
+        if slab.index < slab.count - 1:
+            buf[slab.index + 1, 0] = g[:, top + rows:top + rows + k]
+        dist.all_reduce(buf, group=slab.group)
+        grad = g.narrow(1, top, rows).clone(
+            memory_format=torch.contiguous_format)
+        grad[:, :k] += buf[slab.index, 0]
+        grad[:, rows - k:] += buf[slab.index, 1]
+        return grad, None, None, None
 
 
 def gather(x, index, count, group, dim=0):
@@ -54,11 +96,28 @@ def gather(x, index, count, group, dim=0):
     equal blocks, over the ranks of `group`) -> the whole tensor, the same
     bits on every rank: the 'space' ranks' slabs of a map (mesh.Slab), a
     'data' row's batch rows (mesh.Shards.gather_rows), a rank's partial
-    statistics (online_stats.merge_ranks)."""
-    n = x.shape[dim]
-    shape = list(x.shape)
-    shape[dim] = n * count
-    out = x.new_zeros(shape)
-    out.narrow(dim, index * n, n).copy_(x)
-    dist.all_reduce(out, group=group)
-    return out
+    statistics (online_stats.merge_ranks). Differentiable: the backward
+    sums the whole gradient over the group and keeps this rank's
+    block."""
+    return _Gather.apply(x, index, count, group, dim)
+
+
+class _Gather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, index, count, group, dim):
+        n = x.shape[dim]
+        ctx.index, ctx.group, ctx.dim, ctx.n = index, group, dim, n
+        shape = list(x.shape)
+        shape[dim] = n * count
+        out = x.new_zeros(shape)
+        out.narrow(dim, index * n, n).copy_(x)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None, \
+            None, None

@@ -25,8 +25,13 @@ tensors when two ranks hold one card (NCCL refuses two ranks on one
 device), which the ranks find by comparing their cards' uuids. A
 failed init raises; nothing falls back.
 
-On the spatial mesh the port evaluates (Experiment.test, the test CLI);
-training on it is the next slice (SPATIAL_NOT_PORTED).
+On the spatial mesh the port evaluates (Experiment.test, the test CLI)
+and trains (Experiment.train, the train CLI, --fused): each rank computes
+its share of the global loss, its 'data' block of the rows on its slab
+of the maps, and the gradients are summed over every rank of the world
+(sum_), while the BCE's row count and the metric sums reduce over the
+'data' ranks (Shards) and a train-mode batch norm over whichever ranks
+hold its level's batch (Shards.spanning).
 """
 
 import contextlib
@@ -46,15 +51,6 @@ from mst_tpu_torch.parallel import halo
 # per row and splits over the ranks (hostdata.take_local,
 # pad_batch_to_multiple)
 REPLICATED_KEYS = ("semantic", "image", "homography")
-
-SPATIAL_NOT_PORTED = (
-    "training on the spatial mesh (--mesh_axes data space) is not ported "
-    "yet; it is the next slice of the port: the halo exchange's backward, "
-    "train-mode batch norms over H slabs, the BCE and top-1 reductions, "
-    "--fused and cross-scene batching. The spatial mesh evaluates "
-    "(Experiment.test, python -m mst_tpu_torch.test); train with "
-    "--mesh_shape N or --mesh_shape R D (--mesh_axes replica data)")
-
 
 def world_size():
     """The world's size: the process group's, else torchrun's WORLD_SIZE
@@ -296,12 +292,14 @@ class Shards:
         dist.all_reduce(t, group=self.group)
         return t
 
-    def sum_(self, tensors):
-        """Each tensor (one dtype) summed over the ranks in place, in one
-        collective."""
-        flat = self.all_reduce(torch.cat([t.reshape(-1) for t in tensors]))
-        for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
-            t.copy_(part.view_as(t))
+    def spanning(self, slab):
+        """The Shards of a batch whose maps the 'space' ranks split as
+        `slab` does: every rank of the world holds a block (its rows of
+        the batch, its slab's rows of the maps), count the 'data' ranks x
+        the 'space' ranks. A train-mode batch norm at a sliced level takes
+        its statistics over it; at a level that runs whole, every 'space'
+        rank holds the same map and the 'data' ranks' Shards serves."""
+        return Shards(self.index, self.count * slab.count)
 
     def sum_differentiable(self, t):
         """t summed over the ranks, as an autograd op whose backward sums
@@ -314,6 +312,15 @@ class Shards:
         and one sum joins them, which every backend can do on CUDA
         tensors (gloo gathers none)."""
         return halo.gather(t, self.index, self.count, self.group)
+
+
+def sum_(tensors, group=None):
+    """Each tensor (one dtype) summed over the ranks of `group` (None: the
+    world) in place, in one collective."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
 
 
 class _SumOverRanks(torch.autograd.Function):

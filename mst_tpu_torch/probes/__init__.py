@@ -52,11 +52,13 @@ class Bf16Count:
 def kernel_wrappers():
     """{kernel name: its wrapper} for all six kernels, the two serving
     kernels' bf16 instantiations (Bf16Count) and the partial-statistics
-    variant of the fused kernel (the spatial mesh's decode tail); each
-    one's `launches` counts the launches of its kernel."""
+    variants of the fused kernel (the spatial mesh's decode tail) and of
+    the rows kernel (the spatial train step's top-1 metrics), each in f32
+    and bf16; each one's `launches` counts the launches of its kernel."""
     from mst_tpu_torch.ops.kernels.fused_predict import (
         fused_predictor_softargmax, fused_predictor_softargmax_partial)
-    from mst_tpu_torch.ops.kernels.softargmax_rows import softargmax2d_rows
+    from mst_tpu_torch.ops.kernels.softargmax_rows import (
+        softargmax2d_rows, softargmax2d_rows_partial)
     from mst_tpu_torch.probes import chain_probe, conv_probe
 
     return {"softargmax_rows": softargmax2d_rows,
@@ -64,7 +66,10 @@ def kernel_wrappers():
             **dict(conv_probe.KERNELS), **dict(chain_probe.KERNELS),
             "softargmax_rows_bf16": Bf16Count(softargmax2d_rows),
             "fused_predict_bf16": Bf16Count(fused_predictor_softargmax),
-            "fused_predict_partial": fused_predictor_softargmax_partial}
+            "fused_predict_partial": fused_predictor_softargmax_partial,
+            "softargmax_rows_partial": softargmax2d_rows_partial,
+            "softargmax_rows_partial_bf16": Bf16Count(
+                softargmax2d_rows_partial)}
 
 
 def max_abs_diff(a, b):

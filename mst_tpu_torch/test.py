@@ -26,7 +26,7 @@ from mst_tpu_torch.utils.seeding import set_random_seeds
 def main(args):
     tic = time.time()
     device = resolve_device(args.device)
-    config_lib.check_loop_ported(vars(args), training=False)
+    config_lib.check_loop_ported(vars(args))
     mesh = mesh_lib.mesh_from_shape(args.mesh_shape, args.mesh_axes, device)
     set_random_seeds(args.seed)
     params = config_lib.get_params(args=args)

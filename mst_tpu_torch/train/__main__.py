@@ -13,8 +13,11 @@ unless --device cpu; only rank 0 prints):
     torchrun --nnodes R --nproc_per_node D ... --mesh_shape R D \\
         --mesh_axes replica data
 
-The spatial mesh (--mesh_axes data space) raises NotImplementedError:
-training on it is the next slice (its eval runs through the test CLI).
+On the spatial ('data', 'space') mesh, which splits each scene map's H
+over 'space' as well (--fused and --cross_scene_batching too):
+
+    torchrun --nproc_per_node D*S -m mst_tpu_torch.train \
+        --mesh_shape D S --mesh_axes data space ...
 """
 
 import time

@@ -31,8 +31,13 @@ grid (mst_tpu_torch.grid) runs under torch.func.vmap over a run axis.
 On a data-parallel mesh each rank stages its rows of every batch and
 runs the mesh's steps (train/steps.py), whose collectives an NCCL
 world's graph captures; validation draws each rank's rows of the global
-batch's noise. gloo's collectives cannot be captured, so a gloo world
-on the card runs its epochs eagerly, as the CPU does, and says so.
+batch's noise. On the spatial mesh the staged scenes are the rank's
+slabs of them (Experiment cuts each scene, whose height it first checks
+against the 'space' ranks, mesh.check_spatial_scene, as mst_tpu checks
+its staged stack), and the graph captures the halo exchanges of the
+forward and the backward too. gloo's collectives cannot be captured, so
+a gloo world on the card runs its epochs eagerly, as the CPU does, and
+says so.
 """
 
 import collections

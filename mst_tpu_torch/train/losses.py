@@ -5,7 +5,7 @@ the goal and trajectory heatmaps with nn.BCEWithLogitsLoss() * loss_scale
 import torch
 
 
-def bce_with_logits(logits, targets, mask=None, shards=None):
+def bce_with_logits(logits, targets, mask=None, shards=None, space=1):
     """Mean binary cross-entropy with logits, in the stable form
     max(x, 0) - x z + log1p(exp(-|x|)).
 
@@ -17,6 +17,10 @@ def bce_with_logits(logits, targets, mask=None, shards=None):
     global batch, and its masked sum is divided by the global count, so
     that the ranks' losses and gradients sum to the global batch's (not
     averaged, which would be wrong wherever the ranks' valid rows differ).
+    space: the 'space' ranks of a spatial mesh, when logits and targets
+    are this rank's H slab of maps split `space` ways: the count is then
+    the whole maps' (rows x H x W x P), so that the ranks' shares sum to
+    the whole batch's loss (mst_tpu/train/losses.py:8 on the whole map).
     """
     x, z = logits, targets
     per_elem = (torch.maximum(x, x.new_zeros(())) - x * z
@@ -29,5 +33,5 @@ def bce_with_logits(logits, targets, mask=None, shards=None):
     n_valid = m.sum()
     if shards is not None:
         n_valid = shards.all_reduce(n_valid)
-    count = n_valid * (per_elem.numel() / max(mask.numel(), 1))
+    count = n_valid * (per_elem.numel() * space / max(mask.numel(), 1))
     return total / torch.clamp(count, min=1.0)

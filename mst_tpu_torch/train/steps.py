@@ -53,8 +53,13 @@ activation, the encoder and both decoders run on the slabs
 to whole H, and TTST, CWS and the samplers run on them whole and
 unchanged on every rank; the trajectory decode ends in the partial
 variant of the fused kernel, whose statistics the 'space' ranks merge
-(ops/kernels/online_stats.merge_ranks). Training on it is the next slice
-(make_train_step raises).
+(ops/kernels/online_stats.merge_ranks). The train step splits the
+same way: each rank computes its share of the global loss (its rows, its
+slab of the maps and of their ground truth), the gradients flow back
+through the halo exchanges and gathers (parallel/halo.py) and are summed
+over every rank of the world, the batch norms take the statistics of
+the ranks that hold their level's batch (models/ynet.py), and the top-1
+metrics merge the 'space' ranks' partial statistics of the rows kernel.
 """
 
 import functools
@@ -73,6 +78,8 @@ from mst_tpu_torch.ops.heatmap import (rasterize_dist_nhwc,
 from mst_tpu_torch.ops.kernels.fused_predict import (
     fused_predictor_softargmax, fused_predictor_softargmax_partial)
 from mst_tpu_torch.ops.kernels.online_stats import merge_ranks
+from mst_tpu_torch.ops.kernels.softargmax_rows import \
+    softargmax2d_rows_partial
 from mst_tpu_torch.ops.kmeans import batched_kmeans
 from mst_tpu_torch.ops.pooling import avg_pool_pyramid
 from mst_tpu_torch.ops.sampling import Key, Rows, sample_heatmap
@@ -81,6 +88,9 @@ from mst_tpu_torch.ops.softargmax import (softargmax2d_auto,
 from mst_tpu_torch.parallel import mesh as mesh_lib
 from mst_tpu_torch.parallel.mesh import batch_shards
 from mst_tpu_torch.train.losses import bce_with_logits
+
+
+LOSS_KEYS = ("loss", "goal_loss", "traj_loss")
 
 
 class CWSParams(NamedTuple):
@@ -208,6 +218,16 @@ def _prepare_inputs(mcfg, scfg, params, semantic, traj, train=False,
     return semantic, observed_map, seg_updates
 
 
+def slab_levels(mesh, n_levels, rows, whole=False):
+    """Each of n_levels pyramid levels' mesh.Slab (mesh.Slab.levels) of
+    maps of which this rank holds `rows` rows (whole: all of them); None
+    off a spatial mesh."""
+    if not mesh_lib.is_spatial(mesh):
+        return None
+    height = rows if whole else rows * mesh_lib.axis_size(mesh, "space")
+    return mesh_lib.space_slab(mesh, height).levels(n_levels)
+
+
 def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
     """The few-shot fine-tune step (mst_tpu make_train_step, unpacked).
 
@@ -251,24 +271,40 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
     batch's step (the module docstring): the gradients are summed over
     the ranks between the backward and the optimizer's step, and the
     losses and metric sums are the global batch's on every rank.
+
+    On a spatial ('data', 'space') mesh (mst_tpu/train/steps.py:179-320
+    under GSPMD) batch['semantic'] holds the rank's H slab of the scene
+    maps (the whole image with segment_in_step: the backbone runs whole
+    and its map is cut to the slab, whose adjoint makes the backbone's
+    gradient the slab's share); the ground-truth maps are rasterized on
+    the slab's rows, the encoder and both decoders run on each level's
+    slab (mesh.Slab.levels), the BCE divides each rank's sum by the whole
+    maps' count, the gradients are summed over the world, and the
+    metrics' soft-argmax is the rows kernel's partial variant on the
+    slab, merged over 'space' (two launches a step on each rank). With
+    remat the recomputed forward runs its halo collectives again, in the
+    backward, in the same order on every rank.
     """
-    if mesh_lib.is_spatial(mesh):
-        raise NotImplementedError(mesh_lib.SPATIAL_NOT_PORTED)
     waypoints = list(scfg.waypoints)
     n_levels = len(mcfg.encoder_channels) + 1
     dtype = scfg.compute_dtype
     shards = batch_shards(mesh)
-    # train-mode batch norms take the global batch's statistics
-    bn_batch = shards if shards is not None and shards.count > 1 else True
+    spatial = mesh_lib.is_spatial(mesh)
+    # train-mode batch norms take the global batch's statistics (on the
+    # spatial mesh the 'data' ranks' at a whole level, the world's at a
+    # sliced one: ynet._serial_apply)
+    bn_batch = shards if shards is not None and (
+        shards.count > 1 or spatial) else True
 
-    def encode(params, state, semantic, observed_map):
+    def encode(params, state, semantic, observed_map, slabs):
         return ynet_lib.pred_features(params, state, mcfg, semantic,
-                                      observed_map, train=bn_batch)
+                                      observed_map, train=bn_batch,
+                                      slabs=slabs)
 
-    def decode_maps(params, features, wp_pyramid):
-        goal_map = ynet_lib.pred_goal(params, features)
+    def decode_maps(params, features, wp_pyramid, slabs):
+        goal_map = ynet_lib.pred_goal(params, features, slabs)
         x, w, b = ynet_lib.make_shared_pred_traj(
-            params, features, len(waypoints))(wp_pyramid)
+            params, features, len(waypoints), slabs)(wp_pyramid)
         return goal_map, torch.einsum("bhwc,cp->bhwp", x, w) + b
 
     if scfg.remat:
@@ -276,41 +312,57 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
         decode_maps = functools.partial(checkpoint, decode_maps,
                                         use_reentrant=False)
 
-    def forward(params, state, batch):
-        """-> (goal_loss, traj_loss, goal logits, traj logits, new state);
-        the maps are (B, H, W, pred_len) in the compute dtype."""
+    def forward_on(params, state, batch):
+        """-> (goal_loss, traj_loss, goal logits, traj logits, new state,
+        the finest level's slab or None); the maps are (B, H, W,
+        pred_len) in the compute dtype (the slab's rows)."""
         params = _compute_params(params, scfg)
         traj, mask = batch["traj"], batch["mask"]
-        H, W = batch["semantic"].shape[-3], batch["semantic"].shape[-2]
+        slabs = slab_levels(mesh, n_levels, batch["semantic"].shape[-3],
+                            whole=(scfg.segment_in_step
+                                   and "segmentation" in params))
+        slab = None if slabs is None else slabs[0]
         semantic, observed_map, seg_updates = _prepare_inputs(
             mcfg, scfg, params, batch["semantic"], traj, train=True,
             seg_bn_state=state.get("segmentation_bn"),
-            scene_idx=batch.get("scene_idx"))
+            scene_idx=batch.get("scene_idx"), slab=slab)
+        H, W = semantic.shape[-3], semantic.shape[-2]
+        row0 = 0 if slab is None else slab.lo
         gt_future = traj[:, scfg.obs_len:]
         gt_future_map = rasterize_gaussian_nhwc(gt_future, H, W,
-                                                scfg.kernlen, scfg.nsig)
+                                                scfg.kernlen, scfg.nsig, row0)
         gt_waypoint_map = rasterize_dist_nhwc(take(gt_future, waypoints, 1),
-                                              H, W,
-                                              scfg.template_size)
-        wp_pyramid = avg_pool_pyramid(gt_waypoint_map.to(dtype), n_levels)
-        features, new_state = encode(params, state, semantic, observed_map)
+                                              H, W, scfg.template_size, row0)
+        wp_pyramid = avg_pool_pyramid(gt_waypoint_map.to(dtype), n_levels,
+                                      slabs)
+        features, new_state = encode(params, state, semantic, observed_map,
+                                     slabs)
         if seg_updates:
             new_state = {**new_state, "segmentation_bn": seg_updates}
-        goal_map, traj_map = decode_maps(params, features, wp_pyramid)
+        goal_map, traj_map = decode_maps(params, features, wp_pyramid, slabs)
+        space = 1 if slab is None else slab.count
         goal_loss = bce_with_logits(goal_map.float(), gt_future_map,
-                                    mask, shards) * scfg.loss_scale
+                                    mask, shards, space) * scfg.loss_scale
         traj_loss = bce_with_logits(traj_map.float(), gt_future_map,
-                                    mask, shards) * scfg.loss_scale
-        return goal_loss, traj_loss, goal_map, traj_map, new_state
+                                    mask, shards, space) * scfg.loss_scale
+        return goal_loss, traj_loss, goal_map, traj_map, new_state, slab
+
+    def soft_argmax(maps, slab):
+        """(B, P, H, W) logits -> (B, P, 2): the rows kernel on the whole
+        maps, or its partial variant on the slab's rows merged over the
+        'space' ranks."""
+        if slab is None:
+            return softargmax2d_auto(maps)
+        return merge_ranks(softargmax2d_rows_partial(maps, slab.lo), slab)
 
     @torch.no_grad()
-    def top1_metrics(goal_map, traj_map, traj, mask):
+    def top1_metrics(goal_map, traj_map, traj, mask, slab=None):
         """Top-1 soft-argmax ADE/FDE (train_epoch.py:117-126)."""
         gt_future = traj[:, scfg.obs_len:]
-        traj_pts = softargmax2d_auto(
-            traj_map.detach().permute(0, 3, 1, 2).contiguous())  # (B, P, 2)
-        goal_pts = softargmax2d_auto(
-            goal_map.detach()[..., -1:].permute(0, 3, 1, 2).contiguous())
+        traj_pts = soft_argmax(traj_map.detach().permute(
+            0, 3, 1, 2).contiguous(), slab)  # (B, P, 2)
+        goal_pts = soft_argmax(goal_map.detach()[..., -1:].permute(
+            0, 3, 1, 2).contiguous(), slab)
         rf = scfg.resize_factor
         ade = torch.sqrt((((gt_future - traj_pts) / rf) ** 2).sum(-1)).mean(-1)
         fde = torch.sqrt((((gt_future[:, -1:] - goal_pts[:, -1:]) / rf) ** 2)
@@ -318,33 +370,42 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
         return {"ade_sum": (ade * mask).sum(), "fde_sum": (fde * mask).sum(),
                 "n": mask.sum()}
 
-    def global_metrics(metrics):
+    def global_metrics(metrics, slab=None):
         """On a mesh, each metric (a rank's part of the global loss, or
-        its rows' sum) summed over the ranks, in one collective."""
+        its rows' sum) summed over the ranks, in one collective. On the
+        spatial mesh it is a sum over the world, the losses being each
+        rank's share, and the 'space' ranks other than the first add no
+        metric sum: theirs are the same merged points' again."""
         if shards is None:
             return metrics
-        values = shards.all_reduce(torch.stack(list(metrics.values())))
+        if slab is None:
+            values = shards.all_reduce(torch.stack(list(metrics.values())))
+        else:
+            keep = float(slab.index == 0)
+            values = torch.stack([v if k in LOSS_KEYS else v * keep
+                                  for k, v in metrics.items()])
+            mesh_lib.sum_([values])
         return dict(zip(metrics, values.unbind()))
 
     def train_step(params, state, optimizer, batch):
         optimizer.zero_grad()
-        goal_loss, traj_loss, goal_map, traj_map, new_state = forward(
-            params, state, batch)
+        goal_loss, traj_loss, goal_map, traj_map, new_state, slab = \
+            forward_on(params, state, batch)
         loss = goal_loss + traj_loss
         if loss.requires_grad:  # else no leaf trains: the step updates
             loss.backward()     # nothing, as mst_tpu's on an empty tree
-        if shards is not None:
-            shards.sum_([p.grad for p in optimizer.params
-                         if p.grad is not None])
+        if shards is not None:  # over the world: every rank's share
+            mesh_lib.sum_([p.grad for p in optimizer.params
+                           if p.grad is not None])
         optimizer.step()
         metrics = top1_metrics(goal_map, traj_map, batch["traj"],
-                               batch["mask"])
+                               batch["mask"], slab)
         return new_state, global_metrics({
             "loss": loss.detach(), "goal_loss": goal_loss.detach(),
-            "traj_loss": traj_loss.detach(), **metrics})
+            "traj_loss": traj_loss.detach(), **metrics}, slab)
 
     def loss_and_maps(trainable, frozen, state, batch):
-        goal_loss, traj_loss, goal_map, traj_map, new_state = forward(
+        goal_loss, traj_loss, goal_map, traj_map, new_state, _ = forward_on(
             io.unflatten({**frozen, **trainable}), state, batch)
         return goal_loss + traj_loss, (goal_loss, traj_loss, goal_map,
                                        traj_map, new_state)
@@ -368,6 +429,11 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
         return trainable, new_state, opt_state, {
             "loss": loss, "goal_loss": goal_loss, "traj_loss": traj_loss,
             **metrics}
+
+    def forward(params, state, batch):
+        """-> (goal_loss, traj_loss, goal logits, traj logits, new
+        state)."""
+        return forward_on(params, state, batch)[:5]
 
     train_step.forward = forward
     train_step.functional = functional_step
@@ -446,16 +512,9 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
     waypoints = list(scfg.waypoints)
     n_levels = len(mcfg.encoder_channels) + 1
     shards = batch_shards(mesh)
-    spatial = mesh_lib.is_spatial(mesh)
 
     def slabs_of(rows, whole=False):
-        """Each pyramid level's mesh.Slab (mesh.Slab.levels) of maps of
-        which this rank holds `rows` rows (whole: all of them); None off a
-        spatial mesh."""
-        if not spatial:
-            return None
-        height = rows if whole else rows * mesh_lib.axis_size(mesh, "space")
-        return mesh_lib.space_slab(mesh, height).levels(n_levels)
+        return slab_levels(mesh, n_levels, rows, whole)
 
     def forward(params, state, batch, generator):
         generator = draw_source(generator)

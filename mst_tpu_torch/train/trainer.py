@@ -36,10 +36,11 @@ validation rows, and takes the same decisions. Rank 0 alone writes the
 checkpoints, _weights.npz, the metrics log and the training state, each
 followed by a barrier; every rank reads a state to resume. On the
 spatial ('data', 'space') mesh the batch size rounds up by 'data' alone,
-each rank holds its slab of every scene map's H (the backbone, where
-there is one, segments the whole scene and the slab is cut from its
-map), and test() runs the spatial eval step; training on it (train(),
---fused) and cross-scene batching are the next slice and raise.
+each rank holds its slab of every scene map's H, or of a cross-scene
+group's stack (the backbone, where there is one, segments the whole
+scene and the slab is cut from its map), and train() (with --fused too),
+its validation and test() run the spatial steps (mst_tpu/train/
+trainer.py:150-158, mst_tpu/train/fused.py:110-125).
 
 The segmentation backbone (when its file exists) turns each scene's
 image into its semantic map once a pass and a cache (_semantic_for):
@@ -211,7 +212,7 @@ class Experiment:
 
     def __init__(self, params: dict, images=None, device=None, mesh=None):
         self.params = dict(params)
-        config_lib.check_loop_ported(self.params, training=False)
+        config_lib.check_loop_ported(self.params)
         self.device = resolve_device(device or self.params.get("device"))
         if mesh is None:
             mesh = mesh_lib.mesh_from_shape(self.params.get("mesh_shape"),
@@ -219,9 +220,6 @@ class Experiment:
                                             self.device)
         self.mesh = mesh
         self.shards = mesh_lib.batch_shards(mesh)
-        if mesh_lib.is_spatial(mesh) and self.params.get(
-                "cross_scene_batching"):
-            raise NotImplementedError(mesh_lib.SPATIAL_NOT_PORTED)
         self.mcfg = config_lib.ynet_config(self.params)
         self.division_factor = 2 ** len(self.params["encoder_channels"])
         self.seed = int(self.params.get("seed", 1))
@@ -792,10 +790,8 @@ class Experiment:
         line, also appended to self.epoch_log) adds n_steps, the host
         seconds of its steps (ending in the epoch's one metrics read) and
         of its validation; self.prepare_seconds is the data preparation
-        and upload before the first epoch. On a spatial mesh (with or
-        without --fused) it raises: training there is the next slice."""
-        if mesh_lib.is_spatial(self.mesh):
-            raise NotImplementedError(mesh_lib.SPATIAL_NOT_PORTED)
+        and upload before the first epoch. On a mesh every rank runs it,
+        with its rows and, on the spatial mesh, its slab of every map."""
         p = self.params
         t0 = time.time()
         rng = np.random.default_rng(self.seed)

@@ -395,7 +395,7 @@ def test_shrink_ladder_steps_down_on_oom(tmp_path, monkeypatch, data):
     ("remat", dict(remat=True)),
     ("eth", dict(dataset_name="eth")),
     ("segmentation", dict(segmentation_model_fp=__file__))])
-def test_unported_loop_flags_raise(tmp_path, flag, over):
+def test_unported_loop_flags_raise(tmp_path, data, flag, over):
     """Each flag raises, naming itself; but those since ported: the
     segmentation backbone (a backbone npz builds the model with it, and a
     file that exists but is no backbone npz, this test file, raises),
@@ -403,8 +403,9 @@ def test_unported_loop_flags_raise(tmp_path, flag, over):
     --fused (an Experiment builds; remat reaches its step config), and
     the data-parallel mesh, whose --mesh_shape must be the world (2 in a
     world of 1 raises ValueError, naming both), and the spatial mesh
-    (--mesh_axes data space), on which an Experiment builds (to evaluate)
-    and train() raises NotImplementedError, naming the next slice."""
+    (--mesh_axes data space), on which an Experiment builds and trains:
+    a (1, 1) mesh's epoch equals the epoch without a mesh (val ADE/FDE
+    and loss within LOSS_RTOL, the weights within PARAM_TOL)."""
     if flag in ("resume", "eth", "cross_scene_batching", "remat", "fused"):
         exp = trainer.Experiment(loop_params(tmp_path, **over))
         assert all(exp.params[k] == v for k, v in over.items())
@@ -428,13 +429,26 @@ def test_unported_loop_flags_raise(tmp_path, flag, over):
             trainer.Experiment(loop_params(tmp_path, **over))
         return
     if flag == "mesh_axes":  # a world of 1 in this process, then gone
+        _, tables, images = data
+        runs = {}
         try:
-            exp = trainer.Experiment(loop_params(tmp_path, **over))
-            assert exp.mesh.mesh_dim_names == ("data", "space")
-            with pytest.raises(NotImplementedError, match="next slice"):
-                exp.train(None, None, None, None, "spatial")
+            for name, flags in (("mesh", over), ("none", {})):
+                exp = trainer.Experiment(loop_params(
+                    tmp_path / name, n_epoch=1, **flags), images=images)
+                exp.train(tables["train"], tables["val"], None, None,
+                          "spatial")
+                runs[name] = exp
+            assert runs["mesh"].mesh.mesh_dim_names == ("data", "space")
         finally:
             torch.distributed.destroy_process_group()
+        (rec,), (want,) = runs["mesh"].epoch_log, runs["none"].epoch_log
+        for k in ("val_ade", "val_fde", "loss"):
+            assert abs(rec[k] - want[k]) <= LOSS_RTOL * abs(want[k]), k
+        got, want = (hwio(runs[k]) for k in ("mesh", "none"))
+        for k, w in want.items():
+            np.testing.assert_allclose(
+                got[k], w, rtol=0, atol=PARAM_TOL * max(np.abs(w).max(),
+                                                        1e-12), err_msg=k)
         return
     with pytest.raises(NotImplementedError, match=flag):
         trainer.Experiment(loop_params(tmp_path, **over))
@@ -560,8 +574,8 @@ def test_cli_raises_on_unported_flags(workdir, monkeypatch):
     monkeypatch.chdir(workdir)
     # --resume, --remat, --cross_scene_batching and --fused are ported: the
     # parser takes them into the params, and --compute_dtype bfloat16 too;
-    # so is the data-parallel mesh; the spatial mesh evaluates and raises
-    # for training (config.check_loop_ported)
+    # so are the data-parallel mesh and the spatial mesh, which trains
+    # (config.check_loop_ported takes both)
     args = config.get_parser(True).parse_args(
         COMMON + ["--resume", "--remat", "--cross_scene_batching",
                   "--fused", "--compute_dtype", "bfloat16"])
@@ -570,8 +584,6 @@ def test_cli_raises_on_unported_flags(workdir, monkeypatch):
     config.check_loop_ported({**params, "mesh_shape": [2]})
     spatial = {**params, "mesh_shape": [2, 2],
                "mesh_axes": ["data", "space"]}
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        config.check_loop_ported(spatial)
-    config.check_loop_ported(spatial, training=False)
+    config.check_loop_ported(spatial)
     assert params["cross_scene_batching"] is True
     assert config.step_config(params).compute_dtype == torch.bfloat16

@@ -70,15 +70,14 @@ def test_hybrid_layout_is_node_aware(case):
 
 
 def test_mesh_refusals():
-    """Training on the spatial mesh (naming the next slice; a spatial
-    shape that is not the world raises as any does), a shape that is not
-    the world (this process is a world of 1), --mesh_axes that do not
+    """A spatial shape that is not the world (it raises as any does;
+    training on the spatial mesh is no longer refused), a shape that is
+    not the world (this process is a world of 1), --mesh_axes that do not
     match the shape or are unknown, a 3-D shape; none starts a process
     group."""
     with pytest.raises(ValueError, match="spans 2 ranks but the world"):
         mesh_lib.mesh_from_shape([1, 2], ["data", "space"], "cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        config.check_loop_ported({"mesh_axes": ["data", "space"]})
+    config.check_loop_ported({"mesh_axes": ["data", "space"]})
     with pytest.raises(ValueError, match="spans 4 ranks but the world has 1"):
         mesh_lib.mesh_from_shape([2, 2], None, "cpu")
     with pytest.raises(ValueError, match="must match"):

@@ -2,9 +2,14 @@
 `python -m mst_tpu_torch.test --mesh_shape 1 2 --mesh_axes data space
 --device cpu` in a gloo world of 2 (tests/torch_port_ranks.py, on the
 loop world's 2 synthetic scenes) prints the test lines of the run without
-a mesh (4 places); on that mesh the train CLI, the same with --fused and
-Experiment.train raise NotImplementedError naming the next slice, and the
-grid exits with mst_tpu's SystemExit.
+a mesh (4 places); on that mesh the train CLI (a mosa_2 fine-tune, 2
+epochs), the same with --fused (eager on gloo) and Experiment.train with
+--cross_scene_batching and --remat train as they do without a mesh:
+each epoch's val ADE/FDE, loss and train ADE/FDE within 1e-5 relative,
+the saved delta within 1e-4 of each leaf's max
+(test_torch_port_experiment.py's PARAM_TOL: 4 Adam steps at lr 0.01,
+whose near-zero gradients' signs may differ); the grid exits with
+mst_tpu's SystemExit.
 """
 
 import os
@@ -18,6 +23,8 @@ from mst_tpu_torch import config, grid
 from mst_tpu_torch import test as test_cli
 from tests import torch_port_ranks as ranks
 
+VAL_RTOL = 1e-5
+PARAM_TOL = 1e-4  # of each leaf's max
 
 @pytest.fixture(scope="module", autouse=True)
 def threads():
@@ -29,8 +36,9 @@ def threads():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The world of 2 (started first) and the test CLI without a mesh ->
-    (its outputs on each rank, the world of one's stdout)."""
+    """The world of 2 (started first), the test CLI without a mesh and
+    the training flows without one -> (its outputs on each rank, the
+    world of one's stdout, its training flows)."""
     root = tmp_path_factory.mktemp("spatial_cli")
     cwd = os.getcwd()
     os.chdir(root)
@@ -44,9 +52,10 @@ def runs(tmp_path_factory):
                 " ".join(map(str, a))))
             test_cli.main(config.get_parser(False).parse_args(
                 ranks.SPATIAL_TEST_ARGS))
+        flows = ranks.spatial_train_flows("one", [])
     finally:
         os.chdir(cwd)
-    return ranks.finish(handle)["spatial_cli"], "\n".join(lines)
+    return ranks.finish(handle)["spatial_cli"], "\n".join(lines), flows
 
 
 def results(text):
@@ -58,7 +67,7 @@ def results(text):
 
 
 def test_spatial_test_cli_prints_the_runs_without_a_mesh(runs):
-    got, one = runs
+    got, one, _ = runs
     want = results(one)
     assert sum("Test ADE" in ln for ln in want) == 3  # 2 rounds + average
     for out in got:  # main() in-process: every rank prints
@@ -69,7 +78,7 @@ def test_each_rank_uploads_its_slab_of_each_scene(runs):
     """On the spatial mesh Experiment uploads, for each scene, rank r's
     rows [r H / 2, (r + 1) H / 2) of its image (the semantic map without
     a backbone), cut from the image its batches hold."""
-    got, _ = runs
+    got, _, _ = runs
     for rank, out in enumerate(got):
         assert out["uploads"]
         for whole, held in out["uploads"].values():
@@ -81,9 +90,23 @@ def test_each_rank_uploads_its_slab_of_each_scene(runs):
 
 @pytest.mark.parametrize("flow", ["train", "fused", "experiment"])
 def test_training_on_the_spatial_mesh_raises(runs, flow):
-    got, _ = runs
+    """Training on the spatial mesh no longer raises: the train CLI,
+    --fused and Experiment.train (cross-scene, remat) on the (1, 2) mesh
+    against the same runs without a mesh."""
+    got, _, flows = runs
+    records1, delta1 = flows[flow]
+    assert len(records1) == (1 if flow == "experiment" else 2)
     for out in got:
-        assert "next slice" in out[flow] and "spatial mesh" in out[flow]
+        records, delta = out[flow]
+        assert len(records) == len(records1)
+        for rec, rec1 in zip(records, records1):
+            for k in ("val_ade", "val_fde", "loss", "train_ade",
+                      "train_fde"):
+                assert abs(rec[k] - rec1[k]) <= VAL_RTOL * abs(rec1[k]), k
+        assert delta.keys() == delta1.keys() and delta1
+        for k, v in delta1.items():
+            assert float(np.abs(delta[k] - v).max()) <= \
+                PARAM_TOL * float(np.abs(v).max()), k
 
 
 def test_the_grid_refuses_the_spatial_mesh():

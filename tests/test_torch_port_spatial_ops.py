@@ -163,8 +163,8 @@ def test_partial_variant_is_a_custom_op_with_a_fake():
 def test_spatial_refusals():
     """A height that does not divide the 'space' ranks (naming 'space'),
     a spatial mesh whose ranks span two hosts (mst_tpu's message), the
-    axes in the other order, and training on the spatial mesh (naming
-    the next slice); none starts a process group."""
+    axes in the other order; training on the spatial mesh is no longer
+    refused (check_loop_ported takes it); none starts a process group."""
     with pytest.raises(ValueError, match="'space'"):
         mesh_lib.Slab(0, 4, None, 30)
     hostdata.check_spatial_hosts(["a", "a", "a", "a"])
@@ -173,9 +173,9 @@ def test_spatial_refusals():
         hostdata.check_spatial_hosts(["a", "a", "b", "b"])
     with pytest.raises(ValueError, match="unsupported --mesh_axes"):
         mesh_lib.mesh_from_shape([1, 2], ["space", "data"], "cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        config.check_loop_ported({"mesh_axes": ["data", "space"]})
-    config.check_loop_ported({"mesh_axes": ["data", "space"]},
-                             training=False)
+    config.check_loop_ported({"mesh_axes": ["data", "space"]})
+    config.check_loop_ported({"mesh_shape": [2, 2],
+                              "mesh_axes": ["data", "space"],
+                              "compute_dtype": "bfloat16"})
     assert not torch.distributed.is_initialized()
 

@@ -15,6 +15,7 @@ and in every rank alike.
 """
 
 import glob
+import json
 import os
 import pickle
 import subprocess
@@ -571,8 +572,9 @@ def case_spatial_cli(mesh):
     """From the directory above <dir> (write_loop_world's): the test CLI
     on the spatial mesh -> its stdout, and each scene's image as its
     batches hold it (N, H, W, C) beside the image Experiment uploaded for
-    them; the train CLI, the same with --fused, and Experiment.train on
-    the mesh -> their refusals."""
+    them; then the train CLI, the same with --fused, and Experiment.train
+    with --cross_scene_batching and --remat on the mesh
+    (spatial_train_flows)."""
     import contextlib
     import io as text_io
 
@@ -580,7 +582,6 @@ def case_spatial_cli(mesh):
     from mst_tpu_torch import test as test_cli
     from mst_tpu_torch.data import scenes
     from mst_tpu_torch.train import trainer
-    from mst_tpu_torch.train.__main__ import main as train_main
 
     os.chdir(os.path.dirname(OUT))
     mesh_args = ["--mesh_shape", *map(str, mesh.mesh.shape),
@@ -604,20 +605,259 @@ def case_spatial_cli(mesh):
                 SPATIAL_TEST_ARGS + mesh_args))
     finally:
         trainer.Experiment._device_batches = device_batches
-    out = {"test": buf.getvalue(), "uploads": uploads}
+    return {"test": buf.getvalue(), "uploads": uploads,
+            **spatial_train_flows("spatial", mesh_args, mesh)}
+
+
+def spatial_train_flows(prefix, mesh_args, mesh=None):
+    """From write_loop_world's directory: the train CLI (LOOP_ARGS' mosa_2
+    fine-tune, 2 epochs), the same with --fused, and Experiment.train
+    with --cross_scene_batching and --remat (1 epoch), each writing under
+    <prefix>_<flow>, on mesh_args' mesh (none without) -> {flow: (its
+    metrics log's records, the delta it saved)}."""
+    import contextlib
+    import io as text_io
+
+    from mst_tpu_torch import config, io
+    from mst_tpu_torch.data.splits import prepare_dataset
+    from mst_tpu_torch.train import trainer
+    from mst_tpu_torch.train.__main__ import main as train_main
+    from mst_tpu_torch.utils.seeding import set_random_seeds
+
+    def flow_args(flow, extra):
+        return config.get_parser(True).parse_args(
+            LOOP_ARGS + extra + mesh_args + [
+                "--ckpt_path", f"{prefix}_{flow}", "--metrics_jsonl",
+                f"{prefix}_{flow}/metrics.jsonl"])
+
     for flow, extra in (("train", []), ("fused", ["--fused"])):
-        try:
-            train_main(config.get_parser(True).parse_args(
-                LOOP_ARGS + extra + mesh_args + ["--ckpt_path", "spatial"]))
-        except NotImplementedError as e:
-            out[flow] = str(e)
-    exp = trainer.Experiment(config.get_params("synth.yaml", {
-        "device": "cpu", "seed": 0}), mesh=mesh)
-    try:
-        exp.train(None, None, None, None, "spatial")
-    except NotImplementedError as e:
-        out["experiment"] = str(e)
+        with contextlib.redirect_stdout(text_io.StringIO()):
+            train_main(flow_args(flow, extra))
+    args = flow_args("experiment", ["--cross_scene_batching", "--remat",
+                                    "--n_epoch", "1"])
+    params = config.get_params(args=args)
+    image_path, data_path = config.get_image_and_data_path(params)
+    set_random_seeds(args.seed)
+    train, val, _ = prepare_dataset(
+        data_path, args.load_data, args.batch_size, args.n_train_batch,
+        args.train_files, args.val_files, args.val_split, args.test_splits,
+        args.shuffle, args.share_val_test, "train", args.show_details)
+    exp = trainer.Experiment(params, mesh=mesh)
+    exp.load_params("base.npz")
+    with contextlib.redirect_stdout(text_io.StringIO()):
+        exp.train(train, val, image_path, image_path, "spatial_experiment")
+    out = {}
+    for flow in ("train", "fused", "experiment"):
+        with open(f"{prefix}_{flow}/metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        delta, = glob.glob(f"{prefix}_{flow}/*__original.npz") or glob.glob(
+            f"{prefix}_{flow}/spatial_experiment.npz")
+        out[flow] = (records, dict(io.load_checkpoint(delta)))
     return out
+
+
+# ---- training on the spatial mesh (tests/test_torch_port_spatial_grad.py,
+# _train.py, _train_jax.py)
+
+# the chain of ops on slabs: conv, pool, conv, pool, conv, bilinear x2,
+# conv, bilinear x2, 1x1 conv; at 24 rows level 2 runs whole over 2
+# ranks, levels 1-2 over 4; at 12 rows over 4 the slabs hold 3 rows, odd
+CHAIN_W, CHAIN_N = 12, 4
+
+
+def chain_inputs(height, seed=11):
+    """The chain's input (N, height, W, 3), its target (N, height, W, 2)
+    and weights, from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen)
+
+    x = randn(CHAIN_N, height, CHAIN_W, 3)
+    target = randn(CHAIN_N, height, CHAIN_W, 2)
+    weights = {"w0": randn(6, 3, 3, 3, scale=0.3), "b0": randn(6),
+               "w1": randn(8, 6, 3, 3, scale=0.3), "b1": randn(8),
+               "w2": randn(8, 8, 3, 3, scale=0.3), "b2": randn(8),
+               "w3": randn(6, 16, 3, 3, scale=0.3), "b3": randn(6),
+               "w4": randn(2, 6, 1, 1, scale=0.3), "b4": randn(2)}
+    return x, target, weights
+
+
+def rank_block(t, mesh, slab):
+    """This rank's rows (axis 0) and slab (axis 1) of a whole tensor."""
+    from mst_tpu_torch.parallel import mesh as mesh_lib
+
+    shards = mesh_lib.batch_shards(mesh)
+    if shards is not None:
+        t = t[slice(*shards.rows(t.shape[0] // shards.count))]
+    return t if slab is None else slab.take(t).contiguous()
+
+
+def spatial_chain(mesh, height):
+    """The chain on this rank's rows and slab (the whole batch without a
+    mesh), loss = sum(out * target) + 0.1 sum(out^2) over them ->
+    {loss (the rank's share), each weight's gradient summed over the
+    world, the input's gradient (the rank's block), each level's rows}."""
+    import torch.nn.functional as F
+
+    from mst_tpu_torch.models.layers import conv2d
+    from mst_tpu_torch.ops import pooling
+    from mst_tpu_torch.parallel import mesh as mesh_lib
+
+    x, target, w = chain_inputs(height)
+    slab = mesh_lib.space_slab(mesh, height)
+    sl = [None] * 3 if slab is None else slab.levels(3)
+    x = rank_block(x, mesh, slab).requires_grad_()
+    target = rank_block(target, mesh, slab)
+    for v in w.values():
+        v.requires_grad_()
+    y0 = F.relu(conv2d(x, w["w0"], w["b0"], sl[0]))
+    y1 = F.relu(conv2d(pooling.pool_down(y0, pooling.max_pool_2x2, sl[0],
+                                         sl[1]), w["w1"], w["b1"], sl[1]))
+    y2 = conv2d(pooling.pool_down(y1, pooling.avg_pool_2x2, sl[1], sl[2]),
+                w["w2"], w["b2"], sl[2])
+    u1 = pooling.upsample_bilinear_2x(y2, sl[2], sl[1])
+    u1 = F.relu(conv2d(torch.cat([u1, y1], -1), w["w3"], w["b3"], sl[1]))
+    u0 = pooling.upsample_bilinear_2x(u1, sl[1], sl[0])
+    out = conv2d(u0, w["w4"], w["b4"], sl[0])
+    loss = (out * target).sum() + 0.1 * (out ** 2).sum()
+    loss.backward()
+    grads = [v.grad for v in w.values()]
+    if mesh is not None:
+        mesh_lib.sum_(grads)
+    return {"loss": float(loss.detach()), "x_grad": x.grad.numpy().copy(),
+            "grads": {k: g.numpy().copy() for k, g in zip(w, grads)},
+            "rows": [t.shape[1] for t in (y0, y1, y2)]}
+
+
+def case_spatial_chain(mesh):
+    return {h: spatial_chain(mesh, h) for h in (24, 12)}
+
+
+def spatial_bn(mesh, height=24):
+    """A train-mode batch norm at a sliced level (the rank's slab) and at
+    a level that runs whole (its slabs gathered), loss = sum(y * t) +
+    0.1 sum(y^2) over the sliced output and sum(y2 * t2) over the whole
+    output's slab rows -> {the rank's block of each output, each
+    parameter's gradient summed over the world, the inputs' gradients,
+    the moved running statistics}."""
+    from mst_tpu_torch.models import layers
+    from mst_tpu_torch.parallel import mesh as mesh_lib
+
+    gen = torch.Generator().manual_seed(13)
+    x, t, x2, t2 = (torch.randn(CHAIN_N, height, CHAIN_W, 5, generator=gen)
+                    * 2 + 1 for _ in range(4))
+    (p1, s1), (p2, s2) = layers.batchnorm_init(5), layers.batchnorm_init(5)
+    for p in (p1, p2):
+        with torch.no_grad():
+            p["weight"].copy_(torch.rand(5, generator=gen) + 0.5)
+            p["bias"].copy_(torch.randn(5, generator=gen))
+            p["weight"].requires_grad_()
+            p["bias"].requires_grad_()
+    shards = mesh_lib.batch_shards(mesh)
+    slab = mesh_lib.space_slab(mesh, height)
+    x, t, x2, t2 = (rank_block(v, mesh, slab) for v in (x, t, x2, t2))
+    x.requires_grad_()
+    x2.requires_grad_()
+    y, s1 = layers.batchnorm_apply(
+        p1, s1, x, True if mesh is None else shards.spanning(slab))
+    z = x2 if slab is None else slab.gather(x2)
+    y2, s2 = layers.batchnorm_apply(p2, s2, z,
+                                    True if mesh is None else shards)
+    y2 = y2 if slab is None else slab.take(y2)
+    loss = (y * t).sum() + 0.1 * (y ** 2).sum() + (y2 * t2).sum()
+    loss.backward()
+    grads = [p1["weight"].grad, p1["bias"].grad, p2["weight"].grad,
+             p2["bias"].grad]
+    if mesh is not None:
+        mesh_lib.sum_(grads)
+    return {"y": y.detach().numpy().copy(), "y2": y2.detach().numpy().copy(),
+            "grads": [g.numpy().copy() for g in grads],
+            "x_grad": x.grad.numpy().copy(), "x2_grad": x2.grad.numpy().copy(),
+            "state": [numpy_tree(s1), numpy_tree(s2)]}
+
+
+def case_spatial_bn(mesh):
+    return spatial_bn(mesh)
+
+
+ADAM_LR = 1e-3
+# the train-step cases: (train_net, params overrides, steps); "cross" is
+# a cross-scene batch of two scene maps; "segment" runs a shallow
+# segmentation backbone in the step, its batch norms in train mode past
+# e_unfreeze (segment_in_step, segment_train_mode), on the whole scene
+SPATIAL_TRAINS = {
+    "mosa": ("mosa_2", dict(position=["0", "1", "2", "3", "4"]), 3),
+    "serial": ("serial", {}, 1),
+    "train": ("train", {}, 2),
+    "remat": ("train", dict(remat=True), 1),
+    "bf16": ("train", dict(compute_dtype="bfloat16"), 1),
+    "cross": ("train", {}, 1),
+    "segment": ("segmentation_head", {}, 1),
+    # Y-Net-Mod's fusion encoder, parallel block adapters, the embed network
+    "fusion": ("mosa_1", dict(network="fusion", n_fusion=2,
+                              position=["scene", "motion", "fusion"]), 1),
+    "parallel": ("parallel_1x1_3x3", dict(position=["0", "2"]), 1),
+    "embed": ("train", dict(network="embed"), 1),
+}
+
+
+def cross_batch(seed=0):
+    """spatial_batch() with a second scene map: a (2, H, W, 3) stack and
+    each row's scene_idx."""
+    b = spatial_batch(H, seed)
+    rng = np.random.default_rng(seed + 1)
+    b["semantic"] = np.concatenate([b["semantic"], rng.normal(
+        size=b["semantic"].shape).astype(np.float32)])
+    b["scene_idx"] = np.arange(len(MASK), dtype=np.int64) % 2
+    return b
+
+
+def spatial_train(mesh, name):
+    """SPATIAL_TRAINS[name]'s Adam steps on the rank's rows and slab (the
+    whole batch without a mesh) -> each step's metrics and summed
+    gradients, the trainable leaves and the model state after."""
+    from mst_tpu_torch import config, io
+    from mst_tpu_torch.models.unet import extract_bn_stats, unet_init
+    from mst_tpu_torch.train import freeze, optim
+    from mst_tpu_torch.train.steps import make_train_step
+
+    train_net, over, n_steps = SPATIAL_TRAINS[name]
+    params = step_params(train_net, **over)
+    weights, state = model(params)
+    segment = name == "segment"
+    if segment:
+        weights["segmentation"] = unet_init(
+            torch.Generator().manual_seed(2), n_classes=3,
+            layers=(1, 1, 1, 1))
+        state = {**state, "segmentation_bn": extract_bn_stats(
+            weights["segmentation"])}
+    freeze.set_trainable(weights, train_net, params["position"])
+    named = {k: v for k, v in io.flatten(weights).items() if v.requires_grad}
+    opt = optim.Adam(named.values(), ADAM_LR)
+    step = make_train_step(config.ynet_config(params), config.step_config(
+        params, segment_in_step=segment, segment_train_mode=segment), mesh)
+    b = spatial_rows(cross_batch() if name == "cross" else spatial_batch(H),
+                     mesh, whole_scene=segment)
+    out = []
+    for _ in range(n_steps):
+        state, m = step(weights, state, opt, b)
+        out.append({"metrics": {k: float(v) for k, v in m.items()},
+                    "grads": {k: v.grad.numpy().copy()
+                              for k, v in named.items()}})
+    return {"steps": out, "leaves": {k: v.detach().numpy().copy()
+                                     for k, v in named.items()},
+            "state": numpy_tree(state)}
+
+
+def case_spatial_train(mesh):
+    return {name: spatial_train(mesh, name) for name in SPATIAL_TRAINS}
+
+
+def case_spatial_train_jax(mesh):
+    """The cases tests/test_torch_port_spatial_train_jax.py holds against
+    mst_tpu's spatial step."""
+    return {name: spatial_train(mesh, name) for name in ("train", "cross")}
 
 
 def checkpoint_tree(zero=False):
