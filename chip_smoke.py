@@ -232,7 +232,12 @@ Phases, each fatal on failure:
      share one card), and a world of 1's serial step timed with the
      port's batch norm and with cuDNN's in its place; (c) the world of 2's torch.distributed.checkpoint
      restored here bit for bit; (d) the grid (2 seeds x 1 lr, 1 epoch,
-     one run a rank) against the same grid here at phase 12's bars.
+     one run a rank) against the same grid here at phase 12's bars;
+     (e)-(f) the spatial mesh's eval and training in that world (PRs
+     17-18); (g) the ResNet101 U-Net in the step on that (1, 2) mesh,
+     each rank on its slab of the image (a TTST pass, segmentation_bn
+     steps in train mode, the backbone alone on a 1408 x 1920 image, and
+     the train CLI of segmentation_head) against the world of 1 here.
   15. the eval step's sample payload, the evaluator tools and two suites
      of scripts/ (analysis_path; last), on phase 6c's scenes at
      sdd_shortterm_eval.yaml's width (352 x 480, B = 8, TTST on, mosa_2 on
@@ -256,7 +261,8 @@ res_launches over phase 10's CLI runs, p11_launches over phase
 11's requests, steps and cross-scene test, p12_launches over phase
 12's fused runs (eager warm-up + replays) and grid, p13_launches over
 phase 13's program-only process, p14_launches, each rank's count over
-phase 14's world of 2, and p15_launches over phase 15's full-width
+phase 14's world of 2, p14g_launches, each rank's count over 14g's TTST
+pass and train steps, and p15_launches over phase 15's full-width
 evaluations and its two suites' processes; the bf16 records'
 launches count phase 11's bf16 requests and steps); the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
@@ -4626,8 +4632,9 @@ def p14_train_cli(torch, args, record_grads=False):
         if record_grads:  # the optimizer's leaves, in set_trainable's order
             names = [k for k, v in io.flatten(self.model_params).items()
                      if v.requires_grad]
-            seen["grads"] = {k: [g[i] for g in steps]
-                             for i, k in enumerate(names)}
+            # in the checkpoints' layout (a conv's weight HWIO)
+            seen["grads"] = {k: [io.params_to_numpy({k: torch.from_numpy(
+                g[i])})[k] for g in steps] for i, k in enumerate(names)}
         runner = self.fused_runner
         seen.update(fused=runner is not None, captured=bool(
             runner is not None and runner.graph is not None), per_replay={
@@ -4653,12 +4660,14 @@ def mesh_rank_main(job_json):
     steps, validation, checkpoint save, spatial eval (p14_spatial and the
     test CLI, p14_spatial_cli, on a (1, 2) ('data', 'space') mesh of the
     same world), spatial training (p14_spatial_steps and the train CLI,
-    p14_spatial_train_cli, on that mesh) and grid on its mesh (gloo on the
-    one card), job
+    p14_spatial_train_cli, on that mesh), the backbone in the step on it
+    (p14_backbone, and the train CLI of segmentation_head) and grid on its
+    mesh (gloo on the one card), job
     'steps' the steps and validation alone on a world of any size, job
-    'spatial' the spatial eval on a (1, world) mesh and job
-    'spatial_train' its train steps and train CLI (mesh_scaling). Prints
-    'P14 ' + its report, with its kernel launches."""
+    'spatial' the spatial eval on a (1, world) mesh, job 'spatial_train'
+    its train steps and train CLI and job 'spatial_backbone' p14_backbone
+    on it (mesh_scaling). Prints 'P14 ' + its report, with its kernel
+    launches."""
     import torch
 
     job = json.loads(job_json)
@@ -4684,6 +4693,11 @@ def mesh_rank_main(job_json):
         shape = tuple(job["shape"])
         report["spatial"] = p14_spatial(torch, wrappers, os.path.join(
             job["tmp"], f"spatial_rank{rank}.npz"), shape)
+        report["backend"] = torch.distributed.get_backend()
+    elif job["kind"] == "spatial_backbone":
+        report["backbone"] = p14_backbone(torch, wrappers, os.path.join(
+            job["tmp"], f"backbone_rank{rank}.npz"), job["backbone"],
+            tuple(job["shape"]))
         report["backend"] = torch.distributed.get_backend()
     elif job["kind"] == "spatial_train":
         shape = tuple(job["shape"])
@@ -4738,7 +4752,14 @@ def mesh_rank_main(job_json):
         release(torch)
         report["spatial_train_cli"] = p14_spatial_train_cli(
             torch, wrappers, job["train"])
-        release(torch)  # and the train CLIs' before the grid's
+        release(torch)  # and the train CLIs' before the backbone's
+        report["backbone"] = p14_backbone(torch, wrappers, os.path.join(
+            job["tmp"], f"backbone_rank{rank}.npz"), job["backbone"],
+            P14_SPATIAL)
+        release(torch)
+        report["backbone_cli"] = p14_spatial_train_cli(
+            torch, wrappers, job["backbone"]["train"])
+        release(torch)  # and the backbone's before the grid's
         t0 = time.perf_counter()
         buf = io_text.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -4924,7 +4945,10 @@ def mesh_scaling(torch, card, worlds=(2, 4), n_steps=P14_SCALE_STEPS):
     mesh over NCCL, a card a rank, against the world of 1 (hold_spatial),
     then 14f's train steps on that mesh (hold_spatial_steps) and the
     train CLI's --fused on it over phase 6c's scenes, captured with its
-    halo all-reduces (ms and peak by rank).
+    halo all-reduces (ms and peak by rank), and 14g's backbone in the step
+    on it (hold_backbone: the TTST pass, the segmentation_bn steps in
+    train mode and the backbone alone on a 1408 x 1920 image, each rank's
+    peak against the world of 1's).
     Needs max(worlds) cards; on a host with four:
 
         python3 -c 'import chip_smoke; chip_smoke.mesh_scaling_main()'
@@ -5001,6 +5025,25 @@ def mesh_scaling(torch, card, worlds=(2, 4), n_steps=P14_SCALE_STEPS):
               f"peak by rank {[round(c['peak'] / 2**30, 3) for c in clis]} "
               f"GiB, launches by rank "
               f"{[{k: v for k, v in c['launches'].items() if v} for c in clis]}")
+        # 14g's backbone in the step on the (1, n) mesh over NCCL
+        from mst_tpu_torch.probes import kernel_wrappers
+
+        release(torch)
+        images_fp, backbone_fp, _ = write_backbone_world(
+            torch, tmp, images, splits.limit_samples(train, 2, LOOP_B), val,
+            test)
+        bb_job = {"images": images_fp, "backbone": backbone_fp}
+        rep_g1 = p14_backbone(torch, kernel_wrappers(), os.path.join(
+            tmp, "backbone_w1.npz"), bb_job)
+        one_g = p14_read(os.path.join(tmp, "backbone_w1.npz"))
+        release(torch)
+        reps = start_ranks(n, {"kind": "spatial_backbone", "tmp": tmp,
+                               "shape": [1, n], "backbone": bb_job}, 900,
+                           own_card=True)()
+        check(all(r["backend"] == "nccl" for r in reps),
+              f"14 x{n} backbone: backends {[r['backend'] for r in reps]}")
+        hold_backbone(tmp, one_g, rep_g1, reps, card, (1, n),
+                      f"14 x{n} spatial backbone")
     finally:
         torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5793,30 +5836,31 @@ def hold_trained(label, ckpt, ckpt0, grads, lr):
     return "the P14_SIG rule", val_err, leaf_err
 
 
-def hold_spatial_train_cli(tmp, flows0, reps, card, label="14f"):
+def hold_spatial_train_cli(tmp, flows0, reps, card, label="14f",
+                           key="spatial_train_cli"):
     """Phase 14f through the entry point: each flow of the train CLI on
-    the spatial mesh (p14_spatial_train_cli; rank 0 wrote f2_<tag>)
-    against the same flow without a mesh in this process (flows0, which
-    wrote f0_<tag>; its loop's gradients): hold_trained; the rows
-    kernel's partial variant launched on each rank, the whole-map rows
-    kernel only where TTST samples the test's goal maps; --fused eager
-    on gloo."""
+    the spatial mesh (p14_spatial_train_cli, each rank's report[key];
+    rank 0 wrote f2_<tag>) against the same flow without a mesh in this
+    process (flows0, which wrote f0_<tag>; the gradients of the first
+    that recorded them): hold_trained; the rows kernel's partial variant
+    launched on each rank, the whole-map rows kernel only where TTST
+    samples the test's goal maps; --fused eager on gloo."""
     lr = float(P14_CLI_LR)
-    grads = flows0["loop"][1]["grads"]
+    grads = next(f[1]["grads"] for f in flows0.values() if "grads" in f[1])
     for tag in flows0:
         how, val_err, leaf_err = hold_trained(
             f"{label} {tag}", os.path.join(tmp, f"f2_{tag}"),
             os.path.join(tmp, f"f0_{tag}"), grads, lr)
         for r, rep in enumerate(reps):
-            cli = rep["spatial_train_cli"][tag]
+            cli = rep[key][tag]
             check(cli["launches"]["softargmax_rows_partial"] > 0
                   and cli["launches"]["fused_predict_partial"] > 0
                   and cli["launches"]["fused_predict"] == 0
                   and not cli["captured"],
                   f"{label} {tag}: rank {r} launched {cli['launches']}, "
                   f"captured {cli['captured']}")
-        ran = [{k: v for k, v in rep["spatial_train_cli"][tag][
-            "launches"].items() if v} for rep in reps]
+        ran = [{k: v for k, v in rep[key][tag]["launches"].items() if v}
+               for rep in reps]
         print(f"{label} {tag}: `python -m mst_tpu_torch.train --mesh_shape "
               f"{' '.join(map(str, P14_SPATIAL))} --mesh_axes data space"
               f"{' --fused' if tag == 'fused' else ''}` (main() on each "
@@ -5825,8 +5869,452 @@ def hold_spatial_train_cli(tmp, flows0, reps, card, label="14f"):
               f"the delta's significant leaves {leaf_err:.3e} lr a step); "
               f"launches by "
               f"rank {ran}; host s by rank "
-              f"{[round(rep['spatial_train_cli'][tag]['s'], 1) for rep in reps]}"
+              f"{[round(rep[key][tag]['s'], 1) for rep in reps]}"
               f", without a mesh {flows0[tag][2]:.1f}")
+
+
+# ---- 14g: the segmentation backbone on H slabs of the spatial mesh
+P14G_STEPS = 3          # segmentation_bn steps, the backbone in train mode
+P14G_OUT_TOL = SEG_TOL  # (c): the gathered probabilities against the world
+# of 1's (phase 9's bar for the card against the CPU), and each leaf's
+# gradient summed over the ranks, of its max
+# (b): the f32 steps' gradients of the backbone's batch-norm leaves move by
+# up to ~12% of a leaf's max when the image moves by 2^-20 of itself (my
+# chip run 2 of PR 20, train mode: at ResNet101 depth a change in the last
+# bits flips ReLUs whose inputs lie that close to 0), and the slabs change
+# the forward's last bits (cuDNN sums layer3's 11-row slabs otherwise,
+# PR 17), so 14f's fixed leaf bar cannot hold the segmentation_bn steps:
+# their first gradients, leaves and statistics are held within P14G_RATIO
+# of the world of 1's own distance from its run on the nudged image
+P14G_NUDGE = 2.0 ** -20
+P14G_RATIO = 2.0
+
+
+def saved_bytes(torch, fn, exclude):
+    """fn() -> (its result, the bytes of the distinct storages that
+    autograd saved for the backward in it, tensors of `exclude` (the
+    parameters) not counted): the activations a train step holds."""
+    skip = {t.untyped_storage().data_ptr() for t in exclude}
+    seen = {}
+
+    def pack(t):
+        storage = t.untyped_storage()
+        if storage.data_ptr() not in skip:
+            seen[storage.data_ptr()] = storage.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, sum(seen.values())
+
+
+def p14g_model(torch, train_net, backbone_fp):
+    """sdd_shortterm_train.yaml's model (p14_model's draws) with the
+    ResNet101 U-Net of backbone_fp (6 classes) -> (params, weights, state
+    with the backbone's 'segmentation_bn' statistics, optimizer, named
+    trainable leaves)."""
+    from mst_tpu_torch import io
+    from mst_tpu_torch.config import get_params, ynet_config
+    from mst_tpu_torch.models import segmentation as seg_lib
+    from mst_tpu_torch.models.unet import extract_bn_stats
+    from mst_tpu_torch.models.ynet import init_ynet
+    from mst_tpu_torch.train.trainer import setup_training
+
+    params = get_params("sdd_shortterm_train.yaml", dict(
+        train_net=train_net, lr=1e-3, use_TTST=True))
+    weights, state = init_ynet(torch.Generator().manual_seed(0),
+                               ynet_config(params), "cuda")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for k, v in io.flatten(weights).items():
+            if v.is_floating_point() and not v.any():
+                v.copy_(0.05 * torch.randn(v.shape, generator=gen))
+    weights["segmentation"] = seg_lib.load_params(backbone_fp, "cuda")
+    state = {**state, "segmentation_bn": extract_bn_stats(
+        weights["segmentation"])}
+    setup = setup_training(weights, params, steps_per_epoch=1)
+    named = {k: v for k, v in io.flatten(weights).items() if v.requires_grad}
+    return params, weights, state, setup["optimizer"], named
+
+
+def p14_backbone(torch, wrappers, out_path, job, shape=None):
+    """(g) on this rank of phase 14's world of 2, on a `shape` ('data',
+    'space') mesh of it, or the world of 1 (shape None), the ResNet101
+    U-Net of job['backbone'] in the step at full width, on the rank's
+    slab of each image (job['images']: 'small', phase 6c's scene at 352 x
+    480, 'big' the same scene at resize 1.0, 1408 x 1920):
+    (a) 14b's K = 20 TTST pass with segment_in_step (the world of 1's
+        draws), twice, the second timed, counted (every kernel's count set
+        to 0 just before and read just after) and its peak read;
+    (b) P14G_STEPS Adam steps of segmentation_bn with the backbone in
+        train mode (segment_train_mode) on phase 6b's rows, counted, the
+        last one's peak;
+    (c) the backbone alone in eval mode, forward and backward of the sum
+        of its probabilities against a fixed target, on the big image:
+        peak, the bytes autograd saved (saved_bytes), the output gathered
+        and the head weight's gradient summed over the ranks.
+    -> report; the arrays to out_path."""
+    import numpy as np
+
+    from mst_tpu_torch import io
+    from mst_tpu_torch.config import step_config, ynet_config
+    from mst_tpu_torch.models.unet import unet_apply
+    from mst_tpu_torch.ops import sampling
+    from mst_tpu_torch.parallel import mesh as mesh_lib
+    from mst_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    H, W, B = 352, 480, 8
+    mesh = None if shape is None else mesh_lib.mesh_from_shape(
+        list(shape), ["data", "space"], "cuda")
+    images = p14_read(job["images"])
+    slab = mesh_lib.space_slab(mesh, H)
+
+    def cut(image, sl):
+        t = torch.tensor(image, device="cuda")
+        return t if sl is None else sl.take(t).contiguous()
+
+    held = {k: w.launches for k, w in wrappers.items()}
+    report, arrays = {}, {}
+
+    # ---- (a) the TTST pass
+    params, weights, state, _, _ = p14g_model(torch, "mosa_2",
+                                              job["backbone"])
+    batch = fine_tune_batch(torch, params, H, W, B)
+    batch["semantic"] = cut(images["small"], slab)
+    eval_step = make_eval_step(ynet_config(params), step_config(
+        params, segment_in_step=True), mesh)
+    scfg = step_config(params)
+    for i in range(2):
+        gen = torch.Generator("cuda").manual_seed(eval_seed_p14())
+        source = gen if mesh is not None else sampling.Rows(gen, 0, B, B)
+        torch.cuda.synchronize()
+        if i:
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        feats, wps = eval_step.forward(weights, state, batch, source)
+        out = eval_step.global_outputs(eval_step.decode_and_score(
+            weights, feats, wps, batch["traj"], batch["mask"]))
+        torch.cuda.synchronize()
+        report["eval_ms"] = 1e3 * (time.perf_counter() - t0)
+    report["eval_peak"] = torch.cuda.max_memory_allocated() - base
+    report["eval_launches"] = {k: w.launches for k, w in wrappers.items()}
+    report["chunks"] = wps.shape[0] // (scfg.eval_k_chunk or wps.shape[0])
+    report["rows"] = int(batch["semantic"].shape[1])
+    arrays.update({f"eval/{k}": v.cpu().numpy() for k, v in out.items()})
+    arrays["eval/wps"] = wps.cpu().numpy()
+    del params, weights, state, batch, eval_step, feats, wps, out
+    release(torch)
+
+    # ---- (b) segmentation_bn steps, the backbone's batch norms in eval
+    # mode ('b'), then in train mode ('t'); the world of 1 also runs both
+    # on the image scaled by 1 + P14G_NUDGE ('nb', 'nt')
+    def steps(tag, train_mode, scale=1.0):
+        params, weights, state, opt, named = p14g_model(
+            torch, "segmentation_bn", job["backbone"])
+        batch = fine_tune_batch(torch, params, H, W, B)
+        batch["semantic"] = cut(images["small"] * np.float32(scale), slab)
+        step = make_train_step(ynet_config(params), step_config(
+            params, segment_in_step=True, segment_train_mode=train_mode),
+            mesh)
+        for w in wrappers.values():
+            w.launches = 0
+        rep = {"losses": [], "step_ms": []}
+        for i in range(P14G_STEPS):
+            torch.cuda.synchronize()
+            if i == P14G_STEPS - 1:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            state, m = step(weights, state, opt, batch)
+            torch.cuda.synchronize()
+            rep["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            rep["losses"].append(float(m["loss"]))
+            arrays.update({f"{tag}/grad{i}/{k}": (
+                v.grad if v.grad is not None else torch.zeros_like(v))
+                .cpu().numpy() for k, v in named.items()})
+        rep["peak"] = torch.cuda.max_memory_allocated() - base
+        rep["launches"] = {k: w.launches for k, w in wrappers.items()}
+        rep["n"] = float(m["n"])
+        arrays.update({f"{tag}/leaf/{k}": v.detach().cpu().numpy()
+                       for k, v in named.items()})
+        arrays.update({f"{tag}/state/{k}": v.cpu().numpy() for k, v in
+                       io.flatten(state["segmentation_bn"]).items()})
+        del params, weights, state, opt, named, batch, step, m
+        release(torch)
+        return rep
+
+    report["b"] = steps("b", False)
+    report["t"] = steps("t", True)
+    if mesh is None:
+        steps("nb", False, 1.0 + P14G_NUDGE)
+        steps("nt", True, 1.0 + P14G_NUDGE)
+
+    # ---- (c) the backbone alone on the big image
+    _, weights, _, _, _ = p14g_model(torch, "segmentation_head",
+                                     job["backbone"])
+    bb = weights.pop("segmentation")
+    del weights
+    leaves = {k: v.requires_grad_() for k, v in io.flatten(bb).items()
+              if v.is_floating_point() and not k.endswith(
+                  ("running_mean", "running_var"))}
+    big = slab if mesh is None else mesh_lib.space_slab(
+        mesh, images["big"].shape[1])
+    image = cut(images["big"], big)
+    target = cut(np.random.default_rng(5).uniform(
+        size=images["big"].shape[:3] + (6,)).astype(np.float32), big)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    probs, nbytes = saved_bytes(torch, lambda: unet_apply(
+        bb, image, slab=big), list(io.flatten(bb).values()))
+    (probs * target).sum().backward()
+    torch.cuda.synchronize()
+    report["big_ms"] = 1e3 * (time.perf_counter() - t0)
+    report["big_peak"] = torch.cuda.max_memory_allocated() - base
+    report["big_saved"] = nbytes
+    grads = [v.grad for v in leaves.values()]
+    if mesh is not None:
+        mesh_lib.sum_(grads)
+        probs = big.gather(probs.detach())
+    arrays["big/probs"] = probs.detach().cpu().numpy()
+    arrays.update({f"big/grad/{k}": g.cpu().numpy()
+                   for k, g in zip(leaves, grads)})
+    report["big_rows"] = int(image.shape[1])
+    for k, w in wrappers.items():  # (c) launches no kernel
+        w.launches = held[k] + report["eval_launches"][k] + \
+            report["b"]["launches"][k] + report["t"]["launches"][k]
+    np.savez(out_path, **arrays)
+    return report
+
+
+def leaves_off(one, outs, tag, n_steps):
+    """14b's leaf rule on the '<tag>/leaf/' arrays of each rank (outs)
+    against the world of 1's (one): -> (the largest distance, of its
+    leaf's max, where every step's |g| is above P14_SIG of its max; the
+    other elements off by more than P14_LEAF_TOL; their count); the
+    ranks' leaves must be the same."""
+    import numpy as np
+
+    err, flipped, n_el = 0.0, 0, 0
+    for k in (k for k in one if k.startswith(f"{tag}/leaf/")):
+        name = k[len(f"{tag}/leaf/"):]
+        sig = np.ones(one[k].shape, bool)
+        for i in range(n_steps):
+            g = np.abs(one[f"{tag}/grad{i}/{name}"])
+            sig &= g > P14_SIG * g.max()
+        for o in outs:
+            check(np.array_equal(o[k], outs[0][k]),
+                  f"the ranks' {tag} {name} differ")
+        d = np.abs(outs[0][k] - one[k]) / max(np.abs(one[k]).max(), 1e-12)
+        err = max(err, float(d[sig].max(initial=0.0)))
+        flipped += int((d[~sig] > P14_LEAF_TOL).sum())
+        n_el += d.size
+    return err, flipped, n_el
+
+
+def of_max_over(a, b, prefix):
+    """The largest |a - b| of b's max over the arrays named prefix*."""
+    import numpy as np
+
+    return max(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+               / max(float(np.abs(b[k]).max()), 1e-12)
+               for k in b if k.startswith(prefix))
+
+
+def hold_backbone(tmp, one, rep1, reps, card, shape=P14_SPATIAL,
+                  label="14g"):
+    """Phase 14g's checks of each rank's p14_backbone (its report's
+    'backbone' and backbone_rank<r>.npz in tmp) against the world of 1's
+    (one, rep1): (a) 14e's: the waypoint samples bit-equal, or within
+    P14_PX_TOL model px on every row but those whose samples moved at a
+    CDF boundary (at most P14_MOVED_SHARE of the valid rows, 14b's rule),
+    ADE/FDE within P14_VAL_RTOL and best_traj within P14_MERGE_TOL on the
+    others, the partial fused kernel one launch a decode chunk, the
+    whole-map fused kernel none, the rows kernel (TTST's goal point)
+    some, each rank's peak under P14_MEM_RATIO of the world of 1's; (b)
+    14f's: the losses within P14_LOSS_RTOL, the rows kernel's partial
+    variant twice a step and nothing else, the ranks' leaves the same;
+    with the backbone's batch norms in eval mode the first step's
+    gradients within P14_LEAF_TOL of each one's max (14f's leaf bar) and
+    the statistics unmoved; in both modes the first step's gradients, the
+    leaves (and in train
+    mode the statistics) within P14G_RATIO of the world of 1's distance
+    from its own run on the nudged image (the comment at P14G_NUDGE;
+    14f's leaf rule is printed beside); (c) the probabilities within P14G_OUT_TOL,
+    every leaf's gradient within P14G_OUT_TOL of its max, each rank's
+    peak under the world of 1's. Prints them, with each rank's peaks and
+    ms against the world of 1's -> {kernel: [launches of (a) and (b) by
+    rank]}."""
+    import numpy as np
+
+    from mst_tpu_torch.config import get_params
+
+    rf = get_params("sdd_shortterm_train.yaml")["resize_factor"]
+    outs = [p14_read(os.path.join(tmp, f"backbone_rank{r}.npz"))
+            for r in range(len(reps))]
+    bbs = [rep["backbone"] for rep in reps]
+    valid = one["eval/mask"] > 0
+    # (a)
+    equal = all(np.array_equal(o["eval/wps"], one["eval/wps"]) for o in outs)
+    moved = valid & np.logical_or.reduce([np.abs(
+        o["eval/wps"] - one["eval/wps"]).max(axis=(0, 2, 3)) > P14_PX_TOL
+        for o in outs])
+    kept = valid & ~moved
+    val_err = max(float(np.max(np.abs(o[f"eval/{k}"][kept]
+                                      - one[f"eval/{k}"][kept])
+                               / one[f"eval/{k}"][kept], initial=0.0))
+                  for o in outs for k in ("ade", "fde"))
+    px = max(float(np.abs(o["eval/best_traj"] - one["eval/best_traj"])
+                   .max(axis=(1, 2))[kept].max(initial=0.0)) * rf
+             for o in outs)
+    check(moved.sum() <= P14_MOVED_SHARE * valid.sum()
+          and val_err <= P14_VAL_RTOL and px <= P14_MERGE_TOL,
+          f"{label} (a): {int(moved.sum())} of {int(valid.sum())} rows' "
+          f"samples moved; the others' ADE/FDE {val_err:.3e} relative, "
+          f"best_traj {px:.3e} model px off the world of 1's")
+    for r, bb in enumerate(bbs):
+        la = bb["eval_launches"]
+        check(la["fused_predict_partial"] == bb["chunks"] > 0
+              and la["fused_predict"] == 0 and la["softargmax_rows"] > 0,
+              f"{label} (a): rank {r}'s launches {la}, {bb['chunks']} "
+              "decode chunk(s)")
+        check(bb["rows"] == 352 // shape[1],
+              f"{label}: rank {r}'s image slab holds {bb['rows']} rows")
+    eval_ratio = [bb["eval_peak"] / rep1["eval_peak"] for bb in bbs]
+    check(max(eval_ratio) < P14_MEM_RATIO,
+          f"{label} (a): a rank's pass peak is {max(eval_ratio):.3f} of "
+          f"the world of 1's (bar {P14_MEM_RATIO})")
+    # (b)
+    for tag in ("b", "t"):
+        for r, bb in enumerate(bbs):
+            want = dict.fromkeys(bb[tag]["launches"], 0)
+            want["softargmax_rows_partial"] = 2 * P14G_STEPS
+            check(bb[tag]["launches"] == want,
+                  f"{label} (b): rank {r}'s {tag} steps launched "
+                  f"{ {k: v for k, v in bb[tag]['launches'].items() if v} }")
+    loss_err = {tag: max(abs(a - b) / abs(b) for bb in bbs for a, b in zip(
+        bb[tag]["losses"], rep1[tag]["losses"])) for tag in ("b", "t")}
+    check(max(loss_err.values()) <= P14_LOSS_RTOL and all(
+        bb[tag]["n"] == rep1[tag]["n"] for bb in bbs for tag in ("b", "t")),
+          f"{label} (b): losses {loss_err} off the world of 1's")
+    for o in outs:
+        check(all(np.array_equal(o[k], one[k]) for k in one
+                  if k.startswith("b/state/")),
+              f"{label} (b): eval-mode steps moved the statistics")
+    grad0 = max(of_max_over(o, one, "b/grad0/") for o in outs)
+    check(grad0 <= P14_LEAF_TOL,
+          f"{label} (b): the eval-mode steps' first gradients {grad0:.3e} "
+          "of their max off the world of 1's")
+    leaf14f, moved_t, nudged = {}, {}, {}
+    for tag in ("b", "t"):
+        leaf14f[tag] = leaves_off(one, outs, tag, P14G_STEPS)  # same ranks
+        run_n = {f"{tag}/" + k[len(tag) + 2:]: v for k, v in one.items()
+                 if k.startswith(f"n{tag}/")}
+        parts = ("grad0/", "leaf/") + (("state/",) if tag == "t" else ())
+        nudged[tag] = {w: of_max_over(run_n, one, f"{tag}/{w}")
+                       for w in parts}
+        moved_t[tag] = {w: max(of_max_over(o, one, f"{tag}/{w}")
+                               for o in outs) for w in parts}
+        check(all(moved_t[tag][w] <= P14G_RATIO * nudged[tag][w]
+                  for w in parts),
+              f"{label} (b) {tag}: off the world of 1 by {moved_t[tag]} of "
+              f"each max, its own run on the nudged image by {nudged[tag]}")
+    # (c)
+    prob_err = max(float(np.abs(o["big/probs"] - one["big/probs"]).max())
+                   for o in outs)
+    grad_err = max(of_max_over(o, one, "big/grad/") for o in outs)
+    big_ratio = [bb["big_peak"] / rep1["big_peak"] for bb in bbs]
+    check(prob_err <= P14G_OUT_TOL and grad_err <= P14G_OUT_TOL
+          and max(big_ratio) < 1.0,
+          f"{label} (c): probabilities {prob_err:.3e}, gradients "
+          f"{grad_err:.3e} of their max off the world of 1's; peaks "
+          f"{big_ratio} of its")
+    gib = 2 ** 30
+    print(f"{label}: the ResNet101 U-Net in the step on a {shape[0]} x "
+          f"{shape[1]} ('data', 'space') mesh ({card}; two ranks share the "
+          f"card over gloo: no scaling figure), each rank {bbs[0]['rows']} "
+          f"of 352 rows. (a) K = 20 TTST with segment_in_step: waypoint "
+          f"samples {'bit-equal to' if equal else 'off'} the world of 1's"
+          f"{'' if equal else f' ({int(moved.sum())} rows moved)'}, "
+          f"ADE/FDE {val_err:.3e} relative, best_traj {px:.3e} model px; "
+          f"launches by rank "
+          f"{[{k: v for k, v in bb['eval_launches'].items() if v} for bb in bbs]}"
+          f"; pass ms by rank {[round(bb['eval_ms'], 1) for bb in bbs]} "
+          f"against {rep1['eval_ms']:.1f}; peak by rank "
+          f"{[round(bb['eval_peak'] / gib, 3) for bb in bbs]} GiB against "
+          f"{rep1['eval_peak'] / gib:.3f}, ratios "
+          f"{[round(x, 3) for x in eval_ratio]}")
+    for tag, mode in (("b", "eval"), ("t", "train")):
+        ratio = [bb[tag]["peak"] / rep1[tag]["peak"] for bb in bbs]
+        print(f"{label} (b): {P14G_STEPS} segmentation_bn steps, the "
+              f"backbone's batch norms in {mode} mode: losses "
+              f"{loss_err[tag]:.3e} relative off the world of 1's; "
+              + f"the first gradients, the leaves (and statistics) "
+              f"{moved_t[tag]} of each max off, the world of 1's own run "
+              f"on the image x (1 + 2^-20) {nudged[tag]}; 14f's leaf rule: "
+              f"{leaf14f[tag][0]:.3e} of their max where |g| > {P14_SIG} "
+              f"max|g| ({leaf14f[tag][1]} of {leaf14f[tag][2]} other "
+              "elements off by more)"
+              + f"; rows partial launches by rank "
+              f"{[bb[tag]['launches']['softargmax_rows_partial'] for bb in bbs]}"
+              f"; step ms by rank "
+              f"{[[round(x, 1) for x in bb[tag]['step_ms']] for bb in bbs]} "
+              f"against {[round(x, 1) for x in rep1[tag]['step_ms']]}; a "
+              f"step's peak by rank "
+              f"{[round(bb[tag]['peak'] / gib, 3) for bb in bbs]} GiB "
+              f"against {rep1[tag]['peak'] / gib:.3f}, ratios "
+              f"{[round(x, 3) for x in ratio]}")
+    print(f"{label} (c): the backbone alone, forward and backward (every "
+          f"leaf), on a 1408 x 1920 image (each rank "
+          f"{bbs[0]['big_rows']} rows): probabilities {prob_err:.3e}, "
+          f"gradients {grad_err:.3e} of their max off the world of 1's; "
+          f"peak by rank {[round(bb['big_peak'] / gib, 3) for bb in bbs]} "
+          f"GiB against {rep1['big_peak'] / gib:.3f}, ratios "
+          f"{[round(x, 3) for x in big_ratio]}; the activations autograd "
+          f"saved, reckoned from its hooks: "
+          f"{[round(bb['big_saved'] / gib, 3) for bb in bbs]} GiB a rank, "
+          f"{rep1['big_saved'] / gib:.3f} whole; ms by rank "
+          f"{[round(bb['big_ms'], 1) for bb in bbs]} against "
+          f"{rep1['big_ms']:.1f}")
+    return {k: [bb["eval_launches"][k] + bb["b"]["launches"][k]
+                + bb["t"]["launches"][k] for bb in bbs]
+            for k in bbs[0]["eval_launches"]}
+
+
+def write_backbone_world(torch, tmp, images, train, val, test):
+    """14g's files: phase 6c's scenes preprocessed at 352 x 480 and at
+    resize 1.0 (p14g_images.npz), the full ResNet101 U-Net (6 classes, its
+    batch norms moved and calibrated on the other scene: moved_backbone)
+    at <tmp>/segworld/data/sdd/sdd_segmentation.npz, and write_grid_world's
+    files under segworld with its yaml at the backbone's 6 classes ->
+    (the images' npz, the backbone's npz, the yaml)."""
+    import numpy as np
+    import yaml
+
+    from mst_tpu_torch.data import images as images_lib
+
+    small = images_lib.preprocess_scene_images(images, 0.25, 32)
+    big = images_lib.preprocess_scene_images(
+        {"synth_0": images["synth_0"]}, 1.0, 32)
+    images_fp = os.path.join(tmp, "p14g_images.npz")
+    np.savez(images_fp, small=small["synth_0"][None],
+             big=big["synth_0"][None])
+    root = os.path.join(tmp, "segworld")
+    cfg = write_grid_world(root, images, train, val, test)
+    with open(cfg) as f:
+        params = yaml.safe_load(f)
+    params["n_semantic_classes"] = 6
+    cfg = os.path.join(root, "seg.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(params, f)
+    backbone_fp = os.path.join(root, "data", "sdd", "sdd_segmentation.npz")
+    np.savez(backbone_fp, **moved_backbone(
+        torch, (3, 4, 23, 3), 0, calibrate=small["synth_1"][None]))
+    return images_fp, backbone_fp, cfg
 
 
 def p14_read(path):
@@ -5865,10 +6353,20 @@ def mesh_path(torch, wrappers, card):
         same CLI without a mesh here (hold_spatial_train_cli). (a) also
         runs the spatial mesh (1, 1) with and without --fused in its
         world of 1, whose graph captures the halo collectives.
+    (g) the ResNet101 U-Net in the step on that mesh, each rank running
+        it on its slab of the image (p14_backbone against this process's
+        world of 1, hold_backbone): a K = 20 TTST pass with
+        segment_in_step, 3 segmentation_bn steps with the backbone in
+        train mode, the backbone alone forward and backward on a 1408 x
+        1920 image, each with its peak memory against the world of 1's;
+        then the train CLI's main() with --train_net segmentation_head on
+        it, 1 epoch (the backbone in the train steps, validation on the
+        cached whole-scene maps), against the same CLI without a mesh here
+        (hold_spatial_train_cli).
     -> ({kernel: [launches on each rank]}, the partial variants' record:
     the fused kernel's launches on each rank in (e)'s test CLI, and its
     errors; the rows kernel's launches on each rank in (f)'s steps, and
-    its errors)."""
+    its errors; (g)'s launches of (a) and (b) by rank, 'p14g')."""
     import glob
 
     import numpy as np
@@ -6005,12 +6503,41 @@ def mesh_path(torch, wrappers, card):
                 record_grads=tag == "loop")
             flows_f0[tag] = (text, seen, time.perf_counter() - t0)
 
+        # ---- (g) the backbone in the step: the world of 1 here, and the
+        # train CLI of segmentation_head without a mesh (its gradients
+        # recorded), to hold the spatial mesh's against
+        release(torch)
+        t_g = time.perf_counter()
+        images_fp, backbone_fp, seg_cfg = write_backbone_world(
+            torch, tmp, images, train_ft, val, test)
+        seg_base = os.path.join(tmp, "seg_base.npz")
+        Experiment(get_params(seg_cfg, {"seed": 0}),
+                   device="cuda").save_params(seg_base)
+        bb_job = {"images": images_fp, "backbone": backbone_fp}
+        rep_g1 = p14_backbone(torch, wrappers, os.path.join(
+            tmp, "backbone_w1.npz"), bb_job)
+        one_g = p14_read(os.path.join(tmp, "backbone_w1.npz"))
+        release(torch)
+
+        def seg_args(ckpt):
+            return [("segmentation_head" if a == "mosa_2" else a)
+                    for a in p14_cli_args(seg_cfg, seg_base, ckpt, [
+                        "--n_epoch", str(P14F_EPOCHS)])]
+
+        t0 = time.perf_counter()
+        text, seen = p14_train_cli(torch, seg_args(os.path.join(
+            tmp, "f0_seg")), record_grads=True)
+        flows_g0 = {"seg": (text, seen, time.perf_counter() - t0)}
+        bb_job["train"] = {"seg": seg_args(os.path.join(tmp, "f2_seg"))}
+        print(f"14g: the world of 1's part in {time.perf_counter() - t_g:.1f}"
+              " s")
+
         # ---- (b) the world of 2 on the one card, (c) its checkpoint and
         # (d) its grid; the world of 1's grid here meanwhile would share the
         # card, so it runs after
         release(torch)
         wait2 = start_ranks(2, {"kind": "mesh", "tmp": tmp, "test": test_args,
-                                "train": train_flows,
+                                "train": train_flows, "backbone": bb_job,
                                 "grid": grid_args + [
                                     "--ckpt_path", os.path.join(tmp, "g2"),
                                     "--log_dir", os.path.join(tmp, "g2l")]},
@@ -6031,6 +6558,9 @@ def mesh_path(torch, wrappers, card):
         spatial["train_launches"] = steps_f["launches"]
         spatial["train_max_abs_err"] = steps_f["max_abs_err"]
         hold_spatial_train_cli(tmp, flows_f0, reps, card)
+        spatial["p14g"] = hold_backbone(tmp, one_g, rep_g1, reps, card)
+        hold_spatial_train_cli(tmp, flows_g0, reps, card,
+                               "14g (d) segmentation_head", "backbone_cli")
 
         # ---- (c) the world of 2's checkpoint restored in a world of 1
         saved = p14_read(os.path.join(tmp, "dcp_saved.npz"))
@@ -6720,6 +7250,7 @@ def main():
         r["p12_launches"] = p12[r["name"]]
         r["p13_launches"] = p13[r["name"]]
         r["p14_launches"] = p14[r["name"]]
+        r["p14g_launches"] = spatial["p14g"][r["name"]]
         r["p15_launches"] = p15[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
         r["loop_launches"] = loop_launches[r["name"]]
@@ -6730,7 +7261,8 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "train_launches", "loop_launches", "ymod_launches",
             "serve_launches", "seg_launches", "res_launches", "p11_launches",
-            "p12_launches", "p13_launches", "p14_launches", "p15_launches",
+            "p12_launches", "p13_launches", "p14_launches", "p14g_launches",
+            "p15_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

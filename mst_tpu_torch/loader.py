@@ -23,7 +23,8 @@ draws are the program's own. This module imports no model code: only
 torch, numpy, the weight bridge (io) and the two serving kernels, whose
 custom ops (mst_tpu_torch::softargmax2d_rows and
 mst_tpu_torch::fused_predictor_softargmax) the programs call, and whose
-`launches` count those calls.
+`launches` count those calls, and ops/conv.py, whose op
+(mst_tpu_torch::conv2d_onednn) a CPU program's backbone calls.
 """
 
 import collections
@@ -36,6 +37,7 @@ from torch.utils import _pytree as pytree
 
 from mst_tpu_torch import io, resolve_device
 # registers the two custom ops the programs call
+from mst_tpu_torch.ops import conv  # noqa: F401 (the backbone's CPU op)
 from mst_tpu_torch.ops.kernels import fused_predict, softargmax_rows  # noqa
 from mst_tpu_torch.ops.sampling import key_from_generator, key_from_seed
 

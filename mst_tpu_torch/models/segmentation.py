@@ -50,12 +50,13 @@ def load_params(path, device="cuda"):
 
 
 def apply(params, image, use_features_only=False, bn_state=None,
-          train=False):
+          train=False, slab=None):
     """(B, H, W, 3) preprocessed image -> (B, H, W, n_classes) class map
     (16 decoder channels when use_features_only); the identity when params
     is None. train returns (out, the batch norms' running-statistic
-    updates), as unet.unet_apply does."""
+    updates), as unet.unet_apply does; slab (a mesh.Slab): image and the
+    output hold the slab's rows (unet.unet_apply)."""
     if params is None:
         return (image, {}) if train else image
     return unet_apply(params, image, use_features_only, bn_state=bn_state,
-                      train=train)
+                      train=train, slab=slab)

@@ -36,59 +36,68 @@ import torch.distributed as dist
 
 def exchange(x, slab, k, edge="zero"):
     """x (N, rows, W, C), this rank's slab -> its k rows above and below
-    taken from the H neighbours' slabs: (N, rows + 2k, W, C). At the
-    global top and bottom, edge 'zero' puts k rows of zeros (a SAME
-    conv's padding) and 'none' nothing, so the map then starts or ends
-    there (F.interpolate's own clamp at the map's edge). Differentiable:
-    the backward sends each halo row's gradient back to its owner; a
-    zero row's gradient is dropped."""
+    taken from the H neighbours' slabs: (N, rows + 2k, W, C); k may be a
+    pair (above, below), either of them 0 (a stride-2 op reads more rows
+    above its slab than below: models/unet.py). At the global top and
+    bottom, edge 'zero' puts the rows as zeros (a SAME conv's padding)
+    and 'none' nothing, so the map then starts or ends there
+    (F.interpolate's own clamp at the map's edge). Differentiable: the
+    backward sends each halo row's gradient back to its owner; a zero
+    row's gradient is dropped."""
+    top, bottom = (k, k) if isinstance(k, int) else (int(k[0]), int(k[1]))
     rows = x.shape[1]
-    if not 0 < k <= rows:
-        raise ValueError(f"a halo of {k} rows needs slabs of at least {k} "
-                         f"rows; this one has {rows}")
-    return _Exchange.apply(x, slab, k, edge)
+    if not (0 <= top <= rows and 0 <= bottom <= rows and top + bottom):
+        raise ValueError(f"a halo of {top} rows above and {bottom} below "
+                         f"needs slabs of at least as many rows; this one "
+                         f"has {rows}")
+    return _Exchange.apply(x, slab, top, bottom, edge)
 
 
 class _Exchange(torch.autograd.Function):
 
+    # one buffer a rank, slot [j]: rank j's first `bottom` rows (which
+    # rank j - 1 takes as its bottom halo), then its last `top` rows
+    # (which rank j + 1 takes as its top halo)
+
     @staticmethod
-    def forward(ctx, x, slab, k, edge):
+    def forward(ctx, x, slab, top, bottom, edge):
         rows = x.shape[1]
-        ctx.slab, ctx.k, ctx.edge, ctx.rows = slab, k, edge, rows
-        buf = x.new_zeros((slab.count, 2, x.shape[0], k, *x.shape[2:]))
-        buf[slab.index, 0] = x[:, :k]
-        buf[slab.index, 1] = x[:, rows - k:]
+        ctx.slab, ctx.top, ctx.bottom, ctx.edge, ctx.rows = \
+            slab, top, bottom, edge, rows
+        buf = x.new_zeros((slab.count, x.shape[0], bottom + top,
+                           *x.shape[2:]))
+        buf[slab.index, :, :bottom] = x[:, :bottom]
+        buf[slab.index, :, bottom:] = x[:, rows - top:]
         dist.all_reduce(buf, group=slab.group)
         parts = []
-        if slab.index > 0:
-            parts.append(buf[slab.index - 1, 1])
-        elif edge == "zero":
-            parts.append(torch.zeros_like(buf[slab.index, 0]))
+        if top and slab.index > 0:
+            parts.append(buf[slab.index - 1, :, bottom:])
+        elif top and edge == "zero":
+            parts.append(x.new_zeros((x.shape[0], top, *x.shape[2:])))
         parts.append(x)
-        if slab.index < slab.count - 1:
-            parts.append(buf[slab.index + 1, 0])
-        elif edge == "zero":
-            parts.append(torch.zeros_like(buf[slab.index, 0]))
+        if bottom and slab.index < slab.count - 1:
+            parts.append(buf[slab.index + 1, :, :bottom])
+        elif bottom and edge == "zero":
+            parts.append(x.new_zeros((x.shape[0], bottom, *x.shape[2:])))
         return torch.cat(parts, 1)
 
     @staticmethod
     def backward(ctx, g):
-        slab, k, rows = ctx.slab, ctx.k, ctx.rows
-        top = k if slab.index > 0 or ctx.edge == "zero" else 0
-        # slot [j, 1]: the gradient of rank j's last k rows, which rank
-        # j + 1 took as its top halo; slot [j, 0]: of its first k rows,
-        # which rank j - 1 took as its bottom halo
-        buf = g.new_zeros((slab.count, 2, g.shape[0], k, *g.shape[2:]))
-        if slab.index > 0:
-            buf[slab.index - 1, 1] = g[:, :k]
-        if slab.index < slab.count - 1:
-            buf[slab.index + 1, 0] = g[:, top + rows:top + rows + k]
+        slab, top, bottom, rows = ctx.slab, ctx.top, ctx.bottom, ctx.rows
+        above = top if slab.index > 0 or ctx.edge == "zero" else 0
+        buf = g.new_zeros((slab.count, g.shape[0], bottom + top,
+                           *g.shape[2:]))
+        if top and slab.index > 0:  # rank index - 1's last rows
+            buf[slab.index - 1, :, bottom:] = g[:, :top]
+        if bottom and slab.index < slab.count - 1:  # index + 1's first
+            buf[slab.index + 1, :, :bottom] = g[:, above + rows:
+                                                 above + rows + bottom]
         dist.all_reduce(buf, group=slab.group)
-        grad = g.narrow(1, top, rows).clone(
+        grad = g.narrow(1, above, rows).clone(
             memory_format=torch.contiguous_format)
-        grad[:, :k] += buf[slab.index, 0]
-        grad[:, rows - k:] += buf[slab.index, 1]
-        return grad, None, None, None
+        grad[:, :bottom] += buf[slab.index, :, :bottom]
+        grad[:, rows - top:] += buf[slab.index, :, bottom:]
+        return grad, None, None, None, None
 
 
 def gather(x, index, count, group, dim=0):

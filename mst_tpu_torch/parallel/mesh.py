@@ -419,9 +419,15 @@ class Slab:
         return halo.gather(x, self.index, self.count, self.group, dim)
 
     def exchange(self, x, k, edge="zero"):
-        """x with k rows of each H neighbour's slab above and below
-        (halo.exchange)."""
+        """x with k rows of each H neighbour's slab above and below, or
+        k = (above, below) (halo.exchange)."""
         return halo.exchange(x, self, k, edge)
+
+    def sum_differentiable(self, t):
+        """t summed over the 'space' ranks, as an autograd op whose
+        backward sums the gradient over them (a train-mode batch norm of
+        a map that the 'space' ranks alone split: the backbone's)."""
+        return _SumOverRanks.apply(t, self.group)
 
 
 def space_slab(mesh, height):

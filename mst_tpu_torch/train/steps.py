@@ -42,8 +42,9 @@ adapters' train-mode batch norms take the global batch's statistics; the
 metric sums are summed and the eval step's per-row outputs gathered in
 global row order, on every rank; and each row's eval draws are the ones
 it draws in one process (sampling.Rows). The segmentation backbone runs
-on the scene maps, which every rank holds whole, so its train-mode
-statistics are the global batch's already.
+on the scene images, which every rank of such a mesh holds whole: its
+train-mode statistics are the image's, the same on every rank, with no
+reduction (the batch's rows share the image).
 
 On a spatial ('data', 'space') mesh the eval step splits the scene maps'
 H over 'space' as well (mesh.Slab): a rank holds its 'data' block of rows
@@ -60,6 +61,13 @@ through the halo exchanges and gathers (parallel/halo.py) and are summed
 over every rank of the world, the batch norms take the statistics of
 the ranks that hold their level's batch (models/ynet.py), and the top-1
 metrics merge the 'space' ranks' partial statistics of the rows kernel.
+With segment_in_step, batch['semantic'] holds the rank's slab of the
+preprocessed image, and the backbone runs on it (models/unet.py: each
+level on its slab, halos exchanged, down to the first level that runs
+whole on every 'space' rank); its train-mode batch norms take the
+image's statistics over the 'space' ranks at a sliced level and on the
+rank at a whole one, the same on every 'data' rank (they hold the same
+image). No rank segments the whole image in a step.
 """
 
 import functools
@@ -184,8 +192,8 @@ def _prepare_inputs(mcfg, scfg, params, semantic, traj, train=False,
     e_unfreeze (segment_train_mode) on the batch's statistics, whose
     running-statistic updates are returned (else {}). Each output goes
     through its embedding on the embed network. slab (a mesh.Slab):
-    semantic holds the slab's rows of the scene maps (the whole image when
-    the backbone runs here: its output is cut to the slab), and both
+    semantic holds the slab's rows of the scene maps (of the image when
+    the backbone runs here, on the slab: unet.unet_apply), and both
     outputs are the slab's rows."""
     B = traj.shape[0]
     semantic = semantic.to(scfg.compute_dtype)
@@ -194,13 +202,11 @@ def _prepare_inputs(mcfg, scfg, params, semantic, traj, train=False,
         if scfg.segment_train_mode and train:
             semantic, seg_updates = unet_apply(
                 params["segmentation"], semantic, scfg.use_features_only,
-                bn_state=seg_bn_state, train=True)
+                bn_state=seg_bn_state, train=True, slab=slab)
         else:
             semantic = unet_apply(params["segmentation"], semantic,
                                   scfg.use_features_only,
-                                  bn_state=seg_bn_state)
-        if slab is not None:
-            semantic = slab.take(semantic, -3)
+                                  bn_state=seg_bn_state, slab=slab)
     H, W = semantic.shape[-3], semantic.shape[-2]
     semantic = ynet_lib.adapt_semantic(params, mcfg, semantic, slab)
     if scfg.swap_semantic:
@@ -218,13 +224,13 @@ def _prepare_inputs(mcfg, scfg, params, semantic, traj, train=False,
     return semantic, observed_map, seg_updates
 
 
-def slab_levels(mesh, n_levels, rows, whole=False):
+def slab_levels(mesh, n_levels, rows):
     """Each of n_levels pyramid levels' mesh.Slab (mesh.Slab.levels) of
-    maps of which this rank holds `rows` rows (whole: all of them); None
-    off a spatial mesh."""
+    maps of which this rank holds `rows` rows; None off a spatial
+    mesh."""
     if not mesh_lib.is_spatial(mesh):
         return None
-    height = rows if whole else rows * mesh_lib.axis_size(mesh, "space")
+    height = rows * mesh_lib.axis_size(mesh, "space")
     return mesh_lib.space_slab(mesh, height).levels(n_levels)
 
 
@@ -274,9 +280,11 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
 
     On a spatial ('data', 'space') mesh (mst_tpu/train/steps.py:179-320
     under GSPMD) batch['semantic'] holds the rank's H slab of the scene
-    maps (the whole image with segment_in_step: the backbone runs whole
-    and its map is cut to the slab, whose adjoint makes the backbone's
-    gradient the slab's share); the ground-truth maps are rasterized on
+    maps (of the image with segment_in_step: the backbone runs on the
+    slab, and each rank's backward gives its leaves the share of its
+    slab's loss, which the world's sum completes; its train-mode
+    statistics are the image's, over the 'space' ranks); the ground-truth
+    maps are rasterized on
     the slab's rows, the encoder and both decoders run on each level's
     slab (mesh.Slab.levels), the BCE divides each rank's sum by the whole
     maps' count, the gradients are summed over the world, and the
@@ -318,9 +326,7 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
         pred_len) in the compute dtype (the slab's rows)."""
         params = _compute_params(params, scfg)
         traj, mask = batch["traj"], batch["mask"]
-        slabs = slab_levels(mesh, n_levels, batch["semantic"].shape[-3],
-                            whole=(scfg.segment_in_step
-                                   and "segmentation" in params))
+        slabs = slab_levels(mesh, n_levels, batch["semantic"].shape[-3])
         slab = None if slabs is None else slabs[0]
         semantic, observed_map, seg_updates = _prepare_inputs(
             mcfg, scfg, params, batch["semantic"], traj, train=True,
@@ -496,9 +502,9 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
 
     On a spatial ('data', 'space') mesh the rows are the rank's 'data'
     block and batch['semantic'] holds the rank's H slab of the scene maps
-    (the whole image when the step runs the backbone, segment_in_step:
-    it segments the whole scene and cuts its slab); the outputs are the
-    same global ones on every rank (the module docstring).
+    (of the image when the step runs the backbone, segment_in_step: it
+    segments the slab, models/unet.py); the outputs are the same global
+    ones on every rank (the module docstring).
 
     collect_samples: eval_step also returns the visualization payload
     (mst_tpu/train/steps.py:341-356, 595-603; reference evaluate.py:75-80,
@@ -513,8 +519,8 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
     n_levels = len(mcfg.encoder_channels) + 1
     shards = batch_shards(mesh)
 
-    def slabs_of(rows, whole=False):
-        return slab_levels(mesh, n_levels, rows, whole)
+    def slabs_of(rows):
+        return slab_levels(mesh, n_levels, rows)
 
     def forward(params, state, batch, generator):
         generator = draw_source(generator)
@@ -523,8 +529,7 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
             n = traj.shape[0]
             generator = Rows(generator, *shards.rows(n), n * shards.count)
         params = _compute_params(params, scfg)
-        slabs = slabs_of(batch["semantic"].shape[-3], whole=(
-            scfg.segment_in_step and "segmentation" in params))
+        slabs = slabs_of(batch["semantic"].shape[-3])
         semantic, observed_map, _ = _prepare_inputs(
             mcfg, scfg, params, batch["semantic"], traj,
             seg_bn_state=state.get("segmentation_bn"),

@@ -37,8 +37,10 @@ checkpoints, _weights.npz, the metrics log and the training state, each
 followed by a barrier; every rank reads a state to resume. On the
 spatial ('data', 'space') mesh the batch size rounds up by 'data' alone,
 each rank holds its slab of every scene map's H, or of a cross-scene
-group's stack (the backbone, where there is one, segments the whole
-scene and the slab is cut from its map), and train() (with --fused too),
+group's stack (out of the step, the backbone, where there is one,
+segments the whole scene and the slab is cut from its map, as mst_tpu
+segments it on one device; in the step it runs on the slab of the
+image, models/unet.py), and train() (with --fused too),
 its validation and test() run the spatial steps (mst_tpu/train/
 trainer.py:150-158, mst_tpu/train/fused.py:110-125).
 
@@ -333,19 +335,27 @@ class Experiment:
             self._homo_cache[scene] = mat
         return self._homo_cache[scene]
 
-    def _device_batches(self, batches):
+    def _device_batches(self, batches, in_step=False, cached=True):
         """[(batch, its device batch)], each scene's preprocessed image
         (1, H, W, C), or a cross-scene group's stack (S, H, W, C), uploaded
-        once as 'image', with a cross-scene batch's 'scene_idx' and on eth
-        the scene's homography; _with_semantic adds the semantic map. The
-        per-row arrays are this rank's rows on a mesh (every row without
-        one; hostdata.take_local and shard_batch_global). On a spatial
-        mesh an image whose height does not divide the 'space' ranks
-        raises (mesh.check_spatial_scene), and without a backbone only the
-        rank's slab of it is uploaded (the semantic map is the image)."""
+        once, with a cross-scene batch's 'scene_idx' and on eth the
+        scene's homography; _with_semantic adds the semantic map. 'image'
+        is what the semantic map is made from (_semantic_for: the cached
+        path, `cached`), 'raw_image' what a step that runs the backbone
+        takes (`in_step`). The per-row arrays are this rank's rows on a
+        mesh (every row without one; hostdata.take_local and
+        shard_batch_global). On a spatial mesh an image whose height does
+        not divide the 'space' ranks raises (mesh.check_spatial_scene),
+        and a rank uploads its slab of the image, but the whole image
+        where the backbone segments it out of the step: without a
+        backbone 'image' is the slab (the semantic map is the image);
+        with one, 'image' is the whole image when `cached`, and
+        'raw_image' the slab (a view of the whole image when both are
+        uploaded)."""
         images, homographies = {}, {}
         index, count = ((self.shards.index, self.shards.count)
                         if self.mesh is not None else (0, 1))
+        backbone = "segmentation" in self.model_params
         out = []
         for b in batches:
             bucketed = isinstance(b, scenes_lib.BucketedBatch)
@@ -354,10 +364,17 @@ class Experiment:
                                         else b.image[None])
                 mesh_lib.check_spatial_scene(self.mesh, "image", image)
                 slab = mesh_lib.space_slab(self.mesh, image.shape[1])
-                if slab is not None and "segmentation" not in \
-                        self.model_params:
-                    image = slab.take(image)
-                images[b.scene_id] = image.to(self.device, copy=True)
+                up = {}
+                if slab is not None and not backbone:
+                    image = slab.take(image)  # the semantic map is the image
+                if slab is None or not backbone or cached:
+                    up["image"] = image.to(self.device, copy=True)
+                if backbone and in_step:
+                    up["raw_image"] = (
+                        up["image"] if slab is None
+                        else slab.take(up["image"]) if cached
+                        else slab.take(image).to(self.device, copy=True))
+                images[b.scene_id] = up
                 if self._is_eth():
                     homographies[b.scene_id] = torch.tensor(
                         self._homography_for(b.scene_id),
@@ -369,7 +386,7 @@ class Experiment:
                 self.mesh, hostdata.take_local(host, index, count),
                 len(b.mask))
             db = {k: v.to(self.device, copy=True) for k, v in rows.items()}
-            db["image"] = images[b.scene_id]
+            db.update(images[b.scene_id])
             if self._is_eth():
                 db["homography"] = homographies[b.scene_id]
             out.append((b, db))
@@ -409,18 +426,15 @@ class Experiment:
             return None
         return e
 
-    def _semantic_for(self, scene_id, image, cache, raw=False):
-        """The scene's semantic map: the image itself when raw (the
-        backbone then runs in the step), else cache[scene_id], made on a
-        miss by the backbone (with the state's adapted 'segmentation_bn'
-        statistics once e_unfreeze has made them), or the image for the
-        identity backbone (trainer.py:229-290). A cross-scene group's
-        scene_id is its scene-ids tuple and its image the (S, H, W, C)
-        stack, so the stack segments once; n_segmented counts scene
-        maps. On a spatial mesh the backbone segments the whole scene and
-        the cache keeps the rank's slab of its map."""
-        if raw:
-            return image
+    def _semantic_for(self, scene_id, image, cache):
+        """The scene's semantic map: cache[scene_id], made on a miss by the
+        backbone (with the state's adapted 'segmentation_bn' statistics
+        once e_unfreeze has made them), or the image for the identity
+        backbone (trainer.py:229-290). A cross-scene group's scene_id is
+        its scene-ids tuple and its image the (S, H, W, C) stack, so the
+        stack segments once; n_segmented counts scene maps. On a spatial
+        mesh the backbone segments the whole scene and the cache keeps
+        the rank's slab of its map."""
         if scene_id not in cache:
             if "segmentation" in self.model_params:
                 with torch.no_grad():
@@ -446,16 +460,18 @@ class Experiment:
             cache[scene_id] = sem
         return cache[scene_id]
 
-    def _with_semantic(self, items, cache, raw=False):
+    def _with_semantic(self, items, cache):
         """items with each device batch's 'semantic' (_semantic_for)."""
-        return [(b, self._step_batch(b, db, cache, raw)) for b, db in items]
+        return [(b, self._step_batch(b, db, cache)) for b, db in items]
 
     def _step_batch(self, b, db, cache, raw=False):
-        """A step's batch: 'semantic' (_semantic_for), 'traj', 'mask', and
-        'scene_idx' and 'homography' where the device batch has them."""
-        out = {"semantic": self._semantic_for(b.scene_id, db["image"], cache,
-                                              raw),
-               "traj": db["traj"], "mask": db["mask"]}
+        """A step's batch: 'semantic' (_semantic_for; with raw the device
+        batch's 'raw_image', for a step that runs the backbone), 'traj',
+        'mask', and 'scene_idx' and 'homography' where the device batch
+        has them."""
+        semantic = db["raw_image"] if raw else self._semantic_for(
+            b.scene_id, db["image"], cache)
+        out = {"semantic": semantic, "traj": db["traj"], "mask": db["mask"]}
         for key in ("scene_idx", "homography"):
             if key in db:
                 out[key] = db[key]
@@ -711,9 +727,15 @@ class Experiment:
         upload."""
         p = self.params
         t_prep = time.perf_counter()
+        # the train steps take the raw image where they run the backbone
+        # (a segmentation_* strategy, or from e_unfreeze), the segmented
+        # map before e_unfreeze; validation always the segmented map
+        e_unfreeze = self._e_unfreeze()
+        in_step = self._segment_in_step() or e_unfreeze is not None
         train_items = self._device_batches(self.prepare_data(
             train_tracks, train_image_path, "train",
-            augment=p.get("augment", False), rng=rng))
+            augment=p.get("augment", False), rng=rng), in_step=in_step,
+            cached=not self._segment_in_step() and e_unfreeze != 0)
         val_items = self._device_batches(self._validation_cut(
             self.prepare_data(val_tracks, val_image_path, "val")))
         self.prepare_seconds = time.perf_counter() - t_prep

@@ -44,6 +44,15 @@ FLOWS = tuple(LEAF_TOL)
 SIG = 1e-3  # |g| under SIG x the leaf's max |g| at some step: may flip
 FLIP_SHARE = 0.02  # of a file's elements, at most, off by more than the bar
 LR = float(ranks.LOOP_ARGS[ranks.LOOP_ARGS.index("--lr") + 1])
+# the ranks run one thread each: with two, the world of 2's flows gave
+# other bits from run to run on a loaded machine, so an element of a
+# delta outside the SIG mask could land over its bar; with one, their
+# runs repeated their bits under the same load. The world of one here
+# keeps two threads, whose runs repeated their bits too, and whose batch
+# sums split as the two ranks' do (with one thread the world of one sums
+# its 6 rows in one pass, and the metadata's best_val_ade moves in its
+# last bits)
+RANK_THREADS = 1
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -65,7 +74,8 @@ def flows(tmp_path_factory):
     os.chdir(root)
     try:
         ranks.write_loop_world(root)
-        handle = ranks.start(root / "ranks", [2], ["loop"])
+        handle = ranks.start(root / "ranks", [2], ["loop"],
+                             threads=RANK_THREADS)
         with pytest.MonkeyPatch.context() as mp:
             small = record_small_gradients(mp)
             one = ranks.loop_flows("w1", [])

@@ -254,11 +254,12 @@ LOOP_ARGS = ["--config_filename", "synth.yaml", "--batch_size", "6",
 GRID_ARGS = ["--seeds", "1", "2", "--lrs", "0.003"]
 
 
-def write_loop_world(root):
+def write_loop_world(root, img_hw=(64, 96), widths=None):
     """LOOP_ARGS' world under root, run from root: 2 synthetic scenes of
-    10 tracks as jpgs (64 x 96), predefined 14 / 3 / 3 pickles, synth.yaml
-    (a 2-stage model, a checkpoint and a training state every epoch) and
-    a full base checkpoint, base.npz."""
+    10 tracks as jpgs (img_hw), predefined 14 / 3 / 3 pickles, synth.yaml
+    (a 2-stage model, or `widths`' encoder and decoder channels; a
+    checkpoint and a training state every epoch) and a full base
+    checkpoint, base.npz."""
     import cv2
     import yaml
 
@@ -267,7 +268,7 @@ def write_loop_world(root):
     from mst_tpu_torch.train import trainer
 
     df, images = make_synthetic_dataset(seed=0, n_scenes=2, n_traj=10,
-                                        total_len=20, img_hw=(64, 96))
+                                        total_len=20, img_hw=img_hw)
     for scene, im in images.items():
         name, idx = scene.split("_")
         d = root / "data/sdd/raw/annotations" / name / f"video{idx}"
@@ -287,6 +288,7 @@ def write_loop_world(root):
                                "dataset_name")}
     cfg.update(encoder_channels=[8, 8], decoder_channels=[8, 8],
                n_semantic_classes=3, n_goal=4, n_traj=1, save_every_n=1)
+    cfg.update(widths or {})
     (root / "synth.yaml").write_text(yaml.safe_dump(cfg))
     trainer.Experiment(config.get_params(
         "synth.yaml", {"device": "cpu", "seed": 0})).save_params("base.npz")
@@ -336,16 +338,16 @@ def case_loop(mesh):
 
 # ---- the spatial ('data', 'space') mesh (tests/test_torch_port_spatial*)
 
-def spatial_rows(b, mesh, whole_scene=False):
+def spatial_rows(b, mesh):
     """The rank's rows of a numpy batch and its H slab of the scene map
-    (whole_scene: the whole map, for a step that segments it), as tensors
-    (the whole batch without a mesh), cut as Experiment cuts them: the
-    rows by local_rows, the map by the rank's Slab.take."""
+    (of the image, for a step that segments it), as tensors (the whole
+    batch without a mesh), cut as Experiment cuts them: the rows by
+    local_rows, the map by the rank's Slab.take."""
     from mst_tpu_torch.parallel import mesh as mesh_lib
 
     out = local_rows(b, mesh)
     slab = mesh_lib.space_slab(mesh, b["semantic"].shape[1])
-    if slab is not None and not whole_scene:
+    if slab is not None:
         out["semantic"] = slab.take(out["semantic"])
     return out
 
@@ -372,8 +374,13 @@ SPATIAL_EVALS = {
     # a height whose slabs go odd before the coarsest level at S = 2
     "odd": (dict(waypoints=[7], use_TTST=True, use_CWS=False), 32),
     # TTST with a shallow segmentation backbone in the step
-    # (segment_in_step): each rank segments the whole scene
+    # (segment_in_step): each rank segments its slab of the scene
     "segment": (dict(waypoints=[7], use_TTST=True, use_CWS=False), H),
+    # the same backbone under CWS (two waypoints), and TTST on a
+    # cross-scene batch of two images (tests/test_torch_port_spatial_
+    # backbone_steps.py)
+    "segment_cws": (dict(use_TTST=False, use_CWS=True), H),
+    "segment_cross": (dict(waypoints=[7], use_TTST=True, use_CWS=False), H),
 }
 
 
@@ -390,7 +397,7 @@ def spatial_eval(mesh, name, collect_samples=False, waypoint_samples=None,
     from mst_tpu_torch.train.steps import make_eval_step
 
     over, height = SPATIAL_EVALS[name]
-    segment = name == "segment"
+    segment = name.startswith("segment")
     params = step_params(**over)
     weights, state = model(params)
     if segment:
@@ -400,7 +407,8 @@ def spatial_eval(mesh, name, collect_samples=False, waypoint_samples=None,
     step = make_eval_step(config.ynet_config(params), config.step_config(
         params, segment_in_step=segment), mesh,
         collect_samples=collect_samples)
-    b = spatial_rows(spatial_batch(height), mesh, whole_scene=segment)
+    b = spatial_rows(cross_batch() if name.endswith("cross")
+                     else spatial_batch(height), mesh)
     fwd = step.forward(weights, state, b, torch.Generator().manual_seed(
         seed))
     if waypoint_samples is None:
@@ -656,6 +664,95 @@ def spatial_train_flows(prefix, mesh_args, mesh=None):
     return out
 
 
+# the backbone's loop world (tests/test_torch_port_spatial_backbone_steps.
+# py): write_loop_world's with 256 x 384 scenes (64 x 96 after the
+# config's resize), a 5-stage Y-Net (the backbone's maps divide by 32) and
+# a shallow backbone of 3 classes at the config's segmentation_model_fp;
+# the train CLI runs it in the step (segmentation_head), validation and
+# the test CLI on the cached whole-scene maps
+BACKBONE_LOOP_ARGS = [("segmentation_head" if a == "mosa_2" else a)
+                      for a in LOOP_ARGS]
+
+
+def write_backbone_world(root):
+    """write_loop_world at the backbone's sizes under root, run from root,
+    then the backbone file."""
+    from mst_tpu_torch import config, io
+    from mst_tpu_torch.models.unet import unet_init
+
+    write_loop_world(root, (256, 384), {
+        k: SMALL[k] for k in ("encoder_channels", "decoder_channels")})
+    path = root / config.get_params("synth.yaml")["segmentation_model_fp"]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **io.params_to_numpy(unet_init(
+        torch.Generator().manual_seed(2), n_classes=3, layers=(1, 1, 1,
+                                                               1))))
+
+
+def backbone_flows(prefix, mesh_args):
+    """From write_backbone_world's directory: the train CLI (2 epochs of
+    segmentation_head), the same with --fused (1 epoch), and the test CLI
+    over the
+    first run's delta, on mesh_args' mesh (none without) -> {flow: (its
+    stdout, its metrics log's records, the delta it saved)}, the test's
+    stdout, and each _device_batches call's uploads: [(in_step, cached,
+    {scene: {key: array}})]."""
+    import contextlib
+    import io as text_io
+
+    from mst_tpu_torch import config, io
+    from mst_tpu_torch import test as test_cli
+    from mst_tpu_torch.train import trainer
+    from mst_tpu_torch.train.__main__ import main as train_main
+
+    device_batches, uploads = trainer.Experiment._device_batches, []
+
+    def recorded(self, batches, in_step=False, cached=True):
+        items = device_batches(self, batches, in_step, cached)
+        uploads.append((in_step, cached, {
+            str(b.scene_id): {k: v.numpy().copy() for k, v in db.items()
+                              if k in ("image", "raw_image")}
+            for b, db in items}))
+        return items
+
+    out = {}
+    trainer.Experiment._device_batches = recorded
+    try:
+        for flow, extra in (("train", []),
+                            ("fused", ["--fused", "--n_epoch", "1"])):
+            buf = text_io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                train_main(config.get_parser(True).parse_args(
+                    BACKBONE_LOOP_ARGS + extra + mesh_args + [
+                        "--ckpt_path", f"{prefix}_{flow}", "--metrics_jsonl",
+                        f"{prefix}_{flow}/metrics.jsonl"]))
+            with open(f"{prefix}_{flow}/metrics.jsonl") as f:
+                records = [json.loads(line) for line in f]
+            delta, = glob.glob(f"{prefix}_{flow}/*__original.npz")
+            out[flow] = (buf.getvalue(), records,
+                         dict(io.load_checkpoint(delta)))
+        buf = text_io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tuned, = glob.glob(f"{prefix}_train/*__original.npz")
+            test_cli.main(config.get_parser(False).parse_args(
+                BACKBONE_LOOP_ARGS[:10] + mesh_args + [
+                    "--pretrained_ckpt", "base.npz", "--tuned_ckpt", tuned,
+                    "--n_round", "2"]))
+        out["test"] = buf.getvalue()
+    finally:
+        trainer.Experiment._device_batches = device_batches
+    out["uploads"] = uploads
+    return out
+
+
+def case_spatial_backbone_cli(mesh):
+    """backbone_flows on this world's spatial mesh, from the directory
+    above <dir>."""
+    os.chdir(os.path.dirname(OUT))
+    return backbone_flows("w2", ["--mesh_shape", *map(str, mesh.mesh.shape),
+                                 "--mesh_axes", "data", "space"])
+
+
 # ---- training on the spatial mesh (tests/test_torch_port_spatial_grad.py,
 # _train.py, _train_jax.py)
 
@@ -785,7 +882,7 @@ ADAM_LR = 1e-3
 # the train-step cases: (train_net, params overrides, steps); "cross" is
 # a cross-scene batch of two scene maps; "segment" runs a shallow
 # segmentation backbone in the step, its batch norms in train mode past
-# e_unfreeze (segment_in_step, segment_train_mode), on the whole scene
+# e_unfreeze (segment_in_step, segment_train_mode), on the scene's slab
 SPATIAL_TRAINS = {
     "mosa": ("mosa_2", dict(position=["0", "1", "2", "3", "4"]), 3),
     "serial": ("serial", {}, 1),
@@ -802,6 +899,25 @@ SPATIAL_TRAINS = {
 }
 
 
+# the train-step cases of a shallow backbone in the step (segment_in_step;
+# tests/test_torch_port_spatial_backbone_steps.py): (train_net, params
+# overrides, steps, segment_train_mode)
+BACKBONE_TRAINS = {
+    "seg_head": ("segmentation_head", {}, 2, False),
+    "seg_bn": ("segmentation_bn", {}, 2, False),
+    "seg_train_mode": ("segmentation_head", {}, 2, True),
+    "seg_remat": ("segmentation_head", dict(remat=True), 1, True),
+    "seg_bf16": ("segmentation_head", dict(compute_dtype="bfloat16"), 2,
+                 True),
+    "seg_cross": ("segmentation_head", {}, 1, True),
+}
+
+
+# the backbone's train steps held against mst_tpu's spatial step
+# (tests/test_torch_port_spatial_backbone_jax.py)
+BACKBONE_JAX = {"jax_train_mode": ("segmentation_head", {}, 2, True)}
+
+
 def cross_batch(seed=0):
     """spatial_batch() with a second scene map: a (2, H, W, 3) stack and
     each row's scene_idx."""
@@ -813,32 +929,64 @@ def cross_batch(seed=0):
     return b
 
 
-def spatial_train(mesh, name):
-    """SPATIAL_TRAINS[name]'s Adam steps on the rank's rows and slab (the
-    whole batch without a mesh) -> each step's metrics and summed
-    gradients, the trainable leaves and the model state after."""
-    from mst_tpu_torch import config, io
+def train_setup(name):
+    """SPATIAL_TRAINS[name], BACKBONE_TRAINS[name] or BACKBONE_JAX[name]
+    -> (params, weights, state, train_net, steps, whether the backbone
+    runs in the step, whether in train mode). The backbone cases' batch
+    norms are moved off identity (weights U(0.5, 1.5), biases U(-0.3,
+    0.3)) and BACKBONE_JAX's stride-2 3x3 convs are zero (tests/
+    test_torch_port_segmentation.py's STRIDE2: the two packages' paddings
+    then compute the same function)."""
+    from mst_tpu_torch import io
     from mst_tpu_torch.models.unet import extract_bn_stats, unet_init
-    from mst_tpu_torch.train import freeze, optim
-    from mst_tpu_torch.train.steps import make_train_step
 
-    train_net, over, n_steps = SPATIAL_TRAINS[name]
+    tables = {**BACKBONE_TRAINS, **BACKBONE_JAX}
+    if name in tables:
+        train_net, over, n_steps, train_mode = tables[name]
+    else:
+        train_net, over, n_steps = SPATIAL_TRAINS[name]
+        train_mode = name == "segment"
     params = step_params(train_net, **over)
     weights, state = model(params)
-    segment = name == "segment"
+    segment = name == "segment" or name in tables
     if segment:
         weights["segmentation"] = unet_init(
             torch.Generator().manual_seed(2), n_classes=3,
             layers=(1, 1, 1, 1))
+    if name in tables:
+        gen = torch.Generator().manual_seed(3)
+        for k, v in io.flatten(weights["segmentation"]).items():
+            if v.ndim == 1 and k.endswith("/weight"):
+                v.uniform_(0.5, 1.5, generator=gen)
+            elif v.ndim == 1 and k.endswith("/bias"):
+                v.uniform_(-0.3, 0.3, generator=gen)
+            elif name in BACKBONE_JAX and k.endswith(
+                    tuple(f"layer{i}/0/conv2/weight" for i in (2, 3, 4))):
+                v.zero_()
+    if segment:
         state = {**state, "segmentation_bn": extract_bn_stats(
             weights["segmentation"])}
+    return params, weights, state, train_net, n_steps, segment, train_mode
+
+
+def spatial_train(mesh, name):
+    """The Adam steps of train_setup(name) on the rank's rows and slab
+    (the whole batch without a mesh) -> each step's metrics and summed
+    gradients, the trainable leaves and the model state after."""
+    from mst_tpu_torch import config, io
+    from mst_tpu_torch.train import freeze, optim
+    from mst_tpu_torch.train.steps import make_train_step
+
+    params, weights, state, train_net, n_steps, segment, train_mode = \
+        train_setup(name)
     freeze.set_trainable(weights, train_net, params["position"])
     named = {k: v for k, v in io.flatten(weights).items() if v.requires_grad}
     opt = optim.Adam(named.values(), ADAM_LR)
     step = make_train_step(config.ynet_config(params), config.step_config(
-        params, segment_in_step=segment, segment_train_mode=segment), mesh)
-    b = spatial_rows(cross_batch() if name == "cross" else spatial_batch(H),
-                     mesh, whole_scene=segment)
+        params, segment_in_step=segment, segment_train_mode=train_mode),
+        mesh)
+    b = spatial_rows(cross_batch() if name.endswith("cross")
+                     else spatial_batch(H), mesh)
     out = []
     for _ in range(n_steps):
         state, m = step(weights, state, opt, b)
@@ -854,10 +1002,159 @@ def case_spatial_train(mesh):
     return {name: spatial_train(mesh, name) for name in SPATIAL_TRAINS}
 
 
+def case_spatial_backbone_steps(mesh):
+    """The eval cases with the backbone in the step beyond
+    tests/test_torch_port_spatial_eval.py's, and BACKBONE_TRAINS."""
+    out = {name: spatial_eval(mesh, name)
+           for name in ("segment_cws", "segment_cross")}
+    out.update({name: spatial_train(mesh, name) for name in BACKBONE_TRAINS})
+    return out
+
+
+def case_spatial_backbone_jax(mesh):
+    return {name: spatial_train(mesh, name) for name in BACKBONE_JAX}
+
+
 def case_spatial_train_jax(mesh):
     """The cases tests/test_torch_port_spatial_train_jax.py holds against
     mst_tpu's spatial step."""
     return {name: spatial_train(mesh, name) for name in ("train", "cross")}
+
+
+# ---- the segmentation backbone on slabs
+# (tests/test_torch_port_spatial_backbone*.py)
+
+# (1, 2): every level slices at 64 rows, layer4 runs whole at 96; (1, 4):
+# every level slices at 128 rows, layer3-4 run whole at 96
+BACKBONE_HEIGHTS = {2: (64, 96), 4: (128, 96)}
+BACKBONE_W, BACKBONE_N = 96, 2  # two scenes' images, as a cross-scene stack
+
+
+def backbone_inputs(height, dtype=torch.float32):
+    """A shallow backbone (the U-Net's real widths, one block a stage,
+    random from seed 2; 3 classes), its floating leaves but the running
+    statistics needing gradients, a (2, height, 96, 3) image stack and a
+    target of the output's shape, from seeds."""
+    from mst_tpu_torch import io
+    from mst_tpu_torch.models.unet import unet_init
+
+    flat = io.flatten(unet_init(torch.Generator().manual_seed(2),
+                                n_classes=3, layers=(1, 1, 1, 1)))
+    flat = {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in flat.items()}
+    for k, v in flat.items():
+        if v.is_floating_point() and not k.endswith(
+                ("running_mean", "running_var")):
+            v.requires_grad_()
+    shape = (BACKBONE_N, height, BACKBONE_W, 3)
+    image = torch.randn(shape, generator=torch.Generator().manual_seed(1))
+    target = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+    return io.unflatten(flat), image.to(dtype), target.to(dtype)
+
+
+def backbone_run(mesh, height, train, dtype=torch.float32):
+    """The backbone on the rank's slab of backbone_inputs' image (the
+    whole image without a mesh), loss = sum(out * target) over the slab
+    -> {the output gathered to the whole map, each leaf's gradient summed
+    over the world, the moved running statistics (train), the rows of
+    each feature and of each conv's input on this rank}."""
+    from mst_tpu_torch import io
+    from mst_tpu_torch.models import unet
+    from mst_tpu_torch.parallel import mesh as mesh_lib
+
+    params, image, target = backbone_inputs(height, dtype)
+    slab = mesh_lib.space_slab(mesh, height)
+    if slab is not None:
+        image, target = slab.take(image).contiguous(), slab.take(target)
+    conv2d, rows = unet.conv2d, []
+
+    def logged(x, weight, bias, stride, padding):
+        rows.append((weight.shape[-1], stride, x.shape[2]))
+        return conv2d(x, weight, bias, stride, padding)
+
+    unet.conv2d = logged
+    try:
+        out = unet.unet_apply(params, image, train=train, slab=slab)
+        bn, _ = unet.make_bn(None, False)
+        feats = unet.encoder_apply(params["encoder"], image.detach(), None,
+                                   bn, slab)
+    finally:
+        unet.conv2d = conv2d
+    out, stats = out if train else (out, {})
+    (out * target).sum().backward()
+    leaves = {k: v for k, v in io.flatten(params).items()
+              if v.requires_grad}
+    grads = [v.grad for v in leaves.values()]
+    if mesh is not None:
+        mesh_lib.sum_(grads)
+        out = slab.gather(out.detach())
+    return {"out": out.detach().numpy().copy(),
+            "grads": {k: g.numpy().copy() for k, g in zip(leaves, grads)},
+            "stats": {k: v.numpy().copy()
+                      for k, v in io.flatten(stats).items()},
+            "feat_rows": [f.shape[2] for f in feats], "conv_rows": rows}
+
+
+# each piece of item 2 on a slab: (kernel, stride, the input made >= 0)
+BACKBONE_PIECES = {"stem": (7, 2), "max_pool": (3, 2), "stride2": (3, 2),
+                   "downsample": (1, 2), "conv3x3": (3, 1)}
+PIECE_HEIGHTS = (16, 24)  # S = 4: 4 and 6 rows a slab, the stem's halo 3
+
+
+def backbone_piece(mesh, name, height):
+    """BACKBONE_PIECES[name] on the rank's slab of a seeded (2, 5, height,
+    12) NCHW channels_last input (the whole map without a mesh), loss =
+    sum(out * target) -> {the output gathered, the input's gradient (the
+    rank's rows), the weight's gradient summed over the world}. The
+    max-pool takes a ReLU's output, as in the network."""
+    from mst_tpu_torch.models import unet
+    from mst_tpu_torch.parallel import mesh as mesh_lib
+
+    k, stride = BACKBONE_PIECES[name]
+    gen = torch.Generator().manual_seed(17)
+    x = torch.randn(2, 5, height, 12, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    weight = (0.3 * torch.randn(6, 5, k, k, generator=gen)).requires_grad_()
+    target = torch.randn(2, 6 if name != "max_pool" else 5, height // stride,
+                         12 // stride, generator=gen)
+    slab = mesh_lib.space_slab(mesh, height)
+    out_slab = None if slab is None else slab.half() if stride == 2 else slab
+    if slab is not None:
+        x, target = slab.take(x, 2), out_slab.take(target, 2)
+    x = x.detach().contiguous(memory_format=torch.channels_last)
+    x.requires_grad_()
+    if name == "max_pool":
+        out = unet.max_pool(torch.relu(x), slab)
+    else:
+        out = unet.conv({"weight": weight}, x, stride, slab)
+    (out * target).sum().backward()
+    grads = [weight.grad if weight.grad is not None
+             else torch.zeros_like(weight)]
+    if mesh is not None:
+        mesh_lib.sum_(grads)
+        out = out_slab.gather(out.detach().permute(0, 2, 3, 1)).permute(
+            0, 3, 1, 2)
+    return {"out": out.detach().numpy().copy(),
+            "x_grad": x.grad.numpy().copy(),
+            "w_grad": grads[0].numpy().copy()}
+
+
+def case_spatial_backbone(mesh):
+    """backbone_run at this world's heights: eval and train mode in f32,
+    train mode in float64; and each piece at PIECE_HEIGHTS."""
+    from mst_tpu_torch.parallel import mesh as mesh_lib
+
+    space = mesh_lib.axis_size(mesh, "space")
+    out = {}
+    for height in BACKBONE_HEIGHTS[space]:
+        for mode, train, dtype in (("eval", False, torch.float32),
+                                   ("train", True, torch.float32),
+                                   ("train64", True, torch.float64)):
+            out[height, mode] = backbone_run(mesh, height, train, dtype)
+    for name in BACKBONE_PIECES:
+        for height in PIECE_HEIGHTS:
+            out[name, height] = backbone_piece(mesh, name, height)
+    return out
 
 
 def checkpoint_tree(zero=False):
