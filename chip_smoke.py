@@ -4383,9 +4383,20 @@ P14_MOVED_SHARE = 0.34
 P14_EPOCHS = 2          # the CLI flows of the world of 1 (a)
 P14_CLI_LR = "3e-3"     # the CLI flows' learning rate
 P14_SCALE_STEPS = 10    # mesh_scaling's steps a world
+# the split (1, 4) spatial train jobs' limits, in s: a rank's start, its
+# model and its first (cold) step take 20-30 s of each; the (1, 2) steps
+# take ~1.4 s past that and the (1, 2) train CLI ~8.4 s on one card, and
+# on 4 cards the jobs took 28.6-38.5 s and 34.9 s whole (the --fused
+# capture 14.2 s of it)
+P14_SPATIAL_STEPS_S = 240
+P14_SPATIAL_CLI_S = 300
 # a rank of phase 14's worlds, run from the checkout's root
 P14_RANK = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.arm_rank_dumps(); "
             "sys.exit(chip_smoke.mesh_rank_main(sys.argv[2]))")
+RANK_DUMP_MARGIN_S = 30  # at most; a quarter of a shorter job's limit
+RANK_TAIL = (2000, 6000)  # the bytes of a rank's stdout, stderr a failure shows
+NCCL_TRACE = "nccl_trace_rank_"  # NCCL's flight recorder's dumps, + the rank
 
 
 def free_port():
@@ -4396,45 +4407,191 @@ def free_port():
         return s.getsockname()[1]
 
 
-def start_ranks(world, job, timeout, own_card=False):
-    """Start a world of `world` ranks on this card, as torchrun would
-    (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR/PORT),
-    each running mesh_rank_main(job) -> a function that waits for them
-    (each within `timeout` s, all killed after) and returns each rank's
-    report. own_card: rank r sees card r alone (CUDA_VISIBLE_DEVICES), as
-    launchers that give each task its own card do."""
+def arm_rank_dumps():
+    """In a rank of launch_ranks, first: a fatal signal (NCCL's watchdog
+    aborts a rank whose collective timed out) dumps every thread's stack to
+    stderr, and so does the time P14_DUMP_AT (s since the epoch), when
+    NCCL's flight recorder is dumped too (flight_dump); NCCL's process
+    groups, the 'space' and 'data' subgroups too, time a collective out
+    after P14_PG_TIMEOUT_S s, when the watchdog dumps the flight recorder
+    itself (TORCH_NCCL_DUMP_ON_TIMEOUT)."""
+    import faulthandler
+    import threading
+
+    faulthandler.enable(all_threads=True)
+    if os.environ.get("P14_DUMP_AT"):
+        after = max(float(os.environ["P14_DUMP_AT"]) - time.time(), 0.1)
+        faulthandler.dump_traceback_later(after)
+        timer = threading.Timer(after, flight_dump)
+        timer.daemon = True
+        timer.start()
+    if os.environ.get("P14_PG_TIMEOUT_S"):
+        import datetime
+
+        from torch.distributed import distributed_c10d
+
+        # new_group's default, which DeviceMesh's subgroups take
+        distributed_c10d.default_pg_nccl_timeout = datetime.timedelta(
+            seconds=float(os.environ["P14_PG_TIMEOUT_S"]))
+
+
+def flight_dump():
+    """This rank's NCCL flight recorder (its last collectives by process
+    group, with their state) into <P14_LOGS>/late/<NCCL_TRACE><rank>, in
+    the watchdog's own format; nothing off NCCL."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_backend() != "nccl":
+            return
+        c10d = torch._C._distributed_c10d
+        dump = getattr(c10d, "_dump_nccl_trace", None) or c10d._dump_fr_trace
+        late = os.path.join(os.environ["P14_LOGS"], "late")
+        os.makedirs(late, exist_ok=True)
+        with open(os.path.join(late, NCCL_TRACE + os.environ["RANK"]),
+                  "wb") as f:
+            f.write(dump())
+        print("flight recorder dumped", file=sys.stderr, flush=True)
+    except Exception as e:  # the stack dump beside it still stands
+        print(f"flight recorder not dumped: {e!r}", file=sys.stderr,
+              flush=True)
+
+
+def flight_summary(path, last=4):
+    """A rank's flight recorder dump -> lines: each process group's last
+    `last` collectives (sequence number, op, input sizes, state)."""
+    import pickle
+
+    with open(path, "rb") as f:
+        entries = pickle.load(f).get("entries", [])
+    groups = {}
+    for e in entries:
+        pg = e.get("process_group", ("?", "?"))
+        groups.setdefault(f"{pg[0]}:{pg[1]}", []).append(e)
+    return [f"  pg {pg}: " + "; ".join(
+        f"#{e.get('collective_seq_id')} {e.get('profiling_name')} "
+        f"{e.get('input_sizes')} {e.get('state')}" for e in es[-last:])
+        for pg, es in groups.items()]
+
+
+def launch_ranks(world, argv, timeout, logs, env=None, own_card=False):
+    """Start `world` processes of argv from the checkout's root as torchrun
+    would (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR/
+    PORT) -> a function that waits for them and returns [(stdout, stderr)]
+    by rank. Each rank writes its stdout and stderr to rank<r>.out and
+    rank<r>.err under `logs`, files and not pipes: a rank whose output
+    fills a pipe's buffer (64 KiB) blocks in write() until the parent
+    reads it, and the parent read the ranks one after another, so a rank
+    it was not reading yet could stop every other in its next collective.
+    `timeout` s is the job's limit, and a margin of RANK_DUMP_MARGIN_S or
+    a quarter of it, if less: a rank that called arm_rank_dumps dumps
+    every thread a margin before the limit (from the start), NCCL's
+    watchdog times a collective out two margins before it and dumps its
+    flight recorder (NCCL_TRACE under logs). The wait kills every rank
+    `timeout` s after it began, or a margin after the first rank that
+    failed, and then fails with each rank's exit, the tail of its output
+    and a summary of its flight recorder. env: more variables for the
+    ranks. own_card: rank r sees card r alone
+    (CUDA_VISIBLE_DEVICES), as launchers that give each task its own card
+    do."""
+    os.makedirs(logs, exist_ok=True)
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, WORLD_SIZE=str(world),
+    margin = min(RANK_DUMP_MARGIN_S, timeout / 4)
+    env = dict(os.environ, **(env or {}), WORLD_SIZE=str(world),
                LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
-               MASTER_PORT=str(free_port()))
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", P14_RANK, root, json.dumps(job)],
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r),
-                 **({"CUDA_VISIBLE_DEVICES": str(r)} if own_card else {})),
-        cwd=root,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)]
+               MASTER_PORT=str(free_port()), P14_LOGS=logs,
+               P14_DUMP_AT=str(time.time() + timeout - margin),
+               P14_PG_TIMEOUT_S=str(timeout - 2 * margin),
+               TORCH_FR_BUFFER_SIZE="2000",
+               TORCH_NCCL_DUMP_ON_TIMEOUT="1",
+               TORCH_NCCL_DEBUG_INFO_TEMP_FILE=os.path.join(logs, NCCL_TRACE))
+    files = [(os.path.join(logs, f"rank{r}.out"),
+              os.path.join(logs, f"rank{r}.err")) for r in range(world)]
+    procs = []
+    for r, (out, err) in enumerate(files):
+        with open(out, "w") as fo, open(err, "w") as fe:
+            procs.append(subprocess.Popen(
+                argv, env=dict(env, RANK=str(r), LOCAL_RANK=str(r), **(
+                    {"CUDA_VISIBLE_DEVICES": str(r)} if own_card else {})),
+                cwd=root, stdout=fo, stderr=fe, stdin=subprocess.DEVNULL))
 
     def wait():
-        outs = []
+        t0, failed_at = time.monotonic(), None
         try:
-            for p in procs:
-                outs.append(p.communicate(timeout=timeout))
+            while True:
+                rcs = [p.poll() for p in procs]
+                now = time.monotonic()
+                if all(rc is not None for rc in rcs):
+                    break
+                if failed_at is None and any(rc for rc in rcs):
+                    failed_at = now
+                if now - t0 > timeout or (failed_at is not None
+                                          and now - failed_at > margin):
+                    break
+                time.sleep(0.2)
         finally:
             for p in procs:
-                p.kill()
+                if p.poll() is None:
+                    p.kill()
                 p.wait()
-        failed = [f"rank {r} of {world} failed:\n{out[-2000:]}\n"
-                  f"{err[-5000:]}" for r, (p, (out, err))
-                  in enumerate(zip(procs, outs)) if p.returncode != 0]
-        check(not failed, "14: " + "\n".join(failed))
+        secs = time.monotonic() - t0
+        texts = []
+        for out, err in files:
+            with open(out, errors="replace") as fo, \
+                    open(err, errors="replace") as fe:
+                texts.append((fo.read(), fe.read()))
+        if all(p.returncode == 0 for p in procs):
+            return texts
+        lines = [f"a world of {world} failed after {secs:.1f} s of its "
+                 f"{timeout} s (each rank's files under {logs}):"]
+        for r, (p, (out, err)) in enumerate(zip(procs, texts)):
+            lines.append(f"-- rank {r}: exit {p.returncode} (a negative "
+                         f"exit is the signal that ended it), {len(out)} + "
+                         f"{len(err)} bytes of stdout + stderr; their "
+                         f"tails:\n{out[-RANK_TAIL[0]:]}\n{err[-RANK_TAIL[1]:]}")
+        for d in (logs, os.path.join(logs, "late")):
+            for name in sorted(os.listdir(d) if os.path.isdir(d) else ()):
+                if name.startswith(NCCL_TRACE):
+                    path = os.path.join(d, name)
+                    try:
+                        lines += [f"-- {path}:"] + flight_summary(path)
+                    except Exception as e:
+                        lines.append(f"-- {path}: not read ({e!r})")
+        check(False, "\n".join(lines))
+    return wait
+
+
+def start_ranks(world, job, timeout, own_card=False, logs=None):
+    """Start a world of `world` ranks on this card (launch_ranks), each
+    running mesh_rank_main(job) -> a function that waits for them (the
+    job's limit `timeout` s) and returns each rank's report. Each rank's
+    output goes to `logs`, by default a new directory under job['tmp']."""
+    if logs is None:
+        logs = tempfile.mkdtemp(prefix=f"ranks_{job['kind']}_x{world}_",
+                                dir=job["tmp"])
+    root = os.path.dirname(os.path.abspath(__file__))
+    wait_texts = launch_ranks(
+        world, [sys.executable, "-c", P14_RANK, root, json.dumps(job)],
+        timeout, logs, own_card=own_card)
+
+    def wait():
+        texts = wait_texts()
         reports = []
-        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        for r, (out, _) in enumerate(texts):
             line = [ln for ln in out.splitlines() if ln.startswith("P14 ")]
             check(line, f"14: rank {r} reported nothing:\n{out[-3000:]}")
             reports.append(json.loads(line[-1][4:]))
         return reports
     return wait
+
+
+def progress(msg):
+    """In a rank of launch_ranks, a progress line (its job's log shows
+    where it got to); nothing elsewhere."""
+    if "RANK" in os.environ:
+        print(f"[rank {os.environ['RANK']} {time.strftime('%H:%M:%S')}] "
+              f"{msg}", file=sys.__stdout__, flush=True)
 
 
 def release(torch):
@@ -4612,11 +4769,28 @@ def p14_train_cli(torch, args, record_grads=False):
     array a step]}, as 'grads')."""
     from mst_tpu_torch import io
     from mst_tpu_torch.config import get_parser
-    from mst_tpu_torch.train import optim, trainer
+    from mst_tpu_torch.train import fused, optim, trainer
     from mst_tpu_torch.train.__main__ import main as train_main
 
     seen, steps = {}, []
     train, adam_step = trainer.Experiment.train, optim.Adam.step
+    capture, replay = fused.FusedEpochs._capture, fused.FusedEpochs._replay
+    evaluate = trainer.Experiment._evaluate
+
+    def captured(self, *a):
+        progress("--fused: capture starts")
+        capture(self, *a)
+        progress(f"--fused: captured in {self.capture_seconds:.2f} s")
+
+    def replayed(self, perm, e):
+        out = replay(self, perm, e)
+        progress(f"--fused: epoch {e} replayed")
+        return out
+
+    def evaluated(self, *a, **k):
+        out = evaluate(self, *a, **k)
+        progress("train CLI: a validation or test pass")
+        return out
 
     def recorded(self):
         steps.append([p.grad.abs().cpu().numpy() for p in self.params])
@@ -4637,19 +4811,27 @@ def p14_train_cli(torch, args, record_grads=False):
                 g[i])})[k] for g in steps] for i, k in enumerate(names)}
         runner = self.fused_runner
         seen.update(fused=runner is not None, captured=bool(
-            runner is not None and runner.graph is not None), per_replay={
+            runner is not None and runner.graph is not None),
+            capture_s=runner.capture_seconds if runner is not None else 0.0,
+            per_replay={
                 f"{fn.__name__}.{n}": c for (fn, n), c in (
                     runner.graph.per_replay.items()
                     if runner is not None and runner.graph else ())})
         return out
 
     trainer.Experiment.train = hooked
+    fused.FusedEpochs._capture, fused.FusedEpochs._replay = captured, replayed
+    trainer.Experiment._evaluate = evaluated
     buf = io_text.StringIO()
     try:
         with contextlib.redirect_stdout(buf):
             train_main(get_parser(True).parse_args(args))
     finally:
         trainer.Experiment.train = train
+        fused.FusedEpochs._capture, fused.FusedEpochs._replay = capture, \
+            replay
+        trainer.Experiment._evaluate = evaluate
+    progress("train CLI done")
     return buf.getvalue(), seen
 
 
@@ -4664,10 +4846,11 @@ def mesh_rank_main(job_json):
     (p14_backbone, and the train CLI of segmentation_head) and grid on its
     mesh (gloo on the one card), job
     'steps' the steps and validation alone on a world of any size, job
-    'spatial' the spatial eval on a (1, world) mesh, job 'spatial_train'
-    its train steps and train CLI and job 'spatial_backbone' p14_backbone
-    on it (mesh_scaling). Prints 'P14 ' + its report, with its kernel
-    launches."""
+    'spatial' the spatial eval on a (1, world) mesh, job 'spatial_steps'
+    its train steps, job 'spatial_cli' its train CLI and job
+    'spatial_backbone' p14_backbone on it (mesh_scaling). Prints 'P14 ' +
+    its report, with its kernel launches, and progress lines as it
+    goes."""
     import torch
 
     job = json.loads(job_json)
@@ -4682,6 +4865,7 @@ def mesh_rank_main(job_json):
         w.launches = 0
     rank = int(os.environ["RANK"])
     report = {"rank": rank}
+    progress(f"job {job['kind']} starts")
     if job["kind"] == "cli":
         for tag, flags in A1_FLOWS.items():
             text, seen = p14_train_cli(torch, p14_cli_args(
@@ -4699,15 +4883,15 @@ def mesh_rank_main(job_json):
             job["tmp"], f"backbone_rank{rank}.npz"), job["backbone"],
             tuple(job["shape"]))
         report["backend"] = torch.distributed.get_backend()
-    elif job["kind"] == "spatial_train":
-        shape = tuple(job["shape"])
+    elif job["kind"] == "spatial_steps":
         report["spatial_train"] = p14_spatial_steps(
             torch, wrappers, os.path.join(job["tmp"],
                                           f"spatial_train_rank{rank}.npz"),
-            shape)
-        release(torch)
+            tuple(job["shape"]))
+        report["backend"] = torch.distributed.get_backend()
+    elif job["kind"] == "spatial_cli":
         report["spatial_train_cli"] = p14_spatial_train_cli(
-            torch, wrappers, job["train"], shape)
+            torch, wrappers, job["train"], tuple(job["shape"]))
         report["backend"] = torch.distributed.get_backend()
     elif job["kind"] == "steps":
         world = int(os.environ["WORLD_SIZE"])
@@ -4767,7 +4951,8 @@ def mesh_rank_main(job_json):
                 job["grid"] + ["--mesh_shape", "2"]))
         report["grid_s"] = time.perf_counter() - t0
     report["launches"] = {k: w.launches for k, w in wrappers.items()}
-    torch.distributed.destroy_process_group()
+    progress(f"job {job['kind']} done")
+    mesh_lib.shutdown()
     print("P14 " + json.dumps(report), flush=True)
     return 0
 
@@ -4933,23 +5118,32 @@ def hold_world(tmp, one, rep1, reps, backend, label):
           f"{float(px[kept].max(initial=0.0)):.2e} model px")
 
 
-def mesh_scaling(torch, card, worlds=(2, 4), n_steps=P14_SCALE_STEPS):
-    """Phase 14b across cards, not part of main(): for each N of `worlds`,
-    a world of N ranks, each on a card of its own (NCCL), runs n_steps
-    mosa_2 steps, a serial-adapter step and the K = 20 TTST pass on phase
-    6b's batch (B = 8, split N ways), held against this process's world of
-    1 as 14b holds the world of 2 (hold_world); the largest world's ranks
-    each see their own card alone, and must still take NCCL. Then the
-    step's and the pass's ms of every world: strong scaling of one global
-    batch; and the same TTST pass on a (1, max(worlds)) ('data', 'space')
-    mesh over NCCL, a card a rank, against the world of 1 (hold_spatial),
-    then 14f's train steps on that mesh (hold_spatial_steps) and the
-    train CLI's --fused on it over phase 6c's scenes, captured with its
-    halo all-reduces (ms and peak by rank), and 14g's backbone in the step
-    on it (hold_backbone: the TTST pass, the segmentation_bn steps in
+# mesh_scaling's parts, in their order
+SCALING_PARTS = ("worlds", "spatial", "spatial_steps", "spatial_cli",
+                 "backbone")
+
+
+def mesh_scaling(torch, card, worlds=(2, 4), n_steps=P14_SCALE_STEPS,
+                 parts=SCALING_PARTS, logs=None):
+    """Phase 14b across cards, not part of main(), in parts (SCALING_PARTS,
+    each a job of its own through start_ranks): 'worlds', for each N of
+    `worlds` a world of N ranks, each on a card of its own (NCCL), runs
+    n_steps mosa_2 steps, a serial-adapter step and the K = 20 TTST pass
+    on phase 6b's batch (B = 8, split N ways), held against this process's
+    world of 1 as 14b holds the world of 2 (hold_world); the largest
+    world's ranks each see their own card alone, and must still take NCCL;
+    then the step's and the pass's ms of every world: strong scaling of
+    one global batch. On a (1, max(worlds)) ('data', 'space') mesh over
+    NCCL, a card a rank: 'spatial', the same TTST pass against the world
+    of 1 (hold_spatial); 'spatial_steps', 14f's train steps
+    (hold_spatial_steps); 'spatial_cli', the train CLI's --fused over
+    phase 6c's scenes, captured with its halo all-reduces on every rank
+    (ms and peak by rank); 'backbone', 14g's backbone in the step
+    (hold_backbone: the TTST pass, the segmentation_bn steps in eval and
     train mode and the backbone alone on a 1408 x 1920 image, each rank's
-    peak against the world of 1's).
-    Needs max(worlds) cards; on a host with four:
+    peak against the world of 1's). Each job's ranks write their output
+    under `logs` (default: the run's temporary directory), a directory a
+    job. Needs max(worlds) cards; on a host with four:
 
         python3 -c 'import chip_smoke; chip_smoke.mesh_scaling_main()'
     -> {N: (median step ms past the first, TTST pass ms)}."""
@@ -4958,110 +5152,148 @@ def mesh_scaling(torch, card, worlds=(2, 4), n_steps=P14_SCALE_STEPS):
     check(torch.cuda.device_count() >= max(worlds),
           f"mesh_scaling: {torch.cuda.device_count()} cards for a world of "
           f"{max(worlds)}")
+    check(set(parts) <= set(SCALING_PARTS), f"mesh_scaling: parts {parts}")
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     tmp = tempfile.mkdtemp()
+    logs = logs or os.path.join(tmp, "ranks")
+    n = max(worlds)
+
+    def ranks(part, job, limit, world=n, own_card=True):
+        """The part's job on `world` ranks, its wall seconds printed."""
+        t0 = time.perf_counter()
+        reps = start_ranks(world, dict(job, tmp=tmp), limit, own_card,
+                           os.path.join(logs, f"{part}_x{world}"))()
+        print(f"14 x{world} {part}: the job took "
+              f"{time.perf_counter() - t0:.1f} s of its {limit} s")
+        return reps
+
     try:
         rep1, _, _ = p14_steps(torch, None, os.path.join(tmp, "w1.npz"),
                                n_steps, n_evals=2)
         one = p14_read(os.path.join(tmp, "w1.npz"))
         times = {1: (float(np.median(rep1["step_ms"][1:])), rep1["val_ms"])}
-        for n in worlds:
+        for w in worlds if "worlds" in parts else ():
             release(torch)
-            reps = start_ranks(n, {"kind": "steps", "tmp": tmp,
-                                   "n_steps": n_steps}, 900,
-                               own_card=n == max(worlds))()
-            hold_world(tmp, one, rep1, reps, "nccl", f"14 x{n}")
-            times[n] = (float(np.median([x for r in reps
+            reps = ranks("steps", {"kind": "steps", "n_steps": n_steps}, 900,
+                         w, own_card=w == n)
+            hold_world(tmp, one, rep1, reps, "nccl", f"14 x{w}")
+            times[w] = (float(np.median([x for r in reps
                                          for x in r["step_ms"][1:]])),
                         max(r["val_ms"] for r in reps))
-            own = "; each rank sees its own card alone" \
-                if n == max(worlds) else ""
-            print(f"14 x{n} ms ({card}{own}): a mosa_2 step by rank "
+            own = "; each rank sees its own card alone" if w == n else ""
+            print(f"14 x{w} ms ({card}{own}): a mosa_2 step by rank "
                   f"{[[round(x, 1) for x in r['step_ms']] for r in reps]}; "
                   f"the TTST pass by rank "
                   f"{[round(r['val_ms'], 1) for r in reps]}")
-        # the spatial eval over NCCL: one 'data' row of max(worlds) 'space'
-        # ranks, each on its own card
-        n = max(worlds)
-        release(torch)
-        reps = start_ranks(n, {"kind": "spatial", "tmp": tmp,
-                               "shape": [1, n]}, 900, own_card=True)()
-        check(all(r["backend"] == "nccl" for r in reps),
-              f"14 x{n} spatial: backends {[r['backend'] for r in reps]}")
-        hold_spatial(tmp, one, rep1, reps, card, (1, n), f"14 x{n} spatial")
-        # its train steps, and the train CLI's --fused on it, whose graph
-        # captures the halo all_reduces of the forward and the backward
-        release(torch)
-        from mst_tpu_torch.config import get_params
-        from mst_tpu_torch.data import splits
-        from mst_tpu_torch.train.trainer import Experiment
+        # the spatial eval over NCCL: one 'data' row of n 'space' ranks,
+        # each on its own card
+        if "spatial" in parts:
+            release(torch)
+            reps = ranks("spatial", {"kind": "spatial", "shape": [1, n]},
+                         900)
+            check(all(r["backend"] == "nccl" for r in reps),
+                  f"14 x{n} spatial: backends {[r['backend'] for r in reps]}")
+            hold_spatial(tmp, one, rep1, reps, card, (1, n),
+                         f"14 x{n} spatial")
+        # its train steps
+        if "spatial_steps" in parts:
+            release(torch)
+            reps = ranks("spatial_steps", {"kind": "spatial_steps",
+                                           "shape": [1, n]},
+                         P14_SPATIAL_STEPS_S)
+            check(all(r["backend"] == "nccl" for r in reps),
+                  f"14 x{n} spatial steps: backends "
+                  f"{[r['backend'] for r in reps]}")
+            hold_spatial_steps(tmp, one, rep1, reps, card, (1, n),
+                               f"14 x{n} spatial train")
+        if {"spatial_cli", "backbone"} & set(parts):
+            from mst_tpu_torch.data import splits
 
-        images, train, val, test = loop_data()
-        cfg = write_grid_world(os.path.join(tmp, "world"), images,
-                               splits.limit_samples(train, 2, LOOP_B), val,
-                               test)
-        base = os.path.join(tmp, "base.npz")
-        Experiment(get_params(cfg, {"seed": 0}),
-                   device="cuda").save_params(base)
-        release(torch)
-        reps = start_ranks(n, {"kind": "spatial_train", "tmp": tmp,
-                               "shape": [1, n], "train": {
-                                   "fused": p14_cli_args(
-                                       cfg, base, os.path.join(tmp, "f4"),
-                                       ["--n_epoch", "2", "--fused"])}},
-                           900, own_card=True)()
-        hold_spatial_steps(tmp, one, rep1, reps, card, (1, n),
-                           f"14 x{n} spatial train")
-        clis = [rep["spatial_train_cli"]["fused"] for rep in reps]
-        check(all(c["captured"] for c in clis),
-              f"14 x{n} spatial --fused: not captured on every rank")
-        secs = [r["epoch_seconds"]
-                for r in epoch_records(os.path.join(tmp, "f4"))]
-        print(f"14 x{n} spatial --fused ({card}; NCCL, a card a rank): the "
-              f"train CLI's 2 epochs captured as a CUDA graph on every "
-              f"rank, epoch s {[round(x, 4) for x in secs]} (the chunk's "
-              f"mean), host s by rank {[round(c['s'], 1) for c in clis]}, "
-              f"peak by rank {[round(c['peak'] / 2**30, 3) for c in clis]} "
-              f"GiB, launches by rank "
-              f"{[{k: v for k, v in c['launches'].items() if v} for c in clis]}")
+            images, train, val, test = loop_data()
+        # the train CLI's --fused on it, whose graph captures the halo
+        # all_reduces of the forward and the backward on every rank
+        if "spatial_cli" in parts:
+            release(torch)
+            from mst_tpu_torch.config import get_params
+            from mst_tpu_torch.train.trainer import Experiment
+
+            cfg = write_grid_world(os.path.join(tmp, "world"), images,
+                                   splits.limit_samples(train, 2, LOOP_B),
+                                   val, test)
+            base = os.path.join(tmp, "base.npz")
+            Experiment(get_params(cfg, {"seed": 0}),
+                       device="cuda").save_params(base)
+            release(torch)
+            reps = ranks("spatial_cli", {
+                "kind": "spatial_cli", "shape": [1, n], "train": {
+                    "fused": p14_cli_args(cfg, base, os.path.join(tmp, "f4"),
+                                          ["--n_epoch", "2", "--fused"])}},
+                P14_SPATIAL_CLI_S)
+            check(all(r["backend"] == "nccl" for r in reps),
+                  f"14 x{n} spatial --fused: backends "
+                  f"{[r['backend'] for r in reps]}")
+            clis = [rep["spatial_train_cli"]["fused"] for rep in reps]
+            check(all(c["captured"] for c in clis),
+                  f"14 x{n} spatial --fused: not captured on every rank")
+            secs = [r["epoch_seconds"]
+                    for r in epoch_records(os.path.join(tmp, "f4"))]
+            print(f"14 x{n} spatial --fused ({card}; NCCL, a card a rank): "
+                  f"the train CLI's 2 epochs captured as a CUDA graph on "
+                  f"every rank, epoch s {[round(x, 4) for x in secs]} (the "
+                  f"chunk's mean), capture s by rank "
+                  f"{[round(c['capture_s'], 2) for c in clis]}, host s by "
+                  f"rank {[round(c['s'], 1) for c in clis]}, peak by rank "
+                  f"{[round(c['peak'] / 2**30, 3) for c in clis]} GiB, "
+                  f"launches by rank "
+                  f"{[{k: v for k, v in c['launches'].items() if v} for c in clis]}")
         # 14g's backbone in the step on the (1, n) mesh over NCCL
-        from mst_tpu_torch.probes import kernel_wrappers
+        if "backbone" in parts:
+            from mst_tpu_torch.probes import kernel_wrappers
 
-        release(torch)
-        images_fp, backbone_fp, _ = write_backbone_world(
-            torch, tmp, images, splits.limit_samples(train, 2, LOOP_B), val,
-            test)
-        bb_job = {"images": images_fp, "backbone": backbone_fp}
-        rep_g1 = p14_backbone(torch, kernel_wrappers(), os.path.join(
-            tmp, "backbone_w1.npz"), bb_job)
-        one_g = p14_read(os.path.join(tmp, "backbone_w1.npz"))
-        release(torch)
-        reps = start_ranks(n, {"kind": "spatial_backbone", "tmp": tmp,
-                               "shape": [1, n], "backbone": bb_job}, 900,
-                           own_card=True)()
-        check(all(r["backend"] == "nccl" for r in reps),
-              f"14 x{n} backbone: backends {[r['backend'] for r in reps]}")
-        hold_backbone(tmp, one_g, rep_g1, reps, card, (1, n),
-                      f"14 x{n} spatial backbone")
+            release(torch)
+            images_fp, backbone_fp, _ = write_backbone_world(
+                torch, tmp, images, splits.limit_samples(train, 2, LOOP_B),
+                val, test)
+            bb_job = {"images": images_fp, "backbone": backbone_fp}
+            rep_g1 = p14_backbone(torch, kernel_wrappers(), os.path.join(
+                tmp, "backbone_w1.npz"), bb_job)
+            one_g = p14_read(os.path.join(tmp, "backbone_w1.npz"))
+            release(torch)
+            reps = ranks("backbone", {"kind": "spatial_backbone",
+                                      "shape": [1, n], "backbone": bb_job},
+                         900)
+            check(all(r["backend"] == "nccl" for r in reps),
+                  f"14 x{n} backbone: backends {[r['backend'] for r in reps]}")
+            hold_backbone(tmp, one_g, rep_g1, reps, card, (1, n),
+                          f"14 x{n} spatial backbone")
     finally:
         torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"14 scaling of one global batch (B = 8, 352 x 480; {card}): "
-          + "; ".join(f"{n} card(s): a step {t[0]:.1f} ms (median past the "
+          + "; ".join(f"{w} card(s): a step {t[0]:.1f} ms (median past the "
                       f"first), the TTST pass {t[1]:.1f} ms (its second "
-                      f"call)" for n, t in times.items()))
+                      f"call)" for w, t in times.items()))
     return times
 
 
-def mesh_scaling_main():
+def mesh_scaling_main(argv=None):
     """mesh_scaling on the host's cards, with the two serving kernels
-    built from the checkout; prints the card's name and power limit."""
+    built from the checkout; prints the card's name and power limit.
+    argv: --parts (some of SCALING_PARTS; default all), --logs (a
+    directory for the ranks' output, which outlives the run)."""
+    import argparse
+
     import torch
 
     from mst_tpu_torch import resolve_device
     from mst_tpu_torch.ops.kernels import _build
 
+    parser = argparse.ArgumentParser(prog="mesh_scaling_main")
+    parser.add_argument("--parts", nargs="+", choices=SCALING_PARTS,
+                        default=list(SCALING_PARTS))
+    parser.add_argument("--logs", default=None)
+    args = parser.parse_args(argv)
     resolve_device("cuda")
     _build.build(["fused_predict", "softargmax_rows"])
     card = "; ".join(subprocess.run(
@@ -5070,7 +5302,12 @@ def mesh_scaling_main():
         check=True).stdout.split("\n")[:-1])  # each card's
     print(card)
     n = torch.cuda.device_count()
-    mesh_scaling(torch, card, tuple(w for w in (2, 4) if w <= n))
+    t0 = time.perf_counter()
+    mesh_scaling(torch, card, tuple(w for w in (2, 4) if w <= n),
+                 parts=args.parts,
+                 logs=args.logs and os.path.abspath(args.logs))
+    print(f"mesh_scaling ({', '.join(args.parts)}): "
+          f"{time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -5620,6 +5857,7 @@ def p14_spatial_steps(torch, wrappers, out_path, shape=P14_SPATIAL):
         torch.cuda.synchronize()
         report["step_ms"].append(1e3 * (time.perf_counter() - t0))
         report["losses"].append(float(m["loss"]))
+        progress(f"spatial step {i}: {report['step_ms'][-1]:.1f} ms")
         arrays.update({f"grad{i}/{k}": v.grad.cpu().numpy()
                        for k, v in named.items()})
     report["step_peak"] = torch.cuda.max_memory_allocated() - base
@@ -5628,6 +5866,7 @@ def p14_spatial_steps(torch, wrappers, out_path, shape=P14_SPATIAL):
                    for k, v in named.items()})
     sstate, sm = sstep(sweights, sstate, sopt, batch)
     report["serial_loss"] = float(sm["loss"])
+    progress("spatial serial step")
     arrays.update({f"state/{k}": v.cpu().numpy()
                    for k, v in io.flatten(sstate).items()})
     torch.cuda.synchronize()
@@ -5760,6 +5999,7 @@ def p14_spatial_train_cli(torch, wrappers, flows, shape=P14_SPATIAL):
         torch.cuda.synchronize()
         out[tag] = {"text": text, "launches": launches,
                     "captured": seen.get("captured", False),
+                    "capture_s": seen.get("capture_s", 0.0),
                     "s": time.perf_counter() - t0,
                     "peak": torch.cuda.max_memory_allocated()}
         for k in held:
@@ -6234,9 +6474,11 @@ def hold_backbone(tmp, one, rep1, reps, card, shape=P14_SPATIAL,
           f"{grad_err:.3e} of their max off the world of 1's; peaks "
           f"{big_ratio} of its")
     gib = 2 ** 30
+    how = ("two ranks share the card over gloo: no scaling figure"
+           if reps[0]["backend"] == "gloo" else "NCCL, a card a rank")
     print(f"{label}: the ResNet101 U-Net in the step on a {shape[0]} x "
-          f"{shape[1]} ('data', 'space') mesh ({card}; two ranks share the "
-          f"card over gloo: no scaling figure), each rank {bbs[0]['rows']} "
+          f"{shape[1]} ('data', 'space') mesh ({card}; {how}), each rank "
+          f"{bbs[0]['rows']} "
           f"of 352 rows. (a) K = 20 TTST with segment_in_step: waypoint "
           f"samples {'bit-equal to' if equal else 'off'} the world of 1's"
           f"{'' if equal else f' ({int(moved.sum())} rows moved)'}, "

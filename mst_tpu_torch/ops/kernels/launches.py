@@ -12,11 +12,14 @@ kernel executions, whichever way a path reaches the card.
 
 import collections
 import gc
+import weakref
 
 import torch
 
 # (wrapper, count name) -> launches recorded by the capture in progress
 _CAPTURED = collections.Counter()
+# every Graph that holds a captured graph, until it is released
+_LIVE = weakref.WeakSet()
 
 
 def count(fn, name="launches"):
@@ -60,9 +63,20 @@ class Graph:
         finally:
             gc.enable()
             _CAPTURED.clear()
+        _LIVE.add(self)
         return out
 
     def replay(self):
         self.graph.replay()
         for (fn, name), n in self.per_replay.items():
             setattr(fn, name, getattr(fn, name) + n)
+
+
+def release_graphs():
+    """Free every captured graph still alive: no Graph replays after this
+    (its per_replay stays). NCCL cannot destroy a communicator while a
+    CUDA graph that captured its collectives lives, so a world's teardown
+    does this first (parallel/mesh.shutdown)."""
+    for graph in list(_LIVE):
+        graph.graph.reset()
+        _LIVE.discard(graph)

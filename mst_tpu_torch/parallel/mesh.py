@@ -125,6 +125,22 @@ def init_process_group(device="cuda", init_method=None) -> str:
     return backend
 
 
+def shutdown():
+    """Leave the world: free every captured CUDA graph (launches.
+    release_graphs), then destroy the process groups; nothing without a
+    world. NCCL cannot destroy a communicator while a graph that captured
+    its collectives lives: destroy_process_group then waited on every
+    rank for ever after a --fused run on a spatial mesh of 4 cards."""
+    if not dist.is_initialized():
+        return
+    from mst_tpu_torch.ops.kernels import launches
+
+    launches.release_graphs()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
 @contextlib.contextmanager
 def rank_zero_prints():
     """A context in which only rank 0 of a torchrun world (RANK) prints:

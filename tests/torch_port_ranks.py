@@ -18,7 +18,6 @@ import glob
 import json
 import os
 import pickle
-import subprocess
 import sys
 import time
 
@@ -1157,6 +1156,20 @@ def case_spatial_backbone(mesh):
     return out
 
 
+LOUD_BYTES = 1 << 18  # four times a pipe's buffer
+
+
+def case_loud(mesh):
+    """LOUD_BYTES to stdout and to stderr, then a collective: a rank that
+    blocked in write() would stop the other in the barrier."""
+    sys.stdout.write("o" * LOUD_BYTES)
+    sys.stdout.flush()
+    sys.stderr.write("e" * LOUD_BYTES)
+    sys.stderr.flush()
+    torch.distributed.barrier()
+    return torch.distributed.get_rank()
+
+
 def checkpoint_tree(zero=False):
     """A training state's kinds of leaves: f32 weights, Adam moments, an
     int32 count."""
@@ -1181,44 +1194,40 @@ def launch(out_dir, shape, cases, timeout=240, axes=None, threads=2):
     case's list of what each rank returned. axes: the mesh's axis names
     (default: 'data', or 'replica', 'data'); threads: each rank's
     (OMP_NUM_THREADS, torch.set_num_threads)."""
-    return finish(start(out_dir, shape, cases, axes, threads), timeout)
+    return finish(start(out_dir, shape, cases, axes, threads, timeout))
 
 
-def start(out_dir, shape, cases, axes=None, threads=2):
-    """Start the ranks of launch() -> a handle for finish()."""
+def start(out_dir, shape, cases, axes=None, threads=2, timeout=240):
+    """Start the ranks of launch() -> a handle for finish(), which waits
+    for them `timeout` s. Each rank's stdout and stderr go to files under
+    <out_dir>/ranks (chip_smoke.launch_ranks), so a rank that prints much
+    cannot block in write() while the others wait for it in a
+    collective."""
+    import chip_smoke
+
     world = int(np.prod(shape))
     os.makedirs(out_dir, exist_ok=True)
-    env = dict(os.environ, WORLD_SIZE=str(world),
-               LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS=str(threads),
+    env = dict(OMP_NUM_THREADS=str(threads),
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "tests.torch_port_ranks", str(out_dir),
-         ",".join(map(str, shape)), ",".join(cases)]
-        + ([",".join(axes)] if axes else []),
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=REPO,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    return out_dir, cases, procs
+    wait = chip_smoke.launch_ranks(
+        world, [sys.executable, "-m", "tests.torch_port_ranks", str(out_dir),
+                ",".join(map(str, shape)), ",".join(cases)]
+        + ([",".join(axes)] if axes else []), timeout,
+        os.path.join(str(out_dir), "ranks"), env)
+    return out_dir, cases, world, wait
 
 
-def finish(handle, timeout=240):
-    """Wait for the ranks of start() (each within `timeout` s) -> each
-    case's list of what each rank returned."""
-    out_dir, cases, procs = handle
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{text[-4000:]}"
+def finish(handle):
+    """Wait for the ranks of start() (a failure, or a rank past the limit,
+    shows every rank's output) -> each case's list of what each rank
+    returned."""
+    out_dir, cases, world, wait = handle
+    wait()
     results = {}
     for case in cases:
         results[case] = []
-        for r in range(len(procs)):
+        for r in range(world):
             with open(os.path.join(out_dir, f"{case}.{r}.pkl"), "rb") as f:
                 results[case].append(pickle.load(f))
     return results
@@ -1235,6 +1244,9 @@ def wait_for(path, timeout=120):
 
 
 def main(out_dir, shape, cases, axes=None):
+    import chip_smoke
+
+    chip_smoke.arm_rank_dumps()
     global OUT
     OUT = out_dir
     torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "2")))
