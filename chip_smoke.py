@@ -2559,6 +2559,56 @@ SEG_SMALL = dict(encoder_channels=[8, 8, 16, 16, 16],
                  n_goal=4, n_traj=1, lr=1e-3)
 
 
+# the three stride-2 3x3 convs (block 0's conv2 of layer2-4) at a 352 x
+# 480 scene's shapes: (channels, rows, columns) of each one's input
+STRIDE2_SHAPES = ((128, 88, 120), (256, 44, 60), (512, 22, 30))
+STRIDE2_TOL = 1e-5  # f32 on the card, of the float64 output's max
+
+
+def check_stride2_convs(torch, bb, card):
+    """The backbone's stride-2 3x3 convs with bb's weights on seeded ReLU
+    outputs of STRIDE2_SHAPES, in f32 on the card through unet.conv
+    (mst_tpu's SAME: an explicit zero row and column at the bottom and
+    right), against a float64 conv on the CPU padded (0, 1) explicitly;
+    each timed beside cuDNN's conv padded (1, 1), torchvision's, on the
+    same input -> the largest |card - float64| of the output's max."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from mst_tpu_torch.models import unet
+    from mst_tpu_torch.probes import time_ms
+
+    worst = 0.0
+    for li, (c, h, w) in zip((2, 3, 4), STRIDE2_SHAPES):
+        weight = bb["encoder"][f"layer{li}"]["0"]["conv2"]["weight"]
+        check(tuple(weight.shape) == (c, c, 3, 3),
+              f"layer{li}'s stride-2 conv is {tuple(weight.shape)}")
+        x = np.maximum(np.random.default_rng(li).normal(
+            size=(1, c, h, w)), 0).astype(np.float32)
+        xc = torch.tensor(x, device="cuda").contiguous(
+            memory_format=torch.channels_last)
+        with torch.no_grad():
+            got = unet.conv({"weight": weight}, xc, 2)
+            want = F.conv2d(F.pad(torch.tensor(x).double(), (0, 1, 0, 1)),
+                            weight.cpu().double(), stride=2)
+            ms = time_ms(lambda: unet.conv({"weight": weight}, xc, 2), 20)
+            vision_ms = time_ms(lambda: F.conv2d(xc, weight, stride=2,
+                                                 padding=1), 20)
+        check(tuple(got.shape) == tuple(want.shape) == (1, c, h // 2,
+                                                        w // 2),
+              f"layer{li}'s stride-2 conv gives {tuple(got.shape)}")
+        err = float((got.cpu().double() - want).abs().max()
+                    / want.abs().max())
+        worst = max(worst, err)
+        print(f"stride-2 conv of layer{li} on ({c}, {h}, {w}), SAME (0, 1)"
+              f": max |card f32 - cpu float64| / max = {err:.3e}; "
+              f"{ms:.4f} ms ({card}; CUDA events, 20 calls) against "
+              f"{vision_ms:.4f} ms padded (1, 1) without the copy")
+    check(worst <= STRIDE2_TOL, f"a stride-2 conv on the card is {worst:.3e}"
+          f" of its max from float64 (bar {STRIDE2_TOL})")
+    return worst
+
+
 def moved_backbone(torch, layers, seed, calibrate=None):
     """The port's unet_init at `layers` (seed 0) with every batch norm's
     weight, bias and running statistics and the head's bias drawn from
@@ -2858,6 +2908,7 @@ def segmentation_path(torch, wrappers, card, rows_rec, fused_rec):
               f"held")
         print_trace(torch, "backbone forward", lambda: (
             unet_apply(bb, img), torch.cuda.synchronize()), conv_ops=6)
+        check_stride2_convs(torch, bb, card)
         del bb_cpu, probs, got, want
 
         # ---- the path, counted
@@ -6186,9 +6237,11 @@ def p14_backbone(torch, wrappers, out_path, job, shape=None):
     (a) 14b's K = 20 TTST pass with segment_in_step (the world of 1's
         draws), twice, the second timed, counted (every kernel's count set
         to 0 just before and read just after) and its peak read;
-    (b) P14G_STEPS Adam steps of segmentation_bn with the backbone in
-        train mode (segment_train_mode) on phase 6b's rows, counted, the
-        last one's peak;
+    (b) P14G_STEPS Adam steps of segmentation_bn with the backbone's
+        batch norms in eval mode on their inline statistics (Adam's
+        leaves, as in mst_tpu), then P14G_STEPS in train mode
+        (segment_train_mode) on the state's, on phase 6b's rows,
+        counted, the last one's peak;
     (c) the backbone alone in eval mode, forward and backward of the sum
         of its probabilities against a fixed target, on the big image:
         peak, the bytes autograd saved (saved_bytes), the output gathered
@@ -6250,10 +6303,15 @@ def p14_backbone(torch, wrappers, out_path, job, shape=None):
 
     # ---- (b) segmentation_bn steps, the backbone's batch norms in eval
     # mode ('b'), then in train mode ('t'); the world of 1 also runs both
-    # on the image scaled by 1 + P14G_NUDGE ('nb', 'nt')
+    # on the image scaled by 1 + P14G_NUDGE ('nb', 'nt'). In eval mode the
+    # norms read their inline statistics, Adam's leaves (a fine-tune
+    # before e_unfreeze, whose state has no 'segmentation_bn'), so the
+    # steps move them
     def steps(tag, train_mode, scale=1.0):
         params, weights, state, opt, named = p14g_model(
             torch, "segmentation_bn", job["backbone"])
+        if not train_mode:
+            del state["segmentation_bn"]
         batch = fine_tune_batch(torch, params, H, W, B)
         batch["semantic"] = cut(images["small"] * np.float32(scale), slab)
         step = make_train_step(ynet_config(params), step_config(
@@ -6281,7 +6339,7 @@ def p14_backbone(torch, wrappers, out_path, job, shape=None):
         arrays.update({f"{tag}/leaf/{k}": v.detach().cpu().numpy()
                        for k, v in named.items()})
         arrays.update({f"{tag}/state/{k}": v.cpu().numpy() for k, v in
-                       io.flatten(state["segmentation_bn"]).items()})
+                       io.flatten(state.get("segmentation_bn", {})).items()})
         del params, weights, state, opt, named, batch, step, m
         release(torch)
         return rep
@@ -6378,11 +6436,12 @@ def hold_backbone(tmp, one, rep1, reps, card, shape=P14_SPATIAL,
     some, each rank's peak under P14_MEM_RATIO of the world of 1's; (b)
     14f's: the losses within P14_LOSS_RTOL, the rows kernel's partial
     variant twice a step and nothing else, the ranks' leaves the same;
-    with the backbone's batch norms in eval mode the first step's
-    gradients within P14_LEAF_TOL of each one's max (14f's leaf bar) and
-    the statistics unmoved; in both modes the first step's gradients, the
-    leaves (and in train
-    mode the statistics) within P14G_RATIO of the world of 1's distance
+    with the backbone's batch norms in eval mode no state, every running
+    statistic a leaf with a gradient, and the first step's gradients
+    within P14_LEAF_TOL of each one's max (14f's leaf bar); in both modes
+    the first step's gradients, the leaves (the running statistics among
+    them in eval mode; in train mode the state's statistics too) within
+    P14G_RATIO of the world of 1's distance
     from its own run on the nudged image (the comment at P14G_NUDGE;
     14f's leaf rule is printed beside); (c) the probabilities within P14G_OUT_TOL,
     every leaf's gradient within P14G_OUT_TOL of its max, each rank's
@@ -6441,10 +6500,14 @@ def hold_backbone(tmp, one, rep1, reps, card, shape=P14_SPATIAL,
     check(max(loss_err.values()) <= P14_LOSS_RTOL and all(
         bb[tag]["n"] == rep1[tag]["n"] for bb in bbs for tag in ("b", "t")),
           f"{label} (b): losses {loss_err} off the world of 1's")
-    for o in outs:
-        check(all(np.array_equal(o[k], one[k]) for k in one
-                  if k.startswith("b/state/")),
-              f"{label} (b): eval-mode steps moved the statistics")
+    # the encoder's 100 norms (bn1, and bn1-bn3 of each of 33 blocks)
+    stats = [k for k in one if k.startswith("b/grad0/")
+             and k.endswith(("/running_mean", "/running_var"))]
+    check(not any(k.startswith("b/state/") for o in outs + [one]
+                  for k in o) and len(stats) == 2 * 100 and all(
+                      np.any(o[k]) for o in outs + [one] for k in stats),
+          f"{label} (b): the eval-mode steps' running statistics are "
+          f"{len(stats)} leaves, a state or a zero gradient")
     grad0 = max(of_max_over(o, one, "b/grad0/") for o in outs)
     check(grad0 <= P14_LEAF_TOL,
           f"{label} (b): the eval-mode steps' first gradients {grad0:.3e} "

@@ -12,6 +12,8 @@ follow OpenCV's own arithmetic (imgproc/src/resize.cpp):
 - INTER_AREA at another factor (inD's 0.33) weights each source pixel by
   its overlap with the output cell (computeResizeAreaTab), summed in f32 in
   OpenCV's order;
+- INTER_AREA above a factor of 1 is OpenCV's bilinear emulation of it
+  (the linear path's area mode: _linear_table), exact on uint8 and f32;
 - INTER_NEAREST takes source index floor(i / factor), clamped.
 Channel order is cv2's BGR throughout, as in the JAX package.
 """
@@ -156,15 +158,66 @@ def _area_general(im, scale, dh, dw):
     return _saturate(out, im.dtype).reshape((dh, dw) + im.shape[2:])
 
 
+def _linear_table(n_src, n_dst, factor, clamp):
+    """The area mode of cv::resize's linear path (upscaling INTER_AREA):
+    for output index d the source index s = floor(d / factor) and the
+    weight f = (d + 1) - (s + 1) factor in f32, 0 where not positive,
+    else taken mod 1; -> (the indices s and s + 1, clipped to the axis,
+    and the weights 1 - f and f, on uint8 as Q11 integers). clamp (the x
+    axis): from the last source pixel on, s stays there with f = 0; the y
+    axis keeps f and reads the last row twice."""
+    idx = np.zeros((n_dst, 2), np.int64)
+    w = np.zeros((n_dst, 2), np.float32)
+    for d in range(n_dst):
+        s = math.floor(d / factor)
+        f = np.float32((d + 1) - (s + 1) * factor)
+        f = np.float32(0) if f <= 0 else f - np.float32(math.floor(f))
+        if clamp and s >= n_src - 1:
+            s, f = n_src - 1, np.float32(0)
+        idx[d] = s, min(s + 1, n_src - 1)
+        w[d] = np.float32(1) - f, f
+    return idx, w
+
+
+def _area_up(im, factor, dh, dw):
+    """INTER_AREA at a factor above 1, which OpenCV runs as a bilinear
+    resize with _linear_table's weights (HResizeLinear, then
+    VResizeLinear): on uint8 in fixed point (Q11 weights, the rows' sums
+    shifted as its VResizeLinear for uchar does), on f32 each sum a0 s0
+    + a1 s1."""
+    H, W = im.shape[:2]
+    x = im.reshape(H, W, -1)
+    xi, xa = _linear_table(W, dw, factor, clamp=True)
+    yi, ya = _linear_table(H, dh, factor, clamp=False)
+    if im.dtype == np.uint8:
+        xa, ya = (np.rint(a * np.float32(2048)).astype(np.int64)
+                  for a in (xa, ya))
+        x = x.astype(np.int64)
+        rows = (x[:, xi[:, 0]] * xa[None, :, 0, None]
+                + x[:, xi[:, 1]] * xa[None, :, 1, None])
+        out = ((((ya[:, 0, None, None] * (rows[yi[:, 0]] >> 4)) >> 16)
+                + ((ya[:, 1, None, None] * (rows[yi[:, 1]] >> 4)) >> 16)
+                + 2) >> 2).astype(np.uint8)
+    else:
+        x = x.astype(np.float32)
+        rows = (x[:, xi[:, 0]] * xa[None, :, 0, None]
+                + x[:, xi[:, 1]] * xa[None, :, 1, None])
+        out = _saturate(rows[yi[:, 0]] * ya[:, 0, None, None]
+                        + rows[yi[:, 1]] * ya[:, 1, None, None], im.dtype)
+    return out.reshape((dh, dw) + im.shape[2:])
+
+
 def resize_area(im, factor):
     """cv2.resize(im, (0, 0), fx=factor, fy=factor,
-    interpolation=cv2.INTER_AREA) for 0 < factor <= 1."""
-    if not 0 < factor <= 1:
-        raise NotImplementedError(
-            f"resize factor {factor}: only downscaling (INTER_AREA) is "
-            "ported")
+    interpolation=cv2.INTER_AREA) for a factor > 0: the area mean when
+    downscaling, OpenCV's bilinear emulation (_area_up) above 1."""
+    if not factor > 0:
+        raise ValueError(
+            f"resize factor {factor}: INTER_AREA needs a factor > 0")
     H, W = im.shape[:2]
     dh, dw = _out_size(H, factor), _out_size(W, factor)
+    if factor > 1:
+        return _area_up(im, factor, dh, dw)
     scale = 1.0 / factor
     s = int(round(scale))
     if abs(scale - s) < DBL_EPSILON:

@@ -1,6 +1,5 @@
 """Statistical decision rule for the reference-parity gate (counterpart of
-mst_tpu/evaluator/parity_stats.py, with one kept difference: the NaN
-guard of build_report's worst-metric tiebreak).
+mst_tpu/evaluator/parity_stats.py).
 
 The parity protocol's estimator is stochastic by design: each suite
 reports minADE/FDE over K=20 sampled goals averaged over n_round=3
@@ -60,11 +59,6 @@ def _t05(df):
     if df <= 0:
         return float("inf")
     return _T05.get(df, _Z05)
-
-
-def _abs_or_zero(d):
-    """|d|, and 0 for a nan d (the tiebreak key of build_report)."""
-    return 0.0 if math.isnan(d) else abs(d)
 
 
 def _mean_se(values):
@@ -166,11 +160,12 @@ def build_report(log_dir, ref_table=None, margin_pct=1.0):
             # the printed CI belongs to the metric that DRIVES the suite
             # verdict (worst severity, then larger delta), so a reader
             # sizing up an inconclusive suite sees the CI that caused it;
-            # a nan delta ranks lowest: a nan key would make max() keep
-            # the first operand whatever the other's delta
+            # a nan delta compares neither greater nor less, so between
+            # verdicts of one severity max() then keeps the first operand,
+            # the ADE's, as mst_tpu's does
             worst = max((va, vf),
                         key=lambda v: (severity[v["verdict"]],
-                                       _abs_or_zero(v["delta_pct"])))
+                                       abs(v["delta_pct"])))
             v = {"ade_delta_pct": va["delta_pct"],
                  "fde_delta_pct": vf["delta_pct"],
                  "ci_lo_pct": worst["ci_lo_pct"],

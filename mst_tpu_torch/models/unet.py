@@ -6,10 +6,13 @@ models/ynet.py:495-507), which the released weights were trained with:
 torchvision's bottleneck ResNet (7x7/2 stem, 3x3/2 max-pool, stages of 3,
 4, 23 and 3 blocks), the UnetDecoder (nearest 2x upsample, skip concat,
 two Conv-BN-ReLU a block, 256/128/64/32/16 channels) and a 3x3 head with
-an optional softmax. Every conv pads k // 2, so the three stride-2 3x3
-convs (block 0's conv2 of layer2-4) pad (1, 1) as torchvision does;
-mst_tpu's pad SAME, (0, 1) on an even size, and compute another function
-there (ROADMAP Queue 3 #9).
+an optional softmax. The padding is mst_tpu's, which the port is held
+against: the stem pads 3 on every side, the max-pool 1, and every other
+conv pads as XLA's SAME (same_pads). That is k // 2 at stride 1 and (0,
+0) for the 1x1/2 downsample, but (0, 1) for the three stride-2 3x3 convs
+(block 0's conv2 of layer2-4) on an even size, where torchvision pads (1,
+1): smp's function differs there (ROADMAP Queue 3 #9, an mst_tpu quirk
+kept on purpose).
 
 Parameters are a nested dict with mst_tpu's paths ('encoder/layer1/0/
 conv1/weight', 'decoder/blocks/0/conv1/0/weight',
@@ -25,11 +28,12 @@ says), oneDNN's on the CPU in f32 (ops/conv.py).
 On a spatial ('data', 'space') mesh every piece takes this rank's H slab
 of its input and a mesh.Slab of it (`slab`; None: the whole map), and
 gives the whole map's output on the slab's rows (backbone_slabs: the
-level rule). A k x k conv of stride s padded p reads p rows above its
-slab and k - p - s below it (parallel/halo.py, zeros at the global top
-and bottom): the 7x7/2 stem 3 and 2, a stride-2 3x3 conv and the 3x3/2
-max-pool 1 and 0, a stride-1 3x3 conv 1 and 1; a 1x1 conv, the nearest
-upsample, the skip concat and the head's softmax need none. A train-mode
+level rule). A k x k conv of stride s padded p above reads p rows above
+its slab and k - p - s below it (parallel/halo.py, zeros at the global
+top and bottom): the 7x7/2 stem 3 and 2, a stride-2 3x3 conv 0 and 1
+(SAME on the whole map's even rows), the 3x3/2 max-pool 1 and 0, a
+stride-1 3x3 conv 1 and 1; a 1x1 conv, the nearest upsample, the skip
+concat and the head's softmax need none. A train-mode
 batch norm of a sliced level takes its statistics over the 'space' ranks
 (the 'data' ranks hold the same image, so the count is the image's
 N x H x W).
@@ -150,18 +154,37 @@ def _whole(x, slab_in, slab_out):
     return x, slab_in
 
 
-def conv(p, x, stride=1, slab=None):
-    """A conv of the tree on NCHW x, padded k // 2 on every side (the
-    torchvision/smp padding, also at stride 2). slab: x holds the slab's
-    rows (starting on an even row at stride 2), the output the next
-    level's slab's."""
+def same_pads(n, k, stride):
+    """XLA's SAME padding of a k-tap window of stride s on an axis of n
+    -> (before, after): total = max((ceil(n / s) - 1) s + k - n, 0),
+    before = total // 2. k // 2 on both sides at stride 1; a 3x3/2 conv
+    pads (0, 1) on an even n and (1, 1) on an odd one."""
+    total = max((-(-n // stride) - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv(p, x, stride=1, slab=None, pad=None):
+    """A conv of the tree on NCHW x, padded SAME on each axis (same_pads;
+    mst_tpu's _conv), or `pad` on every side (the stem's 3). The
+    convolution itself pads symmetrically, so SAME's extra row and column
+    at the bottom and right are zeros put there first (a copy, only where
+    before and after differ: the stride-2 3x3 convs on even sizes).
+    slab: x holds the slab's rows (starting on an even row at stride 2),
+    the output the next level's slab's; H pads by the whole map's rows
+    (slab.height), and its rows come from the H neighbours
+    (parallel/halo.py), zeros at the global top and bottom."""
     check_same_dtype(x, p["weight"])
     k = p["weight"].shape[-1]
-    pad = k // 2
-    if slab is None or k == 1:
-        return conv2d(x, p["weight"], p.get("bias"), stride, (pad, pad))
-    x = _halo(x, slab, (pad, max(k - pad - stride, 0)))
-    return conv2d(x, p["weight"], p.get("bias"), stride, (0, pad))
+    n = x.shape[2] if slab is None else slab.height
+    ph, pw = ((pad, pad), (pad, pad)) if pad is not None else (
+        same_pads(n, k, stride), same_pads(x.shape[3], k, stride))
+    halo = (ph[0], max(k - ph[0] - stride, 0))
+    if slab is not None and any(halo):
+        x = _halo(x, slab, halo)
+        ph = (0, 0)
+    if ph[0] != ph[1] or pw[0] != pw[1]:
+        x = F.pad(x, (0, pw[1] - pw[0], 0, ph[1] - ph[0]))
+    return conv2d(x, p["weight"], p.get("bias"), stride, (ph[0], pw[0]))
 
 
 def max_pool(x, slab=None):
@@ -281,7 +304,7 @@ def encoder_apply(enc, image, layers=None, bn=None, slab=None):
     feats = [x]
     x, sin = _whole(x, s[0], s[1])
     y = torch.relu(bn("encoder/bn1", enc["bn1"],
-                      conv(enc["conv1"], x, 2, sin), s[1]))
+                      conv(enc["conv1"], x, 2, sin, pad=3), s[1]))
     feats.append(y)
     y, sin = _whole(y, s[1], s[2])
     y = max_pool(y, sin)

@@ -12,10 +12,10 @@ position levels), 'serial*'/'parallel*' (the adapters), 'mosa_<r>',
 'semantic_<k>x<k>', the Y-Net-Mod branch sets ('scene', ...,
 'scene_motion_fusion', with network='fusion'),
 'biasEncoder'/'biasGoal'/'biasTraj'/'bias', the backbone's
-'segmentation_{head,bias,bn,<layer>}' (their weights and biases: the
-running statistics stay out, as in the reference), and the additive
-ynet_bias flag. The backbone ('segmentation/...') is frozen under every
-other strategy.
+'segmentation_{head,bias,bn,<layer>}' (the matching leaves, the batch
+norms' running statistics included, as mst_tpu selects them), and the
+additive ynet_bias flag. The backbone ('segmentation/...') is frozen
+under every other strategy.
 """
 
 import re
@@ -37,12 +37,6 @@ _FUSION_BRANCHES = {
     "motion_fusion": ("motion_stages", "fusion_stages"),
     "scene_motion": ("scene_stages", "motion_stages"),
 }
-
-
-def is_running_statistic(p: str) -> bool:
-    """A batch norm's running statistic or counter: model state that no
-    optimizer trains."""
-    return p.endswith(("/running_mean", "/running_var", "/num_batches"))
 
 
 def _is_ynet_bias(p: str) -> bool:
@@ -82,20 +76,16 @@ def _base_predicate(train_net, position, network):
         # mst_tpu's rule (freeze.py:90-96): head, bias and bn match by
         # substring, so 'bn' selects the encoder's bn1-bn3 and not the
         # decoder's; any other word is a decoder layer,
-        # 'decoder/blocks/<i>/<word>'. The running statistics are left out:
-        # the reference's are buffers its Adam never moves (trainer.py:
-        # 182-190), where mst_tpu's mask selects them (ROADMAP Queue 3 #10)
+        # 'decoder/blocks/<i>/<word>'. The matching norms' running
+        # statistics are leaves too, as in mst_tpu, so Adam moves them
+        # (the reference's are buffers its Adam never moves, trainer.py:
+        # 182-190: an mst_tpu quirk kept on purpose, ROADMAP Queue 3 #10)
         layer = train_net.split("_")[1]
         if layer in ("head", "bias", "bn"):
-            def match(p):
-                return layer in p
-        else:
-            pattern = re.compile(rf"decoder/blocks/\d+/{layer}")
-
-            def match(p):
-                return pattern.search(p) is not None
-        return lambda p: (p.startswith("segmentation/") and match(p)
-                          and not is_running_statistic(p))
+            return lambda p: p.startswith("segmentation/") and layer in p
+        pattern = re.compile(rf"decoder/blocks/\d+/{layer}")
+        return lambda p: (p.startswith("segmentation/")
+                          and pattern.search(p) is not None)
     raise NotImplementedError(
         f"train_net={train_net!r} is not a strategy of "
         f"network={network!r}")

@@ -11,8 +11,10 @@ def bce_with_logits(logits, targets, mask=None, shards=None, space=1):
 
     mask (broadcast over the batch axis) drops padded rows: the mean runs
     over the valid elements only, count = sum(mask) * numel / mask.numel,
-    floored at 1 so an all-zero mask gives 0. torch.maximum splits the
-    gradient at x = 0 evenly, as jnp.maximum does. shards (a
+    floored at 1 so an all-zero mask gives 0. The gradient at x = 0 is
+    mst_tpu's, -z: torch.maximum splits it evenly there, as jnp.maximum
+    does, and |x| is a where whose derivative at 0 is 1, as jnp.abs's is
+    (torch.abs's is 0, which gives BCEWithLogits' 0.5 - z). shards (a
     parallel.mesh.Shards, with mask): this rank holds its rows of a
     global batch, and its masked sum is divided by the global count, so
     that the ranks' losses and gradients sum to the global batch's (not
@@ -24,7 +26,7 @@ def bce_with_logits(logits, targets, mask=None, shards=None, space=1):
     """
     x, z = logits, targets
     per_elem = (torch.maximum(x, x.new_zeros(())) - x * z
-                + torch.log1p(torch.exp(-x.abs())))
+                + torch.log1p(torch.exp(-torch.where(x >= 0, x, -x))))
     if mask is None:
         return per_elem.mean()
     m = mask.to(per_elem.dtype).reshape(

@@ -155,8 +155,12 @@ class Adam:
 
     @torch.no_grad()
     def step(self):
-        """Update every leaf that has a gradient (a leaf without one keeps
-        its value, as optax's zero update leaves it), then count."""
+        """Update every leaf that has a gradient, then count. A leaf
+        without one never had one, so its moments are 0 and optax's zero
+        update leaves it; one that had a gradient keeps it, zeroed
+        (zero_grad), so where autograd leaves it out (a running
+        statistic under a train-mode batch norm) its moments move it, as
+        optax moves it on a zero gradient."""
         lr = self.lr()
         for p in self.params:
             if p.grad is not None:

@@ -2,15 +2,14 @@
 two epochs across e_unfreeze (the backbone's batch norms adapting in the
 state), a TTST test through Experiment on segmented maps, the model
 directory exported with segment_in_step and its LoadedModel and daemon on
-raw RGB scenes, use_features_only's 16 channels, and the stride-2 padding
-difference bounded end to end.
+raw RGB scenes, use_features_only's 16 channels, and the two packages'
+distance from smp's function (the stride-2 convs' padding) bounded end to
+end.
 
 The backbone file, the scenes and the configs are
 test_torch_port_segmentation.py's (`world`): a shallow backbone (layers
 (1, 1, 1, 1), the real widths) with its batch norms moved and its three
-stride-2 convs zero, so the two packages' paddings compute the same
-function there; test_padding_difference_bound keeps those convs as they
-are (ROADMAP Queue 3 #9).
+stride-2 convs live: both packages pad them SAME (ROADMAP Queue 3 #9).
 """
 
 import json
@@ -35,7 +34,7 @@ from mst_tpu_torch.serve_http import run_server
 from mst_tpu_torch.train import optim, steps, trainer
 from tests.test_torch_port_http import _request
 from tests.test_torch_port_segmentation import (  # noqa: F401 (world)
-    backbone_flat, hwio, jax_configs, jax_tree, params_for, scene, t, world)
+    hwio, jax_configs, jax_tree, params_for, scene, t, torch_unet, world)
 
 H, W, B = 64, 96, 4
 MAP_TOL = 1e-4  # maps and logits, relative to each one's max
@@ -356,32 +355,49 @@ def test_features_only_matches_jax(world):
     close(logits, jlogits, what="goal logits")
 
 
-# the unmodified weights' difference between the two packages, measured
-# by the test below on the CPU (shallow backbone with kaiming-normal convs
-# and moved batch norms, 64 x 96): the class probabilities 0.7414 and the
-# goal logits 0.02077 of their max, the argmax class at 0.1872 of the
-# pixels; bounded with a margin
+# the distance of both packages' paths from smp's function (TorchUnet,
+# which pads the stride-2 convs (1, 1)), measured by the test below on the
+# CPU (shallow backbone with kaiming-normal convs and moved batch norms,
+# 64 x 96): the class probabilities 0.7403 and the goal logits 0.02078 of
+# their max, the argmax class at 0.1872 of the pixels; bounded with a
+# margin
 PADDING_BOUND = {"class map": 0.8, "goal logits": 0.03, "argmax": 0.25}
 
 
+def smp_forward(params, flat, raw, traj):
+    """forward_both's port path with TorchUnet (softmax) as the backbone
+    -> (semantic, goal logits)."""
+    mcfg = config.ynet_config(params)
+    weights, _ = ynet_lib.init_ynet(torch.Generator().manual_seed(0), mcfg)
+    scfg = config.step_config(params)
+    with torch.no_grad():
+        sem = torch.softmax(torch_unet(flat)(t(raw).permute(0, 3, 1, 2)),
+                            dim=1).permute(0, 2, 3, 1)
+        sem, obs, _ = steps._prepare_inputs(mcfg, scfg, weights, sem,
+                                            t(traj))
+        feats, _ = ynet_lib.pred_features(weights, {}, mcfg, sem, obs)
+        return sem, ynet_lib.pred_goal(weights, feats)
+
+
 def test_padding_difference_bound(world):
-    """With the backbone's weights as they are (the stride-2 convs not
-    zeroed), the two packages' paths differ only through the stride-2
-    padding: the class maps and the goal logits downstream differ by more
+    """The backbone in the step with its stride-2 convs live: the port's
+    class map and goal logits equal mst_tpu's within MAP_TOL, and both
+    differ from smp's path (TorchUnet's map into the same Y-Net) by more
     than 1e-3 of their max (the difference is real) and by no more than
     PADDING_BOUND, nor do more pixels change their argmax class (ROADMAP
-    Queue 3 #9)."""
+    Queue 3 #9: an mst_tpu quirk, kept)."""
     params = params_for(world)
     traj = np.random.default_rng(8).uniform(5, 60, size=(B, 20, 2))
-    out = forward_both(params, backbone_flat(zero_stride2=False), scene(8),
-                       traj)
-    for name, got, want in (("class map", out[0], out[2]),
-                            ("goal logits", out[1], out[3])):
-        want = np.asarray(want)
-        rel = float(np.abs(got.numpy() - want).max() / np.abs(want).max())
-        print(f"{name}: max |port - mst_tpu| / max = {rel:.4g}")
+    sem, logits, jsem, jlogits = forward_both(params, world["flat"],
+                                              scene(8), traj)
+    close(sem, jsem, what="class map")
+    close(logits, jlogits, what="goal logits")
+    smp = smp_forward(params, world["flat"], scene(8), traj)
+    for name, got, want in (("class map", sem, smp[0]),
+                            ("goal logits", logits, smp[1])):
+        rel = float((got - want).abs().max() / want.abs().max())
+        print(f"{name}: max |port - smp| / max = {rel:.4g}")
         assert 1e-3 < rel <= PADDING_BOUND[name], (name, rel)
-    flip = float(np.mean(out[0].numpy().argmax(-1)
-                         != np.asarray(out[2]).argmax(-1)))
+    flip = float(np.mean(sem.numpy().argmax(-1) != smp[0].numpy().argmax(-1)))
     print(f"argmax class changed at {flip:.4g} of the pixels")
     assert flip <= PADDING_BOUND["argmax"]

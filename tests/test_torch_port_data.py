@@ -121,8 +121,29 @@ def test_nearest_masks_match_jax(rng, factor):
 
 
 def test_resize_rejects_upscaling():
-    with pytest.raises(NotImplementedError, match="factor"):
-        images.resize_area(np.zeros((8, 8, 3), np.uint8), 2.0)
+    """Upscaling is ported (test_upscaling_matches_cv2_and_jax); a factor
+    that is not positive is still refused."""
+    for factor in (0.0, -2.0):
+        with pytest.raises(ValueError, match="factor"):
+            images.resize_area(np.zeros((8, 8, 3), np.uint8), factor)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("factor", [1.5, 2, 3])
+def test_upscaling_matches_cv2_and_jax(rng, dtype, factor):
+    """INTER_AREA above a factor of 1 (OpenCV's bilinear emulation, the
+    last row read twice and the last column clamped) against cv2.resize
+    and mst_tpu's resize_images: exact, on uint8 and f32, gray, three
+    and four channels, even and odd sizes."""
+    raw = random_images(rng, dtype, [(67, 101, 3), (40, 52), (13, 9, 4)])
+    want = jimages.resize_images(raw, factor)
+    got = images.resize_images(raw, factor)
+    for k, im in raw.items():
+        cv = cv2.resize(im, (0, 0), fx=factor, fy=factor,
+                        interpolation=cv2.INTER_AREA)
+        assert got[k].dtype == cv.dtype and got[k].shape == cv.shape, k
+        np.testing.assert_array_equal(got[k], cv, err_msg=k)
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_pad_matches_jax(rng):

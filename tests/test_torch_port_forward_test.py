@@ -1,8 +1,8 @@
 """Experiment.forward_test (the single-scene probe forward) against
 mst_tpu's on the CPU, with the identity backbone and with a shallow
 segmentation backbone (test_torch_port_segmentation.py's `world`: the
-real widths, batch norms moved, the stride-2 convs zero so both paddings
-compute one function) in front of a 2-stage Y-Net.
+real widths, batch norms moved, the stride-2 convs live, padded SAME in
+both packages) in front of a 2-stage Y-Net.
 
 The reference is mst_tpu's probe run in float64 (`jax.enable_x64`, its
 weights, state and scene widened; the rasterizers stay f32 in both

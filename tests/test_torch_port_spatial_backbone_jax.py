@@ -7,9 +7,8 @@ on make_spatial_mesh(1, 2) of tests/conftest.py's virtual devices, whose
 GSPMD program partitions the backbone's convs over 'space' with the rest
 of the step. The same weights (io.params_to_numpy): the small Y-Net and a
 shallow backbone (the U-Net's widths, one block a stage, batch norms off
-identity) whose three stride-2 3x3 convs are zero, which takes out the
-two packages' one difference of padding there (ROADMAP Queue 3 #9,
-tests/test_torch_port_segmentation.py) and nothing else; the same batch
+identity) with its three stride-2 3x3 convs live, padded SAME in both
+(their halos on the slabs: 0 rows above, 1 below); the same batch
 (B = 8, the last 3 rows padding, a 64 x 64 image), 2 Adam steps at lr
 1e-3 of segmentation_head with the backbone's batch norms in train mode
 (segment_train_mode: on the image's statistics, over the 'space' ranks in

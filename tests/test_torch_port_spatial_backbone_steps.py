@@ -12,8 +12,10 @@ padding) and its H slab of the 64 x 64 image, on which a shallow backbone
   world of one's, ade and fde within 1e-5 relative, best_traj within
   1e-4 model px, the same outputs on every rank;
 - Adam steps of segmentation_head and segmentation_bn with the backbone's
-  batch norms (their weights and biases off 1 and 0) in eval mode,
-  segmentation_head in train mode
+  batch norms (their weights, biases and running statistics off 1, 0, 0
+  and 1) in eval mode (and one segmentation_bn step without a state, as
+  before e_unfreeze: the norms' running statistics are Adam's leaves, as
+  in mst_tpu, and each gets a gradient), segmentation_head in train mode
   (segment_train_mode: the image's statistics over the 'space' ranks),
   --remat, bf16 and a cross-scene batch, with tests/
   test_torch_port_spatial_train.py's bars: losses and metric sums within
@@ -174,6 +176,16 @@ def test_spatial_train_step_with_the_backbone_matches_the_world_of_one(
             "segmentation_bn/") and not np.array_equal(
                 want["state"][k], one["seg_head"]["state"][k])]
         assert bool(moved) == ranks.BACKBONE_TRAINS[case][3], case
+    stats = [k for k in want["leaves"]
+             if k.endswith(("/running_mean", "/running_var"))]
+    assert len(stats) == (2 * 13 if case.startswith("seg_bn") else 0)
+    if case == "seg_bn":  # the state's statistics are read
+        stats = []
+    assert not (stats and any(k.startswith("segmentation_bn/")
+                              for k in want["state"]))
+    for k in stats:
+        for got in outs:
+            assert np.any(got["steps"][0]["grads"][k]), k
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))

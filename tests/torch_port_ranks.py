@@ -909,6 +909,9 @@ BACKBONE_TRAINS = {
     "seg_bf16": ("segmentation_head", dict(compute_dtype="bfloat16"), 2,
                  True),
     "seg_cross": ("segmentation_head", {}, 1, True),
+    # without a state, as before e_unfreeze: the norms read their inline
+    # running statistics, which are Adam's leaves (mst_tpu's mask)
+    "seg_bn_stats": ("segmentation_bn", {}, 1, False),
 }
 
 
@@ -933,9 +936,8 @@ def train_setup(name):
     -> (params, weights, state, train_net, steps, whether the backbone
     runs in the step, whether in train mode). The backbone cases' batch
     norms are moved off identity (weights U(0.5, 1.5), biases U(-0.3,
-    0.3)) and BACKBONE_JAX's stride-2 3x3 convs are zero (tests/
-    test_torch_port_segmentation.py's STRIDE2: the two packages' paddings
-    then compute the same function)."""
+    0.3), running means U(-0.3, 0.3) and variances U(0.7, 1.5): a leaf
+    held within a share of its max must not start at 0)."""
     from mst_tpu_torch import io
     from mst_tpu_torch.models.unet import extract_bn_stats, unet_init
 
@@ -959,10 +961,13 @@ def train_setup(name):
                 v.uniform_(0.5, 1.5, generator=gen)
             elif v.ndim == 1 and k.endswith("/bias"):
                 v.uniform_(-0.3, 0.3, generator=gen)
-            elif name in BACKBONE_JAX and k.endswith(
-                    tuple(f"layer{i}/0/conv2/weight" for i in (2, 3, 4))):
-                v.zero_()
-    if segment:
+        gen = torch.Generator().manual_seed(4)
+        for k, v in io.flatten(weights["segmentation"]).items():
+            if k.endswith("/running_mean"):
+                v.uniform_(-0.3, 0.3, generator=gen)
+            elif k.endswith("/running_var"):
+                v.uniform_(0.7, 1.5, generator=gen)
+    if segment and name != "seg_bn_stats":
         state = {**state, "segmentation_bn": extract_bn_stats(
             weights["segmentation"])}
     return params, weights, state, train_net, n_steps, segment, train_mode
@@ -990,7 +995,8 @@ def spatial_train(mesh, name):
     for _ in range(n_steps):
         state, m = step(weights, state, opt, b)
         out.append({"metrics": {k: float(v) for k, v in m.items()},
-                    "grads": {k: v.grad.numpy().copy()
+                    "grads": {k: (torch.zeros_like(v) if v.grad is None
+                                  else v.grad).numpy().copy()
                               for k, v in named.items()}})
     return {"steps": out, "leaves": {k: v.detach().numpy().copy()
                                      for k, v in named.items()},
@@ -1124,8 +1130,9 @@ def backbone_piece(mesh, name, height):
     x.requires_grad_()
     if name == "max_pool":
         out = unet.max_pool(torch.relu(x), slab)
-    else:
-        out = unet.conv({"weight": weight}, x, stride, slab)
+    else:  # the stem pads 3 on every side, the others SAME
+        out = unet.conv({"weight": weight}, x, stride, slab,
+                        pad=3 if name == "stem" else None)
     (out * target).sum().backward()
     grads = [weight.grad if weight.grad is not None
              else torch.zeros_like(weight)]
@@ -1136,6 +1143,37 @@ def backbone_piece(mesh, name, height):
     return {"out": out.detach().numpy().copy(),
             "x_grad": x.grad.numpy().copy(),
             "w_grad": grads[0].numpy().copy()}
+
+
+# the stride-2 3x3 conv (SAME: 0 rows above a slab and 1 below) on even
+# and odd W (tests/test_torch_port_segmentation.py)
+STRIDE2_SHAPES = ((16, 24), (16, 23))
+
+
+def stride2_inputs(height, width):
+    """A seeded (2, 16, height, width) NCHW map and a (32, 16, 3, 3)
+    weight (numpy)."""
+    rng = np.random.default_rng(6)
+    return (rng.normal(size=(2, 16, height, width)).astype(np.float32),
+            rng.normal(size=(32, 16, 3, 3)).astype(np.float32))
+
+
+def case_stride2_same(mesh):
+    """unet.conv at stride 2 on the rank's slab of each STRIDE2_SHAPES
+    map, gathered to the whole map -> {(height, width): NCHW output}."""
+    from mst_tpu_torch.models import unet
+    from mst_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {}
+    for height, width in STRIDE2_SHAPES:
+        x, w = stride2_inputs(height, width)
+        slab = mesh_lib.space_slab(mesh, height)
+        x = slab.take(torch.tensor(x), 2).contiguous(
+            memory_format=torch.channels_last)
+        y = unet.conv({"weight": torch.tensor(w)}, x, 2, slab)
+        out[height, width] = slab.half().gather(
+            y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2).numpy().copy()
+    return out
 
 
 def case_spatial_backbone(mesh):
