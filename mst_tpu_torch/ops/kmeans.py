@@ -10,7 +10,9 @@ other centres. Empty clusters re-seed from a random point of their row.
 The iterations run in torch._higher_order_ops.while_loop, which
 torch.export records as one loop in the program; run eagerly, and in the
 exported program, its condition reads one flag from the device each
-iteration, as the Python loop did. The draws come from a sampling.Key,
+iteration, as the Python loop did. The loop and the final assignment
+are the span 'sampling.kmeans' (utils/profiling.py), which notes the
+loop's trip count as 'iterations'. The draws come from a sampling.Key,
 the reseed's with the iteration as the counter, so the loop holds no
 torch.Generator. Both of the reference's distances (euclidean, cosine)
 and its centres-only kmeans_predict are here.
@@ -20,6 +22,7 @@ import torch
 from torch._higher_order_ops.while_loop import while_loop
 
 from mst_tpu_torch.ops.sampling import Key, Rows, key_from_generator
+from mst_tpu_torch.utils.profiling import note, span
 
 
 def pairwise_sq_dist(a, b):
@@ -95,8 +98,10 @@ def batched_kmeans(X, num_clusters: int, tol: float = 1e-3,
     carry = (centers, torch.ones(B, dtype=torch.bool, device=X.device),
              torch.zeros(B, dtype=torch.int64, device=X.device),
              torch.zeros((), dtype=torch.int64, device=X.device))
-    centers = while_loop(cond, body, carry)[0]
-    return pdist(X, centers).argmin(dim=2), centers
+    with span("sampling.kmeans"):
+        centers, _, _, trips = while_loop(cond, body, carry)
+        note("iterations", trips)
+        return pdist(X, centers).argmin(dim=2), centers
 
 
 def kmeans_predict(X, cluster_centers, distance: str = "euclidean"):

@@ -96,6 +96,7 @@ from mst_tpu_torch.ops.softargmax import (softargmax2d_auto,
 from mst_tpu_torch.parallel import mesh as mesh_lib
 from mst_tpu_torch.parallel.mesh import batch_shards
 from mst_tpu_torch.train.losses import bce_with_logits
+from mst_tpu_torch.utils.profiling import span
 
 
 LOSS_KEYS = ("loss", "goal_loss", "traj_loss")
@@ -292,6 +293,12 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
     slab, merged over 'space' (two launches a step on each rank). With
     remat the recomputed forward runs its halo collectives again, in the
     backward, in the same order on every rank.
+
+    A step is the span 'train.step' (utils/profiling.py), and its forward
+    (inputs, encoder, decoders, both losses), backward and optimizer
+    (with the mesh's gradient sum) the spans 'train.forward',
+    'train.backward' and 'train.optimizer'; the functional form opens
+    none.
     """
     waypoints = list(scfg.waypoints)
     n_levels = len(mcfg.encoder_channels) + 1
@@ -394,21 +401,25 @@ def make_train_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None):
         return dict(zip(metrics, values.unbind()))
 
     def train_step(params, state, optimizer, batch):
-        optimizer.zero_grad()
-        goal_loss, traj_loss, goal_map, traj_map, new_state, slab = \
-            forward_on(params, state, batch)
-        loss = goal_loss + traj_loss
-        if loss.requires_grad:  # else no leaf trains: the step updates
-            loss.backward()     # nothing, as mst_tpu's on an empty tree
-        if shards is not None:  # over the world: every rank's share
-            mesh_lib.sum_([p.grad for p in optimizer.params
-                           if p.grad is not None])
-        optimizer.step()
-        metrics = top1_metrics(goal_map, traj_map, batch["traj"],
-                               batch["mask"], slab)
-        return new_state, global_metrics({
-            "loss": loss.detach(), "goal_loss": goal_loss.detach(),
-            "traj_loss": traj_loss.detach(), **metrics}, slab)
+        with span("train.step"):
+            optimizer.zero_grad()
+            with span("train.forward"):
+                goal_loss, traj_loss, goal_map, traj_map, new_state, slab = \
+                    forward_on(params, state, batch)
+                loss = goal_loss + traj_loss
+            with span("train.backward"):
+                if loss.requires_grad:  # else no leaf trains: the step
+                    loss.backward()     # updates nothing, as mst_tpu's
+            with span("train.optimizer"):
+                if shards is not None:  # over the world: every rank's share
+                    mesh_lib.sum_([p.grad for p in optimizer.params
+                                   if p.grad is not None])
+                optimizer.step()
+            metrics = top1_metrics(goal_map, traj_map, batch["traj"],
+                                   batch["mask"], slab)
+            return new_state, global_metrics({
+                "loss": loss.detach(), "goal_loss": goal_loss.detach(),
+                "traj_loss": traj_loss.detach(), **metrics}, slab)
 
     def loss_and_maps(trainable, frozen, state, batch):
         goal_loss, traj_loss, goal_map, traj_map, new_state, _ = forward_on(
@@ -513,6 +524,11 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
     'waypoint_samples' (B, n_wp, K, 2), gathered like 'best_traj' on a
     mesh; eval_step.forward then returns the goal logits third. Off, the
     step and its parts are what they are without it.
+
+    Spans (utils/profiling.py): the forward is 'forward', its model part
+    (inputs, encoder, goal decoder, the sigmoid) 'forward.model' and its
+    sampling (TTST's draws and k-means or the plain draws, CWS)
+    'forward.sampling'.
     """
     n_wp = len(scfg.waypoints)
     waypoints = list(scfg.waypoints)
@@ -522,16 +538,14 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
     def slabs_of(rows):
         return slab_levels(mesh, n_levels, rows)
 
-    def forward(params, state, batch, generator):
-        generator = draw_source(generator)
-        traj = batch["traj"]
-        if shards is not None:  # this rank's rows of the global draws
-            n = traj.shape[0]
-            generator = Rows(generator, *shards.rows(n), n * shards.count)
+    def goal_maps(params, state, batch):
+        """The model's part of the forward -> (features, the f32 goal
+        logits (B, H, W, pred), their waypoint channels (B, H, W, n_wp)
+        and those channels' sigmoid (B, n_wp, H, W) for the samplers)."""
         params = _compute_params(params, scfg)
         slabs = slabs_of(batch["semantic"].shape[-3])
         semantic, observed_map, _ = _prepare_inputs(
-            mcfg, scfg, params, batch["semantic"], traj,
+            mcfg, scfg, params, batch["semantic"], batch["traj"],
             seg_bn_state=state.get("segmentation_bn"),
             scene_idx=batch.get("scene_idx"),
             slab=None if slabs is None else slabs[0])
@@ -548,8 +562,17 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
             pred_waypoint_map = slabs[0].gather(pred_waypoint_map)
         pred_wp_sigmoid = torch.sigmoid(pred_waypoint_map / scfg.temperature)
         # (B, n_wp, H, W) for the samplers
-        wp_sigmoid_hw = pred_wp_sigmoid.permute(0, 3, 1, 2)
+        return (features, pred_goal_map, pred_waypoint_map,
+                pred_wp_sigmoid.permute(0, 3, 1, 2))
 
+    def sample_waypoints(generator, traj, pred_waypoint_map, wp_sigmoid_hw):
+        """The sampling layer's part -> waypoint samples (K, B, n_wp, 2):
+        the goals (TTST's draws and k-means, or plain draws), then the
+        other waypoints (CWS, or plain draws)."""
+        generator = draw_source(generator)
+        if shards is not None:  # this rank's rows of the global draws
+            n = traj.shape[0]
+            generator = Rows(generator, *shards.rows(n), n * shards.count)
         if scfg.use_ttst:
             goal_samples = _ttst_goals(generator, pred_waypoint_map,
                                        wp_sigmoid_hw, scfg)  # (K_e,B,1,2)
@@ -559,17 +582,25 @@ def make_eval_step(mcfg: ynet_lib.YNetConfig, scfg: StepConfig, mesh=None,
             goal_samples = gs.permute(2, 0, 1, 3)  # (n_goal, B, 1, 2)
 
         if scfg.use_cws and n_wp > 1:
-            waypoint_samples = _cws(generator, goal_samples, traj,
-                                    wp_sigmoid_hw, scfg)
-        elif n_wp > 1:
+            return _cws(generator, goal_samples, traj, wp_sigmoid_hw, scfg)
+        if n_wp > 1:
             ws = sample_heatmap(wp_sigmoid_hw[:, :-1],
                                 scfg.n_goal * scfg.n_traj,
                                 generator=generator)  # (B, n_wp-1, K, 2)
             ws = ws.permute(2, 0, 1, 3)  # (K, B, n_wp-1, 2)
             goal_rep = goal_samples.repeat(scfg.n_traj, 1, 1, 1)
-            waypoint_samples = torch.cat([ws, goal_rep], dim=2)
-        else:
-            waypoint_samples = goal_samples  # (K, B, 1, 2)
+            return torch.cat([ws, goal_rep], dim=2)
+        return goal_samples  # (K, B, 1, 2)
+
+    def forward(params, state, batch, generator):
+        with span("forward"):
+            with span("forward.model"):
+                features, pred_goal_map, pred_waypoint_map, wp_sigmoid_hw = \
+                    goal_maps(params, state, batch)
+            with span("forward.sampling"):
+                waypoint_samples = sample_waypoints(
+                    generator, batch["traj"], pred_waypoint_map,
+                    wp_sigmoid_hw)
         if collect_samples:
             return features, waypoint_samples, pred_goal_map
         return features, waypoint_samples
