@@ -7,9 +7,10 @@ Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), the torch/CUDA versions,
      and whether pandas, cv2 and PIL import;
   2. build every kernel from the sources in this checkout (one nvcc each,
-     all started together, for csrc/fused_predict.cu and
-     csrc/softargmax_rows.cu, and csrc/conv3x3.cu and csrc/decoder_chain.cu,
-     both on csrc/conv_wgmma.cuh, with their ptxas registers, spills,
+     all started together, for csrc/fused_predict.cu,
+     csrc/softargmax_rows.cu and csrc/kmeans.cu, and csrc/conv3x3.cu and
+     csrc/decoder_chain.cu, both on csrc/conv_wgmma.cuh, with their
+     ptxas registers, spills,
      warnings and dynamic shared memory), and hold the serving kernels'
      work splits in Python (what the CPU tests check) against the
      libraries' own;
@@ -20,13 +21,18 @@ Phases, each fatal on failure:
      an image smaller than a stage, C = 6, a view off 16-byte alignment, a
      peaked map), failing on a non-finite row; time kernel (CUDA events,
      and device time from torch.profiler, which must show one kernel a
-     call), plain version and bound;
+     call), plain version and bound; TTST's k-means kernel against its
+     plain version (ops/kmeans.lloyd, the torch while_loop) on the same
+     CUDA tensors at TTST's shapes (B = 1, 4, 8, 16 rows of N = 10,000
+     whole-pixel draws of goal maps, k = 19): trips, assignments and
+     centres bit for bit; timed at B = 8 as the serving kernels are;
   4. a small-width reference: the same weights and waypoint draws through
      the port on the card (kernels) and on the CPU (plain versions);
   5. the main path: Predictor at the full width of sdd_shortterm_eval.yaml
      (K = 20, TTST on, B = 8, 352 x 480, random weights from a seed)
-     answers 4 requests and 1 request with a LoRA style; both kernels'
-     launch counts must rise here; then the fused kernel against its plain
+     answers 4 requests and 1 request with a LoRA style; both serving
+     kernels' launch counts must rise here, and the k-means kernel's must
+     be one a request; then the fused kernel against its plain
      version on one request's own decode-tail operands;
   6. where one more request's time goes: its two stages on the host clock,
      and a torch.profiler trace (kernel time, device busy share, top
@@ -38,7 +44,7 @@ Phases, each fatal on failure:
      random weights from seed 0, Adam at lr 1e-3): per-step losses and
      host-clock ms, finite losses, frozen leaves bit-identical, lora_B
      moved from step 1 and lora_A from step 2, the rows kernel launched
-     twice a step (its metrics) and every other kernel never (all six
+     twice a step (its metrics) and every other kernel never (all
      counts set to 0 before the steps and read after them); the peak
      device memory, the rows kernel against its plain version on the
      path's own maps, a torch.profiler trace of one more step; then the
@@ -87,9 +93,9 @@ Phases, each fatal on failure:
      max_wait_ms 5) under 1 client x 10 full-B requests and 8 clients x 10
      requests of 1-2 rows over two seeds, with and without the style:
      every response finite and inside the image, every full-B one equal
-     to a direct predict (1e-4 raw px); all six kernels' counts set to 0
-     before the traffic and read after (rows and fused once a dispatch,
-     the others never); a direct predict on a side stream during a
+     to a direct predict (1e-4 raw px); every kernel's count set to 0
+     before the traffic and read after (rows, fused and k-means once a
+     dispatch, the others never); a direct predict on a side stream during a
      dispatch against the serial runs, and fused_predict queued on two
      streams behind one gate event, every output against the plain
      version and the trace showing the two streams' launches overlap; a
@@ -115,7 +121,7 @@ Phases, each fatal on failure:
      float64, at least 1e-4; the argmax agreement printed), CUDA-event ms
      over 10 calls beside its bound
      (torch's FLOP count at 67 TFLOP/s f32), peak memory; then, with all
-     six kernels' counts set to 0 before and read after,
+     kernels' counts set to 0 before and read after,
      sdd_shortterm_eval.yaml / _train.yaml as shipped (6 classes) on phase
      6c's synthetic RGB scenes: a 2-round TTST test (the backbone once a
      scene), 3 segmentation_head steps (the head moves, every other leaf
@@ -208,9 +214,10 @@ Phases, each fatal on failure:
      process with mst_tpu_torch.models, .train and .config blocked loads
      each directory (timed) and answers 4 requests and 1 styled, every
      count zeroed before and read after (both serving kernels must rise
-     in each); every output finite, inside the image and within 1e-4 raw
-     px of the eager Predictor of the same weights and keys; a program
-     request against an eager one, median of 5 each.
+     in each, the k-means kernel once a request); every output finite,
+     inside the image and within 1e-4 raw px of the eager Predictor of the
+     same weights and keys; a program request against an eager one,
+     median of 5 each.
   14. data parallelism over a mesh (mesh_path; after phase 13, before
      phase 10), on phase 6c's scenes at sdd_shortterm_train.yaml's width,
      cuDNN deterministic, its ranks child processes started as torchrun
@@ -247,12 +254,14 @@ Phases, each fatal on failure:
      of a base and base + mosa_2 delta, lora_importance over the delta's
      9 LoRA layers (11 test passes), the swap oracle bit for bit, seconds
      a pass; (c) capture_activations (small width card against CPU, 1e-4
-     of each map's max; full width timed); both kernels at the harness's
-     miniature shapes (32 x 64 maps, C = 8 into the fused kernel) against
-     their plain versions; (d) generalize.sh and tune_mosa.sh of
-     scripts/sdd/ped_to_biker through mst_tpu_torch.utils.scripts_e2e on
-     the card, side by side, jax and mst_tpu unimportable, each suite
-     process printing its kernel launches as it ends.
+     of each map's max; full width timed), the rows, fused and k-means
+     kernels once an eval batch of (a) and (b); both serving kernels at
+     the harness's miniature shapes (32 x 64 maps, C = 8 into the fused
+     kernel) against their plain versions; (d) generalize.sh and
+     tune_mosa.sh of scripts/sdd/ped_to_biker through
+     mst_tpu_torch.utils.scripts_e2e on the card, side by side, jax and
+     mst_tpu unimportable, each suite process printing its kernel
+     launches as it ends.
 The line before the last is the per-kernel JSON record (launches on each
 kernel's own path, train_launches on the fine-tune path, loop_launches
 on the Experiment loop's, ymod_launches on Y-Net-Mod's, serve_launches
@@ -526,6 +535,88 @@ def check_fused_kernel(torch):
                 k: times[30][k] for k in ("ms", "device_ms", "plain_ms")}}
 
 
+# TTST's k-means (train/steps._ttst_goals): 10,000 goal samples a row into
+# n_goal - 1 = 19 centres, tol 1e-3, at most 1,000 trips; requests of 1-16
+# agents
+KMEANS_N, KMEANS_K, KMEANS_TOL, KMEANS_ITERS = 10000, 19, 1e-3, 1000
+KMEANS_BS = (1, 4, 8, 16)
+
+
+def kmeans_inputs(torch, B, seed):
+    """TTST's k-means operands for B rows: KMEANS_N whole-pixel draws
+    (with replacement, rel_threshold 0.002) of B random smooth goal maps
+    at 352 x 480, and batched_kmeans' initial centres and reseed table
+    from the same key -> (X, centres, reseed), contiguous on the card."""
+    from mst_tpu_torch.ops.sampling import Key, key_from_seed, sample_heatmap
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.rand((B, 1, 352, 480), generator=g, device="cuda")
+    maps = torch.nn.functional.avg_pool2d(noise ** 16, 41, 1, 20)[:, 0]
+    key = Key(key_from_seed(seed, "cuda"))
+    X = sample_heatmap(maps, KMEANS_N, rel_threshold=0.002,
+                       replacement=True, generator=key)
+    rows = torch.arange(B, device="cuda")[:, None]
+    idx = key.bits((B, KMEANS_N)).topk(KMEANS_K, dim=1).indices
+    reseed = key.randint(KMEANS_N, (B, KMEANS_K), counter=torch.arange(
+        KMEANS_ITERS, device="cuda"))
+    return X.contiguous(), X[rows, idx].contiguous(), reseed.contiguous()
+
+
+def check_kmeans_kernel(torch):
+    """TTST's k-means kernel against its plain version (ops/kmeans.lloyd,
+    the torch while_loop) on the same CUDA tensors at TTST's shapes (B in
+    KMEANS_BS): each row's trips, the assignments and the centres bit for
+    bit (whole-pixel sums are exact in f32 in any order); then timed at
+    B = 8 (CUDA events, and one kernel a call in the profiler's device
+    time) beside the plain version and the bound of its most trips."""
+    from mst_tpu_torch.ops.kernels.kmeans import lloyd2d
+    from mst_tpu_torch.ops.kmeans import lloyd, pairwise_sq_dist
+    from mst_tpu_torch.probes import time_ms
+    from mst_tpu_torch.probes.serving_kernels import time_call
+
+    def kernel(X, c0, reseed):
+        return lloyd2d(X, c0, reseed, KMEANS_TOL, KMEANS_ITERS)
+
+    def plain(X, c0, reseed):
+        return lloyd(X, c0, reseed, KMEANS_TOL, KMEANS_ITERS,
+                     pairwise_sq_dist)[:3]
+
+    trips = {}
+    for B in KMEANS_BS:
+        args = kmeans_inputs(torch, B, seed=B)
+        got, want = kernel(*args), plain(*args)
+        for name, a, b in zip(("assignments", "centres", "trips"), got,
+                              want):
+            check(torch.equal(a, b), f"k-means kernel, B = {B}: its {name} "
+                  "differ from the while_loop's (trips "
+                  f"{got[2].tolist()} against {want[2].tolist()})")
+        trips[B] = got[2].tolist()
+    print(f"k-means kernel against the while_loop at B = {KMEANS_BS}, "
+          f"N = {KMEANS_N}, k = {KMEANS_K}: trips, assignments and centres "
+          f"bit for bit; trips by row {trips}")
+    R = 8
+    args = kmeans_inputs(torch, R, seed=R)
+    rec = time_call(lambda: kernel(*args), 20)
+    check_one_kernel("the k-means kernel", rec, 20)
+    plain_ms = time_ms(lambda: plain(*args), 3)
+    n, N, k = max(trips[R]), KMEANS_N, KMEANS_K
+    # a trip reads no HBM beyond its centres (the points stay in shared
+    # memory); per point and centre 2 subtractions, 2 products, a sum and
+    # a comparison, and 3 sums a point into its cluster
+    b_ms, b_by = bound(R * N * 8 + R * k * 8 + R * (N + 1) * 8
+                       + n * R * k * 8, n * R * N * (6 * k + 3))
+    print_times(f"kmeans ({R}, {N}, 2) to {k} centres, {n} trips", rec,
+                b_ms)
+    print(f"kmeans: plain (while_loop) {plain_ms:.4f} ms")
+    return {"name": "kmeans", "route": "cuda",
+            "source": "mst_tpu_torch/csrc/kmeans.cu",
+            "replaces": "none (mst_tpu/ops/kmeans.py's vmap of "
+                        "lax.while_loop, through XLA)",
+            "max_abs_err": 0.0, "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 # ---- phase 11: bf16, remat, cross-scene batching, forward_test
 ROWS_BF16_TOL = 1e-4  # px, the rows kernel on bf16 logits vs its plain one
 FUSED_BF16_TOL = 1e-3  # px, the fused kernel on bf16 operands vs its plain one
@@ -754,6 +845,7 @@ def bf16_requests(torch, wrappers, card, semantic, observed):
         torch.cuda.empty_cache()
     want = dict.fromkeys(wrappers, 0)
     want["softargmax_rows"] = want["fused_predict_bf16"] = 3
+    want["kmeans"] = 3  # TTST's k-means on the f32 goal samples
     check(out["bfloat16"]["launches"] == want, "the bf16 requests launched "
           f"{out['bfloat16']['launches']}, the code gives {want}")
     for seed in range(3):
@@ -944,8 +1036,8 @@ def cross_scene_path(torch, wrappers, card):
                   f" in {test_s:.2f} s, launches {launches}")
             want = dict.fromkeys(wrappers, 0)
             want["fused_predict"] = n_test
-            want["softargmax_rows"] = n_test if exp.params.get(
-                "use_TTST") else 0
+            want["softargmax_rows"] = want["kmeans"] = (
+                n_test if exp.params.get("use_TTST") else 0)
             check(launches == want, f"the test launched {launches}, the "
                   f"code gives {want}")
             check(exp.n_segmented == 2, "the backbone ran other than once "
@@ -1659,6 +1751,7 @@ def experiment_loop(torch, wrappers, step_ms_6b):
                                    + 2 * n["test"])
         want["fused_predict"] = (2 * n["val"] + 2 * n["test"]
                                  + 3 * n["val"] + 2 * n["test"])
+        want["kmeans"] = 2 * n["test"]  # the TTST test's 2 rounds
         print(f"loop batches: {n}; expected launches {want}")
 
         torch.cuda.synchronize()
@@ -2362,9 +2455,10 @@ def deployment_path(torch, wrappers, card, semantic, observed, delta):
               f"requests, {dispatches - d1} for the {len(results)} "
               f"8-client ones), launches {launches}")
         check(launches["softargmax_rows"] == launches["fused_predict"]
-              == dispatches > 0 and not any(
+              == launches["kmeans"] == dispatches > 0 and not any(
                   v for k, v in launches.items()
-                  if k not in ("softargmax_rows", "fused_predict")),
+                  if k not in ("softargmax_rows", "fused_predict",
+                               "kmeans")),
               "the serving kernels' launches are not one each a dispatch")
 
         # ---- after the counts: every response against a direct predict
@@ -2932,6 +3026,7 @@ def segmentation_path(torch, wrappers, card, rows_rec, fused_rec):
         want["softargmax_rows"] = (2 * n["test"] + 2 * SEG_STEPS
                                    + 2 * 2 * n["train"])
         want["fused_predict"] = 2 * n["test"] + 2 * n["val"] + 2
+        want["kmeans"] = 2 * n["test"]  # the TTST test's 2 rounds
         print(f"segmentation path batches {n}; expected launches {want}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4163,6 +4258,7 @@ import torch
 from mst_tpu_torch.loader import LoadedModel
 from mst_tpu_torch.ops.kernels.fused_predict import \
     fused_predictor_softargmax as fused
+from mst_tpu_torch.ops.kernels.kmeans import lloyd2d as kmeans
 from mst_tpu_torch.ops.kernels.softargmax_rows import \
     softargmax2d_rows as rows
 job = json.loads(sys.argv[2])
@@ -4173,6 +4269,7 @@ for name in job["names"]:
         semantic, observed = z["semantic"], z["observed"]
     for fn in (rows, fused):
         fn.launches = fn.launches_bf16 = 0
+    kmeans.launches = 0
     t0 = time.perf_counter()
     model = LoadedModel(d)
     torch.cuda.synchronize()
@@ -4191,7 +4288,8 @@ for name in job["names"]:
         "launches": {"softargmax_rows": rows.launches,
                      "softargmax_rows_bf16": rows.launches_bf16,
                      "fused_predict": fused.launches,
-                     "fused_predict_bf16": fused.launches_bf16}}
+                     "fused_predict_bf16": fused.launches_bf16,
+                     "kmeans": kmeans.launches}}
     del model
 leaked = sorted(m for m in sys.modules if m.startswith(
     tuple(b + "." for b in BLOCKED)) and sys.modules[m] is not None)
@@ -4362,8 +4460,10 @@ def serialized_program_path(torch, wrappers, card, semantic, observed,
             dtype_rows = "softargmax_rows"
             dtype_fused = ("fused_predict_bf16" if name == "bf16"
                            else "fused_predict")
-            check(launches[dtype_rows] > 0 and launches[dtype_fused] > 0,
-                  f"{name}: the programs launched {launches}")
+            check(launches[dtype_rows] > 0 and launches[dtype_fused] > 0
+                  and launches["kmeans"] == len(P13_REQUESTS),
+                  f"{name}: the programs launched {launches} over "
+                  f"{len(P13_REQUESTS)} TTST requests")
             rf = params["resize_factor"]
             sem, obs = cases[name][1], cases[name][2]
             err, exact = 0.0, True
@@ -5078,7 +5178,7 @@ def hold_world(tmp, one, rep1, reps, backend, label):
     check(all(r["backend"] == backend for r in reps),
           f"{label}: backends {[r['backend'] for r in reps]}")
     for r in reps:
-        for k in ("softargmax_rows", "fused_predict"):
+        for k in ("softargmax_rows", "fused_predict", "kmeans"):
             check(r["launches"][k] > 0,
                   f"{label}: {k} never ran on rank {r['rank']}")
     loss_err = max(abs(a - b) / abs(b) for r in reps
@@ -6478,7 +6578,8 @@ def hold_backbone(tmp, one, rep1, reps, card, shape=P14_SPATIAL,
     for r, bb in enumerate(bbs):
         la = bb["eval_launches"]
         check(la["fused_predict_partial"] == bb["chunks"] > 0
-              and la["fused_predict"] == 0 and la["softargmax_rows"] > 0,
+              and la["fused_predict"] == 0 and la["softargmax_rows"] > 0
+              and la["kmeans"] > 0,
               f"{label} (a): rank {r}'s launches {la}, {bb['chunks']} "
               "decode chunk(s)")
         check(bb["rows"] == 352 // shape[1],
@@ -7249,10 +7350,12 @@ def analysis_path(torch, wrappers, card, rows_rec, fused_rec):
         print(f"15a-c launches: {total} over {n_batches} eval batches")
         check(total["softargmax_rows"] == n_batches
               and total["fused_predict"] == n_batches
+              and total["kmeans"] == n_batches
               and all(v == 0 for k, v in total.items()
-                      if k not in ("softargmax_rows", "fused_predict")),
+                      if k not in ("softargmax_rows", "fused_predict",
+                                   "kmeans")),
               f"15a-c launched {total}, the code gives rows = fused = "
-              f"{n_batches}, others 0")
+              f"kmeans = {n_batches}, others 0")
 
         # ---- (d) two suites through the harness
         torch.cuda.empty_cache()
@@ -7289,6 +7392,7 @@ def main():
     from mst_tpu_torch.ops.kernels import _build
     from mst_tpu_torch.ops.kernels.fused_predict import \
         fused_predictor_softargmax
+    from mst_tpu_torch.ops.kernels.kmeans import lloyd2d
     from mst_tpu_torch.ops.kernels.softargmax_rows import softargmax2d_rows
     from mst_tpu_torch.probes import kernel_wrappers
     from mst_tpu_torch.serve import Predictor
@@ -7306,7 +7410,8 @@ def main():
 
     # ---- 2. build
     t0 = time.perf_counter()
-    sources = ["fused_predict", "softargmax_rows", "conv3x3", "decoder_chain"]
+    sources = ["fused_predict", "softargmax_rows", "kmeans", "conv3x3",
+               "decoder_chain"]
     print_ptxas(_build.build(sources))
     print(f"build: nvcc {', '.join(s + '.cu' for s in sources)} in "
           f"parallel, {time.perf_counter() - t0:.1f} s")
@@ -7316,7 +7421,8 @@ def main():
     # ---- 3. kernels against their plain versions (and phase 11's bf16
     # checks of the same two kernels, here where the profiler still sees
     # every launch: late in a long process it loses kernel records)
-    records = [check_rows_kernel(torch), check_fused_kernel(torch)]
+    records = [check_rows_kernel(torch), check_fused_kernel(torch),
+               check_kmeans_kernel(torch)]
     bf16_records = check_bf16_kernels(torch)
     partial_rec = check_partial_kernel(torch)
     rows_partial_rec = check_rows_partial_kernel(torch)
@@ -7355,6 +7461,7 @@ def main():
 
     softargmax2d_rows.launches = 0
     fused_predictor_softargmax.launches = 0
+    lloyd2d.launches = 0
     torch.cuda.reset_peak_memory_stats()
     outs = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -7385,8 +7492,11 @@ def main():
           "raw px")
     check(style_moved > 0, "the LoRA style changed nothing")
     launches = {"softargmax_rows": softargmax2d_rows.launches,
-                "fused_predict": fused_predictor_softargmax.launches}
+                "fused_predict": fused_predictor_softargmax.launches,
+                "kmeans": lloyd2d.launches}
     print(f"main-path launches: {launches}")
+    check(launches["kmeans"] == len(outs), "the k-means kernel launched "
+          f"{launches['kmeans']} times over {len(outs)} TTST requests")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
     for r in records:

@@ -20,9 +20,10 @@ The forward takes (params, state, semantic, observed, key) and returns
 waypoint samples). Params and state are inputs, so one program serves
 every style. The key is an int64 (2,) tensor (ops/sampling.Key), so the
 draws are the program's own. This module imports no model code: only
-torch, numpy, the weight bridge (io) and the two serving kernels, whose
-custom ops (mst_tpu_torch::softargmax2d_rows and
-mst_tpu_torch::fused_predictor_softargmax) the programs call, and whose
+torch, numpy, the weight bridge (io) and the three serving kernels, whose
+custom ops (mst_tpu_torch::softargmax2d_rows,
+mst_tpu_torch::fused_predictor_softargmax and, in a program exported on
+the card, TTST's mst_tpu_torch::kmeans2d) the programs call, and whose
 `launches` count those calls, and ops/conv.py, whose op
 (mst_tpu_torch::conv2d_onednn) a CPU program's backbone calls.
 """
@@ -36,9 +37,10 @@ import torch
 from torch.utils import _pytree as pytree
 
 from mst_tpu_torch import io, resolve_device
-# registers the two custom ops the programs call
+# registers the custom ops the programs call
 from mst_tpu_torch.ops import conv  # noqa: F401 (the backbone's CPU op)
-from mst_tpu_torch.ops.kernels import fused_predict, softargmax_rows  # noqa
+from mst_tpu_torch.ops.kernels import (  # noqa: F401
+    fused_predict, kmeans, softargmax_rows)
 from mst_tpu_torch.ops.sampling import key_from_generator, key_from_seed
 
 FORMAT = "mst_tpu_torch.serve/2"

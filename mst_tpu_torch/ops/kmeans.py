@@ -7,20 +7,26 @@ that have converged stay frozen while the others go on, as under the JAX
 package's vmap of lax.while_loop. One global stopping condition would give
 other centres. Empty clusters re-seed from a random point of their row.
 
-The iterations run in torch._higher_order_ops.while_loop, which
+On a CUDA device the loop runs as one hand-written kernel
+(ops/kernels/kmeans.py, csrc/kmeans.cu: mst_tpu_torch::kmeans2d), every
+row to its own rule in one launch, with no host read; it takes the
+euclidean distance on f32 2-D points (TTST's goal samples) with up to
+24 clusters, and raises for anything else. On the CPU the loop is
+`lloyd`: the iterations in torch._higher_order_ops.while_loop, which
 torch.export records as one loop in the program; run eagerly, and in the
-exported program, its condition reads one flag from the device each
-iteration, as the Python loop did. The loop and the final assignment
-are the span 'sampling.kmeans' (utils/profiling.py), which notes the
-loop's trip count as 'iterations'. The draws come from a sampling.Key,
-the reseed's with the iteration as the counter, so the loop holds no
-torch.Generator. Both of the reference's distances (euclidean, cosine)
-and its centres-only kmeans_predict are here.
+exported program, its condition reads one flag each iteration. Both are
+the span 'sampling.kmeans' (utils/profiling.py), which notes the trip
+count as 'iterations' (the kernel's as a device tensor, the most trips
+of a row). The draws come from a sampling.Key, the reseed's with the
+iteration as the counter, drawn before either runs, so neither holds a
+torch.Generator. Both of the reference's distances (euclidean, cosine;
+on the CPU) and its centres-only kmeans_predict are here.
 """
 
 import torch
 from torch._higher_order_ops.while_loop import while_loop
 
+from mst_tpu_torch.ops.kernels import kmeans as kernel
 from mst_tpu_torch.ops.sampling import Key, Rows, key_from_generator
 from mst_tpu_torch.utils.profiling import note, span
 
@@ -57,6 +63,10 @@ def batched_kmeans(X, num_clusters: int, tol: float = 1e-3,
     Returns assignments (B, N) int64 and centres (B, k, D).
     """
     pdist = DISTANCES[distance]
+    if X.device.type == "cuda" and distance != "euclidean":
+        raise ValueError(f"batched_kmeans: the {distance} distance on a "
+                         "CUDA device; its kernel (ops/kernels/kmeans.py) "
+                         "takes the euclidean distance")
     if isinstance(generator, Rows):
         generator = generator.keyed(X.device)
     elif not isinstance(generator, Key):
@@ -75,6 +85,28 @@ def batched_kmeans(X, num_clusters: int, tol: float = 1e-3,
     # index, not a hash of a dozen small launches an iteration
     reseed = generator.randint(N, (B, k), counter=torch.arange(
         iter_limit, dtype=torch.int64, device=X.device))
+    with span("sampling.kmeans"):
+        if X.device.type == "cuda":
+            assign, centers, iters = kernel.lloyd2d(
+                X.contiguous(), centers.contiguous(), reseed.contiguous(),
+                tol, iter_limit)
+            trips = iters.max()
+        else:
+            assign, centers, _, trips = lloyd(X, centers, reseed, tol,
+                                              iter_limit, pdist)
+        note("iterations", trips)
+        return assign, centers
+
+
+def lloyd(X, centers, reseed, tol, iter_limit, pdist):
+    """The loop of batched_kmeans as one torch while_loop: each row of X
+    (B, N, D) from its centres (B, k, D) to its own stopping rule, an
+    empty cluster at iteration `it` reseeded from X[row, reseed[it, row,
+    j]] -> (assignments (B, N), centres (B, k, D), each row's iterations
+    (B,), the loop's trips). The kernel's plain version."""
+    B, N, _ = X.shape
+    k = centers.shape[1]
+    rows = torch.arange(B, device=X.device)[:, None]
     clusters = torch.arange(k, device=X.device)
 
     def cond(centers, active, iters, it):
@@ -98,10 +130,8 @@ def batched_kmeans(X, num_clusters: int, tol: float = 1e-3,
     carry = (centers, torch.ones(B, dtype=torch.bool, device=X.device),
              torch.zeros(B, dtype=torch.int64, device=X.device),
              torch.zeros((), dtype=torch.int64, device=X.device))
-    with span("sampling.kmeans"):
-        centers, _, _, trips = while_loop(cond, body, carry)
-        note("iterations", trips)
-        return pdist(X, centers).argmin(dim=2), centers
+    centers, _, iters, trips = while_loop(cond, body, carry)
+    return pdist(X, centers).argmin(dim=2), centers, iters, trips
 
 
 def kmeans_predict(X, cluster_centers, distance: str = "euclidean"):

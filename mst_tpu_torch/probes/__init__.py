@@ -50,19 +50,21 @@ class Bf16Count:
 
 
 def kernel_wrappers():
-    """{kernel name: its wrapper} for all six kernels, the two serving
+    """{kernel name: its wrapper} for all seven kernels, the two serving
     kernels' bf16 instantiations (Bf16Count) and the partial-statistics
     variants of the fused kernel (the spatial mesh's decode tail) and of
     the rows kernel (the spatial train step's top-1 metrics), each in f32
     and bf16; each one's `launches` counts the launches of its kernel."""
     from mst_tpu_torch.ops.kernels.fused_predict import (
         fused_predictor_softargmax, fused_predictor_softargmax_partial)
+    from mst_tpu_torch.ops.kernels.kmeans import lloyd2d
     from mst_tpu_torch.ops.kernels.softargmax_rows import (
         softargmax2d_rows, softargmax2d_rows_partial)
     from mst_tpu_torch.probes import chain_probe, conv_probe
 
     return {"softargmax_rows": softargmax2d_rows,
             "fused_predict": fused_predictor_softargmax,
+            "kmeans": lloyd2d,
             **dict(conv_probe.KERNELS), **dict(chain_probe.KERNELS),
             "softargmax_rows_bf16": Bf16Count(softargmax2d_rows),
             "fused_predict_bf16": Bf16Count(fused_predictor_softargmax),

@@ -21,9 +21,11 @@ mst_tpu_torch.models, .train or .config serves the directory.
 The draws of a request come from a key (ops/sampling.Key): `key`, or a
 key drawn from `generator`, or the key of `seed`; a seed gives the same
 draws in Predictor and in LoadedModel, and a key the same bits on the
-CPU and on the card. TTST's k-means is one torch while_loop in the
-forward program (ops/kmeans.py), whose condition reads one flag from the
-device each iteration.
+CPU and on the card. TTST's k-means (ops/kmeans.py) is, on the card,
+one launch of a hand-written kernel that runs every row's loop with no
+host read (mst_tpu_torch::kmeans2d in a forward program exported
+there); on the CPU it is one torch while_loop, in the forward program
+too, whose condition reads one flag each iteration.
 
 The model state is the batch norms' running statistics of the serial
 adapters. A model with a state serves a checkpoint or a style only with
@@ -371,8 +373,9 @@ def check(model, seed=0, styles=(), bench=0):
         out["trajectories"][0, 0, 0, 0]  # host copy = request complete
         lat.append(time.perf_counter() - t0)
     lat_ms = np.sort(np.asarray(lat)) * 1e3
-    # open loop: with TTST on, k-means syncs the host each iteration, so
-    # the requests cannot queue up on the device ahead of the host
+    # open loop: on the card no k-means trip reads the host, so requests
+    # may queue up on the device ahead of it (on the CPU, and in a
+    # program exported there, TTST's k-means reads a flag every trip)
     t0 = time.perf_counter()
     outs = [model.predict(semantic, observed, seed=seed + 2 + bench + i,
                           block=False) for i in range(bench)]
